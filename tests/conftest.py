@@ -11,3 +11,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import _hypothesis_fallback  # noqa: E402
 
 _hypothesis_fallback.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips without CUDA")
