@@ -10,16 +10,27 @@ Phases, each printing one JSON line:
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: every CUDA source of the port compiled with nvcc for sm_90a,
    one nvcc per source, all started together;
-3. kernels against their plain PyTorch versions on the card, bit for bit,
-   at the main path's shape and at ragged shapes, then timed;
-4. the main path: the sequential DAG-AFL loop over four full-width VGG16
+3. kernels against their plain PyTorch versions on the card, then timed:
+   the signature kernel bit for bit at the CNN path's shape and at ragged
+   shapes (float32), and at the LM path's bfloat16 shape in its bucketed
+   form; the flash attention kernel within the reference's tolerances at
+   the LM path's shape (from a strided (B,S,H,hd) view), at every shape of
+   the reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
+   with a window and a soft-cap;
+4. the CNN path: the sequential DAG-AFL loop over four full-width VGG16
    clients on 32x32x3 images, driven through ``CNNBackend`` and
    ``DagAflCoordinator.run``, with every kernel's launch count set to 0
    just before and read just after; and the card's forward pass held
-   against the port's CPU forward on a small input.
+   against the port's CPU forward on a small input;
+5. the LM path: the same loop over four internlm2-1.8b clients at full
+   width (depth cut to 4 of 24 layers, token streams drawn from a
+   2,048-token sub-vocabulary), driven through ``LMBackend``, with the
+   launch counts set to 0 just before and read just after; and the
+   kernel forward of the final global model held against its
+   plain-attention forward on the card.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-main path, its error against the plain version and its times beside its
+main paths, its error against the plain version and its times beside its
 bound; the card's name and power limit as ``nvidia-smi`` prints them; and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that last line, as does a host without CUDA or a directory that
@@ -40,8 +51,30 @@ sys.path.insert(0, str(ROOT / "src"))
 # tensor cores, at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12        # dense, tensor cores
 MAIN_SHAPE = (128, 1024, 64)   # VGG16 conv 1 at 32x32, 128 samples
 RAGGED_SHAPE = (3, 1000, 63)
+# the LM path: internlm2-1.8b at full width, batch 8 of 512 positions
+LM_SIG_SHAPE = (1, 8 * 512, 2048)   # final-norm output, bfloat16
+LM_SIG_RAGGED = (2, 300, 1000)      # d % 64 != 0
+FLASH_MAIN = (8, 16, 8, 512, 128)   # B, H, K, S, hd; causal, bfloat16
+# tests/test_kernels.py FLASH_CASES: B, H, K, S, hd, causal, window, cap
+FLASH_CASES = [(2, 4, 2, 256, 64, True, -1, 0.0),
+               (1, 4, 4, 300, 32, True, 48, 0.0),
+               (2, 2, 1, 128, 64, True, -1, 30.0),
+               (1, 2, 2, 200, 64, False, -1, 0.0),
+               (1, 8, 2, 256, 128, True, 128, 50.0),
+               (2, 4, 2, 192, 64, True, -1, 0.0)]
+FLASH_HD256 = (1, 8, 4, 1024, 256, True, 256, 50.0)   # gemma2's head_dim
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # the reference's
+LM_DATA_VOCAB = 2048
+# the card's kernel forward against its plain-attention forward, bfloat16
+# end to end (the plain path rounds the scaled q and the softmax weights to
+# bfloat16, the kernel keeps them in float32): logits within LM_LOGIT_RTOL
+# of the largest logit, signature buckets within LM_SIG_TOL (about 650 net
+# flags of the 131,072 per bucket)
+LM_LOGIT_RTOL = 0.05
+LM_SIG_TOL = 0.005
 
 
 def emit(**fields) -> None:
@@ -93,6 +126,23 @@ def device_ms(fn, inputs, reps: int = 60) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def lm_activation(shape, generator, dtype):
+    """Unit-scale activations (as a final RMS norm emits them) with exact
+    zeros and the bfloat16 values on both sides of tau = 0.05, where the
+    float32 comparison decides."""
+    import torch
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    flat = x.view(-1)
+    n = flat.numel()
+    edges = torch.tensor([0.0, -0.0, 0.05, 0.0498046875, 0.050048828125,
+                          -0.0498046875, -0.050048828125],
+                         device=x.device)
+    idx = torch.randint(0, n, (7 * 512,), generator=generator,
+                        device=x.device)
+    flat[idx] = edges.repeat(512)
+    return x.to(dtype)
 
 
 def phase_environment(build) -> str:
@@ -185,6 +235,123 @@ def phase_kernels(sig, ops, dev) -> dict:
                            >= ops_done / F32_OPS_PER_S else "operations"),
               "library_ms": library_ms, "timed_shape": list(MAIN_SHAPE)}
     emit(phase="kernels_vs_plain", compared=compared, **record)
+    return record
+
+
+def phase_signature_lm(sig, ops, dev) -> dict:
+    """The signature kernel on bfloat16 input and in the bucketed form of
+    the LM path, bit for bit; then timed at the LM path's shape."""
+    import torch
+    from repro_torch.models.layers import activation_signature
+    g = torch.Generator(device=dev).manual_seed(3)
+    compared = []
+    for shape in (LM_SIG_SHAPE, LM_SIG_RAGGED):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = lm_activation(shape, g, dtype)
+            for tau in (0.0, 0.05):
+                got = sig.signature_counts(x, tau)
+                want = sig.signature_counts_plain(x, tau)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"signature kernel != plain at {shape} {dtype} "
+                      f"tau {tau}")
+            got = ops.signature(x, tau=0.05, n_sig=64)
+            want = activation_signature(x, n_sig=64, tau=0.05)
+            check(torch.equal(got, want) and torch.equal(
+                got.cpu(), ops.signature(x.cpu(), tau=0.05, n_sig=64)),
+                f"bucketed signature != plain at {shape} {dtype}")
+            compared.append({"shape": list(shape), "dtype": str(dtype)})
+    inputs = [lm_activation(LM_SIG_SHAPE, g, torch.bfloat16)
+              for _ in range(6)]
+    n, t, c = LM_SIG_SHAPE
+    ms = device_ms(lambda x: sig.signature_counts(x, 0.05), inputs)
+    plain_ms = device_ms(lambda x: sig.signature_counts_plain(x, 0.05),
+                         inputs)
+    bucketed_ms = device_ms(lambda x: ops.signature(x, tau=0.05, n_sig=64),
+                            inputs)
+    bytes_moved = n * t * c * 2 + n * c * 4
+    ops_done = 2 * n * t * c
+    lm = {"timed_shape": list(LM_SIG_SHAPE), "dtype": "bfloat16",
+          "tau": 0.05, "ms": ms, "plain_ms": plain_ms,
+          "bucketed_ms": bucketed_ms,
+          "bound_ms": max(bytes_moved / HBM_BYTES_PER_S,
+                          ops_done / F32_OPS_PER_S) * 1e3,
+          "bound_by": "bytes", "library_ms": None}
+    emit(phase="signature_lm_vs_plain", compared=compared, **lm)
+    return lm
+
+
+def phase_flash(fa, ops, dev) -> dict:
+    """The flash attention kernel against its plain version on the card,
+    within the reference's tolerances; then timed at the LM path's shape
+    beside the library's scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(2)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    compared = []
+
+    def compare(q, k, v, causal, window, cap, what):
+        dtype = str(q.dtype).split(".")[-1]
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+        want = fa.flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, softcap=cap).transpose(1, 2)
+        torch.cuda.synchronize()
+        check(got.is_cuda and got.shape == q.shape and got.dtype == q.dtype
+              and got.is_contiguous(), f"flash output at {what}")
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dtype]
+        err = diff.max().item()
+        max_err[dtype] = max(max_err[dtype], err)
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash kernel != plain at {what} {dtype}: max |diff| {err}")
+        compared.append({"case": what, "dtype": dtype, "max_abs_err": err})
+
+    B, H, K, S, hd = FLASH_MAIN
+    qkv = torch.randn((B, S, H + 2 * K, hd), generator=g,
+                      device=dev).to(torch.bfloat16)
+    compare(qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:], True, -1,
+            0.0, "main path, strided view")
+    for case in FLASH_CASES + [FLASH_HD256]:
+        b, h, kh, s, d, causal, window, cap = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev)
+                       .to(dtype) for n in (h, kh, kh))
+            compare(q, k, v, causal, window, cap, list(case))
+
+    sets = [tuple(torch.randn((B, S, n, hd), generator=g, device=dev)
+                  .to(torch.bfloat16) for n in (H, K, K)) for _ in range(4)]
+    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in st)
+            for st in sets]
+    ms = device_ms(lambda a: ops.flash_attention(*a), sets)
+    plain_ms = device_ms(lambda a: fa.flash_attention_plain(
+        *(t.transpose(1, 2) for t in a)), sets)
+    library_ms = device_ms(lambda a: F.scaled_dot_product_attention(
+        *a, is_causal=True, enable_gqa=True), bhsd)
+    bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
+        + sets[0][0].numel() * 2
+    pairs = S * (S + 1) // 2                  # causal (row, col) pairs
+    flops = 2 * 2 * hd * pairs * B * H        # QK^T and PV, 2 per MAC
+    record = {"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:86",
+              "max_abs_err": max(max_err.values()),
+              "max_abs_err_float32": max_err["float32"],
+              "max_abs_err_bfloat16": max_err["bfloat16"],
+              "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": max(bytes_moved / HBM_BYTES_PER_S,
+                              flops / BF16_OPS_PER_S) * 1e3,
+              "bound_by": ("bytes" if bytes_moved / HBM_BYTES_PER_S
+                           >= flops / BF16_OPS_PER_S else "operations"),
+              "library_ms": library_ms, "timed_shape": list(FLASH_MAIN),
+              "timed_dtype": "bfloat16"}
+    # the float32-core floor is derived, not measured: it stays out of the
+    # kernels line and is printed only with this phase
+    emit(phase="flash_vs_plain", compared=len(compared),
+         cases=compared, bytes=bytes_moved, flops=flops,
+         f32_core_ms=flops / F32_OPS_PER_S * 1e3, **record)
     return record
 
 
@@ -313,20 +480,252 @@ def phase_main_path(sig, dev) -> int:
     return launches
 
 
+def lm_reference_check(tfm, cfg, backend, params, stream) -> dict:
+    """The final global model's kernel forward (flash attention) against
+    its plain-attention forward, both on the card and in bfloat16, on one
+    batch of the global test stream."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Runtime
+    batch = backend._batch(backend._sample(stream, np.random.default_rng(3),
+                                           1)[0])
+    with torch.inference_mode():
+        k_logits, k_aux = tfm.forward(params, batch, cfg, Runtime(
+            use_kernels=True, want_signature=True))
+        p_logits, p_aux = tfm.forward(params, batch, cfg, Runtime(
+            want_signature=True))
+        logit_err = (k_logits - p_logits).abs().max().item()
+        logit_mean_err = (k_logits - p_logits).abs().mean().item()
+        scale = p_logits.abs().max().item()
+        argmax_agree = (k_logits.argmax(-1) == p_logits.argmax(-1)
+                        ).float().mean().item()
+        sig_diff = (k_aux["signature"] - p_aux["signature"]).abs()
+    n_rows = batch["tokens"].numel()
+    flags_per_bucket = n_rows * cfg.d_model // 64
+    check(bool(torch.isfinite(k_logits).all()), "non-finite LM logits")
+    check(logit_err <= LM_LOGIT_RTOL * scale,
+          f"kernel logits differ from plain attention by {logit_err} "
+          f"(largest logit {scale})")
+    check(sig_diff.max().item() <= LM_SIG_TOL,
+          f"kernel signature differs from plain by {sig_diff.max().item()}")
+    return {"logits_max_abs_err": logit_err,
+            "logits_mean_abs_err": logit_mean_err, "logits_scale": scale,
+            "argmax_agreement": argmax_agree,
+            "signature_max_abs_err": sig_diff.max().item(),
+            "signature_net_flag_diff": int(round(
+                sig_diff.sum().item() * flags_per_bucket))}
+
+
+def profile_lm_round(backend, params, stream) -> dict:
+    """One backend round as the backend's defaults set it (``train_local``
+    with its 8 local steps, then ``evaluate`` and ``signature``) under
+    torch.profiler, after one round that lets the profiler start up: the
+    device's busy time (the union of its kernels' and copies' intervals)
+    against the round's wall time, and the device kernels that took the
+    most time.  The profiler's host-side cost lengthens the wall time, so
+    the idle share is an upper bound; host ops are not traced, to keep
+    that cost small."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.fl.backend import LMBackend
+
+    def one_round():
+        trained, _ = LMBackend.train_local(backend, params, stream, seed=5)
+        LMBackend.evaluate(backend, trained, stream)
+        LMBackend.signature(backend, trained, stream)
+        torch.cuda.synchronize()
+
+    traced = {}
+
+    def keep(prof):
+        traced["events"] = list(prof.events())
+        traced["averages"] = list(prof.key_averages())
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def on_device(name, annotation=False):
+        # the profiler marks each step on the device too; that span
+        # covers the whole step and is no work of the card
+        return not (annotation or name.startswith("ProfilerStep"))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],   # device work only
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        one_round()
+        prof.step()
+        t0 = time.perf_counter()
+        one_round()
+        wall = time.perf_counter() - t0
+        prof.step()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in traced.get("events", ())
+                   if e.device_type == cuda and on_device(
+                       e.name, getattr(e, "is_user_annotation", False)))
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:                 # union of intervals
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    top = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
+                  for a in traced.get("averages", ())
+                  if a.device_type == cuda and on_device(a.key)),
+                 key=lambda kv: -kv[1])
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": (1.0 - busy_us / 1e6 / wall
+                                  if spans else None),
+            "device_kernels": len(spans),
+            "device_kernel_ms": sum(ms for _, ms, _ in top),
+            "top_device_ms": [[k[:90], ms, n] for k, ms, n in top[:12]]}
+
+
+def phase_lm_path(sig, fa, dev) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, Stage
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.models import transformer as tfm
+
+    full = get_config("internlm2-1.8b")
+    cfg = dataclasses.replace(full, n_layers=4, stages=(
+        Stage((LayerSpec(kind="attn", ffn="dense"),), 4),))
+    t0 = time.perf_counter()
+    # launch/train.py's streams, drawn from a sub-vocabulary: its
+    # vocab x vocab transition matrix at 92,544 tokens would take 68.5 GB
+    streams = [make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
+                               order=1.5 + 0.5 * c, seed=c)
+               for c in range(4)]
+    client_data = [{"train": s, "val": s, "test": s} for s in streams]
+    global_test = make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
+                                  seed=999)
+    data_s = time.perf_counter() - t0
+    backend = LMBackend(cfg, lr=3e-3, batch_size=8, seq_len=512)
+    check(backend.device.type == "cuda", "LM backend is not on the card")
+    t0 = time.perf_counter()
+    genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(genesis))
+    norms = cfg.d_model * (2 * cfg.n_layers + 1)    # not in param_count()
+    check(n_params == cfg.param_count() + norms, f"{n_params} parameters")
+    # warm-up outside the counted run: cuBLAS handles, allocator pools
+    warm, _ = backend.train_local(genesis, streams[0], epochs=1)
+    backend.evaluate(warm, streams[0])
+    backend.signature(warm, streams[0])
+    del warm
+
+    calls = {"train_local": 0, "evaluate": 0, "signature": 0,
+             "plain_flash": 0, "plain_signature": 0}
+    seconds = {"train_local": 0.0, "evaluate": 0.0, "signature": 0.0}
+    signatures, accs = [], []
+
+    def counted(name, fn, keep=None):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            calls[name] += 1
+            if name in seconds:
+                seconds[name] += time.perf_counter() - t
+            if keep is not None:
+                keep.append(out)
+            return out
+        return wrapper
+
+    inner = (fa.flash_attention_plain, sig.signature_counts_plain)
+    backend.train_local = counted("train_local", backend.train_local)
+    backend.evaluate = counted("evaluate", backend.evaluate, accs)
+    backend.signature = counted("signature", backend.signature, signatures)
+    fa.flash_attention_plain = counted("plain_flash", inner[0])
+    sig.signature_counts_plain = counted("plain_signature", inner[1])
+    coord = DagAflCoordinator(backend, client_data, global_test,
+                              DagAflConfig(n_clients=4, max_rounds=2,
+                                           local_epochs=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sig.launches = fa.launches = 0             # counts start here
+    t0 = time.perf_counter()
+    result = coord.run(init_model=genesis)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sig_launches, flash_launches = sig.launches, fa.launches   # read here
+    fa.flash_attention_plain, sig.signature_counts_plain = inner
+    seconds["rest"] = wall - sum(seconds.values())
+    peak = torch.cuda.max_memory_allocated()
+
+    rounds = result.rounds
+    accs += [result.final_accuracy, result.best_accuracy,
+             result.extra["tip_mean_accuracy"],
+             result.extra["client_mean_accuracy"]]
+    accs += [a for _, a in result.history]
+    gm = coord.global_model()
+    ok, why = verify_full_dag(coord.ledger)
+    forwards = calls["evaluate"] + calls["signature"]
+    check(rounds == 8, f"LM: expected 8 rounds (4 clients x 2), got {rounds}")
+    check(result.extra["chain_len"] == 1 + rounds,
+          f"LM: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(result.extra["verify_failures"] == 0, "LM: path verification")
+    check(ok, f"LM: verify_full_dag: {why}")
+    check(flash_launches == cfg.n_layers * forwards,
+          f"flash kernel launched {flash_launches} times for {forwards} "
+          f"eval and signature forwards of {cfg.n_layers} layers")
+    check(sig_launches == calls["signature"] == rounds,
+          f"signature kernel launched {sig_launches} times for "
+          f"{calls['signature']} signature calls")
+    check(calls["plain_flash"] == calls["plain_signature"] == 0,
+          "the LM path ran a plain kernel version")
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+          f"LM accuracies {accs}")
+    check(all(p.is_cuda for p in tree_leaves(gm)), "LM model left the card")
+    check(all(s.shape == (64,) and np.all((s >= 0) & (s <= 1))
+              for s in signatures), "LM signatures are not 64 fractions")
+    ref = lm_reference_check(tfm, cfg, backend, gm, global_test)
+    ref["profile"] = profile_lm_round(backend, gm, streams[0])
+    record = dict(
+        phase="lm_path", model=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        data_vocab=LM_DATA_VOCAB, batch=8, seq_len=512, n_params=n_params,
+        clients=4, rounds=rounds, chain_len=result.extra["chain_len"],
+        wall_s=wall, s_per_round=wall / rounds, peak_bytes=peak,
+        data_s=data_s, init_s=init_s,
+        final_accuracy=result.final_accuracy,
+        tip_mean_accuracy=result.extra["tip_mean_accuracy"],
+        client_mean_accuracy=result.extra["client_mean_accuracy"],
+        calls=calls, seconds=seconds, signature_launches=sig_launches,
+        flash_launches=flash_launches, verify_full_dag=why, **ref)
+    emit(**record)
+    return record
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     from repro_torch import runtime
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import signature as sig
 
     dev = runtime.resolve_device("cuda")
     smi = phase_environment(build)
     phase_build(build)
-    record = phase_kernels(sig, ops, dev)
-    record["launches"] = phase_main_path(sig, dev)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    sig_record = phase_kernels(sig, ops, dev)
+    sig_record["lm"] = phase_signature_lm(sig, ops, dev)
+    flash_record = phase_flash(fa, ops, dev)
+    cnn_launches = phase_main_path(sig, dev)
+    lm = phase_lm_path(sig, fa, dev)
+    sig_record["launches"] = cnn_launches + lm["signature_launches"]
+    sig_record["launches_by_path"] = {"cnn": cnn_launches,
+                                      "lm": lm["signature_launches"]}
+    flash_record["launches"] = lm["flash_launches"]
+    print(json.dumps({"kernels": [sig_record, flash_record]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

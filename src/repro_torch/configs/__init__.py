@@ -1,1 +1,52 @@
-"""Model configurations (port of ``repro.configs``)."""
+"""Model configurations (port of ``repro.configs``).
+
+``get_config(arch_id)`` returns the configs whose every feature the port's
+transformer runs: the dense GQA decoders ``internlm2-1.8b``, ``qwen2-7b``
+(QKV bias) and ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
+embeddings, GeLU).  The reference's other arch ids raise
+``NotImplementedError`` naming the blocks the port lacks for them.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ArchConfig, EncoderConfig, LayerSpec,
+                                      MLAConfig, MambaConfig, MoEConfig,
+                                      Stage, XLSTMConfig, reduced)
+
+_ARCH_MODULES = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen2-7b": "qwen2_7b",
+}
+
+_UNPORTED = {
+    "xlstm-125m": "xLSTM blocks (mLSTM, sLSTM)",
+    "whisper-medium": "the audio encoder and decoder cross-attention",
+    "gemma3-27b": "the banded sliding-window path beyond 2048 tokens "
+                  "(its config is not copied yet)",
+    "qwen2-vl-72b": "M-RoPE",
+    "llama4-maverick-400b-a17b": "MoE feed-forward layers",
+    "jamba-v0.1-52b": "Mamba blocks and MoE feed-forward layers",
+    "deepseek-v2-236b": "MLA attention and MoE feed-forward layers",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"{name} is not ported: the port lacks {_UNPORTED[name]}")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_ARCH_MODULES) + sorted(_UNPORTED)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.CONFIG
+
+
+__all__ = [
+    "ArchConfig", "EncoderConfig", "LayerSpec", "MLAConfig", "MambaConfig",
+    "MoEConfig", "Stage", "XLSTMConfig", "ARCH_IDS", "get_config", "reduced",
+]

@@ -11,8 +11,10 @@ is the beyond-paper generalisation (staleness- or accuracy-weighted).
 Port of ``repro.core.aggregate``.  ``tree_mean`` reproduces the reference's
 bits on the CPU: the leaves are summed left to right in float32 and the
 sum is multiplied by the float32 reciprocal of N, which is what XLA makes
-of the reference's ``sum / n``.  The stacked and ``psum`` forms belong to
-the cohort engine and are not ported yet.
+of the reference's ``sum / n``.  :func:`f32_mean` applies the same rule
+to a tensor's mean, as XLA compiles the reference's ``jnp.mean``.  The
+stacked and ``psum`` forms belong to the cohort engine and are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -40,6 +42,22 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def f32_mean(x: torch.Tensor, dim=None, keepdim: bool = False
+             ) -> torch.Tensor:
+    """Mean of ``x`` as the reference's jitted ``jnp.mean`` computes it: a
+    float32 sum multiplied by the float32 reciprocal of the count.  A true
+    division (``torch.mean``) is 1 ulp off on many counts, and these means
+    reach the Eq. 7 digest (accuracies, signatures).  ``dim`` is one axis,
+    a tuple of axes, or None for all."""
+    x = x.float()
+    if dim is None:
+        dim = tuple(range(x.dim()))
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    n = int(np.prod([x.shape[d] for d in dims]))
+    total = x.sum(dim=dims, keepdim=keepdim)
+    return total * float(np.float32(1) / np.float32(n))
 
 
 def tree_mean(models: Sequence):

@@ -1,11 +1,18 @@
-"""Client training backend for DAG-AFL (port of ``repro.fl.backend``).
+"""Client training backends for DAG-AFL (port of ``repro.fl.backend``).
 
 ``CNNBackend`` is the paper-faithful path: VGG-family clients on image data
 with exact Eq. 3 zero-count signatures, which go through the signature
-kernel on the card.  It runs on the CUDA card unless ``device`` says
-otherwise, and raises where there is no card and no device was given.
-Batches are drawn with the reference's numpy RNG calls, so the same seed
-gives the same batches.  The LM backend is not ported yet.
+kernel on the card.  ``LMBackend`` federates a dense GQA transformer on
+token streams: its eval and signature forwards run the flash attention
+kernel and the bucketed signature kernel on the card, and its local
+training runs under autograd on the plain attention (the kernels have no
+gradient, as in the reference).
+
+Both run on the CUDA card unless ``device`` says otherwise, and raise where
+there is no card and no device was given.  Batches are drawn with the
+reference's numpy RNG calls, so the same seed gives the same batches.
+Accuracies are means as the reference's jitted ``jnp.mean`` computes them
+(``core.aggregate.f32_mean``).
 """
 from __future__ import annotations
 
@@ -14,12 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.cnn import CNNConfig
-from repro_torch.core.aggregate import tree_leaves, tree_map
+from repro_torch.core.aggregate import f32_mean, tree_leaves, tree_map
 from repro_torch.data.synthetic import Dataset
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import apply_updates, sgd
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import Runtime, resolve_device
 
 
 class CNNBackend:
@@ -99,3 +108,84 @@ class CNNBackend:
         _, sig = cnn_mod.cnn_forward(params, self._tensor(ds.x[:n]),
                                      self.cfg, want_signature=True)
         return sig.cpu().numpy()
+
+
+class LMBackend:
+    """Transformer clients on token streams (framework-scale DAG-AFL)."""
+
+    def __init__(self, cfg: ArchConfig, lr: float = 3e-3,
+                 local_steps: int = 8, batch_size: int = 8, seq_len: int = 64,
+                 device=None):
+        self.cfg = cfg
+        self.local_steps = local_steps
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.device = resolve_device(device)
+        self.opt = sgd(lr, momentum=0.9)
+        # training runs the default runtime: plain attention under
+        # autograd, no signature.  Eval and signature forwards: the kernels
+        self.eval_runtime = Runtime(use_kernels=True)
+        self.signature_runtime = Runtime(use_kernels=True,
+                                         want_signature=True)
+
+    def init(self, generator: torch.Generator) -> dict:
+        """A model drawn on ``generator``, placed on the backend's device."""
+        return tree_map(lambda t: t.to(self.device),
+                        tfm.init_params(generator, self.cfg))
+
+    def init_opt(self, params):
+        return self.opt.init(params)
+
+    def _sample(self, stream: np.ndarray, rng, n: int) -> np.ndarray:
+        """n batches of windows: (n, B, seq_len + 1) tokens."""
+        starts = rng.integers(0, len(stream) - self.seq_len - 1,
+                              (n, self.batch_size))
+        return np.stack([
+            np.stack([stream[s:s + self.seq_len + 1] for s in row])
+            for row in starts])
+
+    def _batch(self, tokens: np.ndarray) -> dict:
+        t = torch.from_numpy(tokens).to(self.device)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    def train_local(self, params, stream: np.ndarray, seed: int = 0,
+                    epochs: Optional[int] = None):
+        """``epochs`` (else ``local_steps``) SGD steps from ``params`` (left
+        untouched); returns the trained model and the mean step loss."""
+        rng = np.random.default_rng(seed)
+        toks = self._sample(stream, rng, epochs or self.local_steps)
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                          params)
+        opt_state = self.init_opt(params)
+        losses = []
+        for tb in toks:
+            loss, _ = tfm.loss_fn(params, self._batch(tb), self.cfg)
+            loss.backward()
+            with torch.no_grad():
+                grads = tree_map(lambda p: p.grad, params)
+                updates, opt_state = self.opt.update(grads, opt_state, params)
+                apply_updates(params, updates)
+            for p in tree_leaves(params):
+                p.grad = None
+            losses.append(loss.detach())
+        return (tree_map(lambda p: p.detach(), params),
+                float(f32_mean(torch.stack(losses))))
+
+    @torch.inference_mode()
+    def evaluate(self, params, stream: np.ndarray, seed: int = 1) -> float:
+        """Next-token accuracy on one sampled batch."""
+        rng = np.random.default_rng(seed)
+        batch = self._batch(self._sample(stream, rng, 1)[0])
+        logits, _ = tfm.forward(params, batch, self.cfg, self.eval_runtime)
+        return float(f32_mean(logits.argmax(-1) == batch["labels"]))
+
+    @torch.inference_mode()
+    def signature(self, params, stream: np.ndarray,
+                  seed: int = 2) -> np.ndarray:
+        """The Eq. 3 signature (``signature_dims`` fractions) of the
+        final-norm output on one sampled batch."""
+        rng = np.random.default_rng(seed)
+        batch = self._batch(self._sample(stream, rng, 1)[0])
+        _, aux = tfm.forward_hidden(params, batch, self.cfg,
+                                    self.signature_runtime)
+        return aux["signature"].cpu().numpy()

@@ -4,22 +4,55 @@
 There is no policy layer: the tensor's device decides.  A CPU tensor takes
 a kernel's plain version, a CUDA tensor the kernel.
 
-Bit-stability contract for ``signature_per_channel``: the Eq. 3 signatures
-feed tip selection through the similarity contract, so a 1-ulp drift
-changes which parents a client approves and therefore the DAG topology.
-The kernel emits exact per-channel counts, and they are normalised with
-``counts * r``, ``r`` the float32 reciprocal of the spatial size: the
-same multiply-by-reciprocal the reference applies, so the port's
-signatures equal the reference's bit for bit.  Neither ``torch.mean`` nor
-a division reproduces those bits.  The bucketed ``ops.signature`` of the
-LM path is not ported yet.
+Bit-stability contract for ``signature`` and ``signature_per_channel``: the
+Eq. 3 signatures feed tip selection through the similarity contract, so a
+1-ulp drift changes which parents a client approves and therefore the DAG
+topology.  The kernel emits exact per-channel counts; ``signature`` sums
+them into buckets exactly, and both normalise with ``counts * r``, ``r``
+the float32 reciprocal of the count of flags averaged: the same
+multiply-by-reciprocal the reference applies, so the port's signatures
+equal the reference's bit for bit.  Neither ``torch.mean`` nor a division
+reproduces those bits.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.signature import signature_counts
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.signature import _reciprocal, signature_counts
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = -1,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """(B,S,H,hd) layout wrapper used by ``models.attention``.  The kernel
+    takes the (B,H,S,hd) views through their strides: nothing is copied,
+    and on the card the output is a contiguous (B,S,H,hd) tensor."""
+    out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window, softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def signature(x: torch.Tensor, *, tau: float = 0.05,
+              n_sig: int = 64) -> torch.Tensor:
+    """Activation (..., d) -> bucketed Eq. 3 signature vector (n_sig,).
+
+    The kernel counts flags per channel over ``x.reshape(-1, d)`` in one
+    ``(1, T, d)`` call; zero-padded tail channels (``d % n_sig != 0``) add
+    zero counts; exact bucket sums are scaled by the float32 reciprocal of
+    ``T * w``.  Bit-identical to ``models.layers.activation_signature``.
+    """
+    d = x.shape[-1]
+    flat = x.reshape(-1, d)
+    t = flat.shape[0]
+    pad = (-d) % n_sig
+    w = (d + pad) // n_sig
+    counts = signature_counts(flat[None], tau)[0]
+    if pad:
+        counts = F.pad(counts, (0, pad))
+    return counts.reshape(n_sig, w).sum(dim=1) * _reciprocal(t * w)
 
 
 def signature_per_channel(x: torch.Tensor, *, tau: float = 0.0
@@ -31,5 +64,4 @@ def signature_per_channel(x: torch.Tensor, *, tau: float = 0.0
     activations reshape to ``(N, HW, C)`` without a copy.
     """
     flat = x.reshape(x.shape[0], -1, x.shape[-1])
-    r = np.float32(1) / np.float32(flat.shape[1])
-    return signature_counts(flat, tau) * float(r)
+    return signature_counts(flat, tau) * _reciprocal(flat.shape[1])

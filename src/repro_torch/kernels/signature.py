@@ -6,6 +6,8 @@ reference's ``vmap`` over samples (``ops.signature_per_channel``) into the
 kernel's grid; :func:`signature_td` is the reference's single ``(T, d)``
 form.  Per channel it counts ``x == 0`` (``tau <= 0``, the CNN's ReLU kill
 count) or ``|x| < tau`` (``tau > 0``), against the float32 value of tau.
+``x`` is float32 or bfloat16; a bfloat16 value converts to float32
+exactly, so both compare as the reference's ``|x.astype(f32)| < tau``.
 Counts are exact integers in float32 up to 2**24 rows; ``mean=True`` scales
 them by the float32 reciprocal of T, as the reference's ``acc / total_t``
 does once XLA has compiled it.
@@ -25,6 +27,8 @@ from repro_torch.kernels import build
 
 launches = 0
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def _f32(value: float) -> float:
     """``value`` rounded to float32, as the reference compares in f32."""
@@ -41,7 +45,7 @@ def signature_counts_plain(x: torch.Tensor, tau: float = 0.0, *,
     if tau <= 0.0:
         flags = x == 0
     else:
-        flags = x.abs() < _f32(tau)
+        flags = x.float().abs() < _f32(tau)
     counts = flags.sum(dim=1, dtype=torch.int32).float()
     return counts * _reciprocal(x.shape[1]) if mean else counts
 
@@ -75,9 +79,9 @@ def _library() -> ctypes.CDLL:
     lib = build.load("signature")
     fn = lib.repro_signature_counts
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -89,8 +93,9 @@ def _launch(x: torch.Tensor, tau: float, mean: bool) -> torch.Tensor:
     if not x.is_cuda:
         raise ValueError(f"signature_counts takes a CPU or CUDA tensor, "
                          f"got one on {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the signature kernel takes float32, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the signature kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
     n, t, c = x.shape
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -99,8 +104,8 @@ def _launch(x: torch.Tensor, tau: float, mean: bool) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_signature_counts(
-            x.data_ptr(), out.data_ptr(), n, t, c, *x.stride(), _f32(tau),
-            int(mean), stream)
+            x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], n, t, c,
+            *x.stride(), _f32(tau), int(mean), stream)
     if err != 0:
         raise RuntimeError("signature kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())

@@ -10,7 +10,9 @@ take NHWC images, so JAX weights load unchanged.  Inside, activations are
 NCHW tensors in channels-last memory: the NHWC input viewed as NCHW, which
 cuDNN takes as it is, and whose NHWC view reshapes to ``(N, HW, C)`` for the
 signature kernel without a copy.  The last feature map is flattened in NHWC
-order, as the reference does.
+order, as the reference does.  Means that reach the ledger (the sample
+mean of the signature, the accuracy) multiply a float32 sum by the float32
+reciprocal of the count, as the reference's jitted ``jnp.mean`` does.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.cnn import CNNConfig
+from repro_torch.core.aggregate import f32_mean
 from repro_torch.kernels import ops
 
 
@@ -69,7 +72,7 @@ def cnn_forward(params: dict, images: torch.Tensor, cfg: CNNConfig,
                 # zero(F_k(x)) / (H*W), averaged over samples (Eq. 3-4)
                 zero_frac = ops.signature_per_channel(
                     x.permute(0, 2, 3, 1), tau=0.0)
-                sig = zero_frac.mean(dim=0)            # (channels,)
+                sig = f32_mean(zero_frac, dim=0)       # (channels,)
             conv_idx += 1
         x = F.max_pool2d(x, 2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC flatten
@@ -92,4 +95,4 @@ def cnn_loss(params: dict, batch: dict, cfg: CNNConfig,
 def cnn_accuracy(params: dict, images: torch.Tensor, labels: torch.Tensor,
                  cfg: CNNConfig) -> torch.Tensor:
     logits, _ = cnn_forward(params, images, cfg)
-    return (logits.argmax(-1) == labels).float().mean()
+    return f32_mean(logits.argmax(-1) == labels)

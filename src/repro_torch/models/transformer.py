@@ -1,0 +1,179 @@
+"""Staged decoder assembled from an ArchConfig (port of
+``repro.models.transformer``, the dense GQA path).
+
+The layer stack is organised as *stages*, as in the reference: each stage
+is a repeating pattern of blocks whose parameters are stacked along a
+leading ``repeats`` axis (``params["stages"][s]["l{j}"]``), so a JAX
+parameter tree loads through ``weights.params_from_numpy`` unchanged.  The
+reference scans that axis with ``lax.scan``; here a Python loop takes
+period ``i`` as the leaves' index ``i``.
+
+Public API: init_params / forward_hidden / forward / loss_fn.  Attention
+blocks with dense feed-forward layers only; ``moe_aux`` is 0.  Serving
+(``prefill``, ``decode_step``, ``init_cache``) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.core.aggregate import tree_map
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_norm, torch_dtype,
+                                       unembed)
+from repro_torch.runtime import DEFAULT, Runtime
+
+
+# ---------------------------------------------------------------------------
+# window resolution (long-context adaptation)
+# ---------------------------------------------------------------------------
+
+
+def _arch_is_subquadratic(cfg: ArchConfig) -> bool:
+    return any(s.window > 0 or s.kind in ("mamba", "mlstm", "slstm")
+               for s in cfg.layer_specs())
+
+
+def resolve_window(cfg: ArchConfig, spec: LayerSpec, seq_len: int) -> int:
+    if spec.kind != "attn":
+        return -1
+    w = spec.window
+    if (w <= 0 and seq_len >= cfg.long_context_threshold
+            and not _arch_is_subquadratic(cfg)):
+        w = cfg.long_context_window
+    return w
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{spec.kind} blocks are not ported")
+    if spec.ffn == "moe":
+        raise NotImplementedError("MoE feed-forward layers are not ported")
+    if cfg.encoder is not None:
+        raise NotImplementedError("encoders are not ported")
+
+
+def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
+    _check_supported(cfg, spec)
+    device = generator.device
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device),
+         "core": attn.init_attn(generator, cfg, spec, dtype)}
+    if spec.ffn == "dense" and cfg.d_ff > 0:
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
+    """Weights drawn on ``generator`` and placed on its device, in the
+    reference's tree and stacked stage layout.  Torch cannot reproduce
+    JAX's PRNG bits: parity tests load JAX weights instead."""
+    dtype = torch_dtype(cfg.param_dtype)
+    params = {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                      dtype, cfg.tie_embeddings),
+              "final_norm": init_norm(cfg.norm, cfg.d_model, dtype,
+                                      generator.device),
+              "stages": []}
+    for stage in cfg.stages:
+        periods = [{f"l{j}": _init_layer(generator, cfg, spec, dtype)
+                    for j, spec in enumerate(stage.pattern)}
+                   for _ in range(stage.repeats)]
+        params["stages"].append(
+            tree_map(lambda *leaves: torch.stack(leaves), *periods))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# layer / stage forward
+# ---------------------------------------------------------------------------
+
+
+def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
+                   window: int, runtime: Runtime):
+    _check_supported(cfg, spec)
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    x = x + attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
+                              positions=positions, window=window,
+                              runtime=runtime)
+    if spec.ffn == "dense" and cfg.d_ff > 0:
+        h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, _ = apply_mlp(lp["ffn"], h3, cfg.act,
+                         torch_dtype(cfg.compute_dtype))
+        x = x + y
+    return x
+
+
+def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
+                   positions, seq_len: int, runtime: Runtime):
+    windows = [resolve_window(cfg, spec, seq_len) for spec in pattern]
+    for i in range(repeats):
+        for j, spec in enumerate(pattern):
+            lp = tree_map(lambda a: a[i], stage_params[f"l{j}"])
+            x = _layer_forward(lp, x, cfg=cfg, spec=spec, positions=positions,
+                               window=windows[j], runtime=runtime)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+
+def forward_hidden(params, batch, cfg: ArchConfig,
+                   runtime: Runtime = DEFAULT):
+    """Full-sequence forward up to the final norm (no unembedding).
+
+    Returns (h (B,S,d), aux dict).  With ``runtime.want_signature``,
+    ``aux["signature"]`` is the bucketed Eq. 3 signature of ``h``
+    (``kernels.ops.signature``).
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    compute = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, compute)
+    if cfg.norm == "rmsnorm" and cfg.tie_embeddings:
+        x = x * cfg.d_model ** 0.5
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    for si, stage in enumerate(cfg.stages):
+        x = _stage_forward(params["stages"][si], x, cfg=cfg,
+                           pattern=stage.pattern, repeats=stage.repeats,
+                           positions=positions, seq_len=S, runtime=runtime)
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if runtime.want_signature:
+        aux["signature"] = ops.signature(x, tau=runtime.signature_tau,
+                                         n_sig=runtime.signature_dims)
+    return x, aux
+
+
+def forward(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
+    """Full logits (B,S,V) float32, and aux."""
+    h, aux = forward_hidden(params, batch, cfg, runtime)
+    logits = unembed(params["embed"], h, torch_dtype(cfg.compute_dtype),
+                     cfg.final_softcap)
+    return logits, aux
+
+
+def loss_fn(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
+    """Mean next-token cross-entropy over the (optionally masked) labels.
+
+    The reference runs the unembedding and the cross-entropy per sequence
+    chunk to bound its float32 logits; at the port's sizes the whole
+    (B,S,V) float32 logits fit, so they are formed at once (1.5 GB at
+    internlm2's 92,544 tokens, batch 8, 512 positions)."""
+    logits, aux = forward(params, batch, cfg, runtime)
+    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = dict(aux)
+    aux["ce_loss"] = loss
+    return loss + aux["moe_aux"], aux

@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution and the runtime knobs of the port's model functions.
 
 Entry points run on the CUDA card by default.  Where CUDA is absent they
 raise instead of running on the CPU: a run on the CPU has to be asked for
@@ -8,10 +8,27 @@ On the card, float32 must stay real float32: cuDNN convolutions default to
 TF32, which keeps about three decimal digits and moves the ReLU zero
 patterns the Eq. 3 signatures count.  Both TF32 switches are turned off
 whenever a device on the card is resolved.
+
+:class:`Runtime` is the port of ``repro.runtime.Runtime``: the knobs that
+model functions read.  It has no kernel policy, mesh or batch axes: the
+tensor's device decides between a kernel and its plain version.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+
+
+@dataclass(frozen=True)
+class Runtime:
+    use_kernels: bool = False      # route hot spots through the kernels
+    want_signature: bool = False   # emit the Eq. 3 feature signature in aux
+    signature_tau: float = 0.05
+    signature_dims: int = 64
+
+
+DEFAULT = Runtime()
 
 
 def resolve_device(device=None) -> torch.device:

@@ -11,9 +11,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import runtime  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.cnn import vgg_for  # noqa: E402
 from repro_torch.core.aggregate import tree_map  # noqa: E402
-from repro_torch.fl.backend import CNNBackend  # noqa: E402
+from repro_torch.data.synthetic import make_lm_dataset  # noqa: E402
+from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
 from repro_torch.data.synthetic import make_benchmark_dataset  # noqa: E402
@@ -52,9 +55,95 @@ def test_kernel_equals_plain(card, shape, tau, mean):
 
 
 def test_kernel_refuses_non_float32(card):
-    with pytest.raises(TypeError, match="float32"):
-        sig.signature_counts(torch.zeros((2, 3, 4), device=card,
-                                         dtype=torch.float16), 0.0)
+    """float32 and bfloat16 are taken (bfloat16 equal to the plain version
+    on its float32 values); float16 and float64 are refused."""
+    x = _relu_like((3, 257, 40), card).to(torch.bfloat16)
+    for tau in (0.0, 0.05):
+        assert torch.equal(sig.signature_counts(x, tau),
+                           sig.signature_counts_plain(x.float(), tau))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            sig.signature_counts(torch.zeros((2, 3, 4), device=card,
+                                             dtype=dtype), 0.0)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 2048), (2, 24, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucketed_signature_equals_plain(card, shape, dtype):
+    x = _relu_like(shape, card).to(dtype)
+    before = sig.launches
+    got = ops.signature(x, tau=0.05, n_sig=64)
+    assert sig.launches == before + 1
+    want = ops.signature(x.cpu(), tau=0.05, n_sig=64)
+    assert torch.equal(got.cpu(), want)
+
+
+FLASH_CASES = [
+    # B, H, K, S, hd, causal, window, softcap, dtype
+    (2, 4, 2, 256, 64, True, -1, 0.0, torch.float32),
+    (1, 4, 4, 300, 32, True, 48, 0.0, torch.float32),
+    (1, 2, 2, 200, 64, False, -1, 0.0, torch.float32),
+    (1, 8, 2, 256, 128, True, 128, 50.0, torch.float32),
+    (2, 4, 2, 192, 64, True, -1, 0.0, torch.bfloat16),
+    (1, 2, 1, 300, 256, True, 256, 50.0, torch.bfloat16),
+    (8, 16, 8, 512, 128, True, -1, 0.0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,window,cap,dtype", FLASH_CASES)
+def test_flash_kernel_equals_plain(card, B, H, K, S, hd, causal, window, cap,
+                                   dtype):
+    """From (B,S,H,hd) storage, as the model hands it over; the plain
+    version on the same card.  Tolerances as the reference's tests."""
+    g = torch.Generator(device=card).manual_seed(S + hd)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=card)
+               .to(dtype) for n in (H, K, K))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.is_contiguous() and got.dtype == dtype
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=causal,
+                                    window=window, softcap=cap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bhsd(q, q, q)
+    h = torch.zeros((1, 2, 8, 32), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_bhsd(h, h, h)
+    r = torch.zeros((1, 2, 8, 32), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention_bhsd(r, r, r)
+
+
+def test_lm_backend_signature_launches_both_kernels(card):
+    """One bucketed signature launch and one flash launch per attention
+    layer for each signature call; evaluate launches flash only; training
+    launches neither."""
+    cfg = reduced(get_config("internlm2-1.8b"), d_model=256)
+    backend = LMBackend(cfg, batch_size=4, seq_len=64, device=card)
+    params = backend.init(torch.Generator(device=card).manual_seed(0))
+    stream = make_lm_dataset(vocab=cfg.vocab_size, n_tokens=4000)
+    f0, s0 = fa.launches, sig.launches
+    params, _ = backend.train_local(params, stream, epochs=1)
+    assert (fa.launches, sig.launches) == (f0, s0)
+    out = backend.signature(params, stream)
+    assert out.shape == (64,) and np.all((out >= 0) & (out <= 1))
+    assert fa.launches == f0 + cfg.n_layers and sig.launches == s0 + 1
+    acc = backend.evaluate(params, stream)
+    assert 0.0 <= acc <= 1.0
+    assert fa.launches == f0 + 2 * cfg.n_layers and sig.launches == s0 + 1
+    cpu = LMBackend(cfg, batch_size=4, seq_len=64, device="cpu")
+    cpu_sig = cpu.signature(tree_map(lambda p: p.cpu(), params), stream)
+    assert np.sum(np.abs(cpu_sig - out) > 0) <= 4
 
 
 def test_backend_signature_launches_the_kernel(card):

@@ -9,15 +9,18 @@ import os
 import stat
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch import runtime  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.cnn import VGG_TINY  # noqa: E402
 from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator  # noqa: E402
-from repro_torch.fl.backend import CNNBackend  # noqa: E402
+from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
 
@@ -39,7 +42,10 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_reference_package():
-    assert len(PORT_FILES) >= 20
+    names = {p.name for p in PORT_FILES}
+    assert len(PORT_FILES) >= 30
+    assert {"attention.py", "transformer.py", "layers.py",
+            "flash_attention.py", "internlm2_1_8b.py"} <= names
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in PORT_FILES for line, root in _imported_roots(p)
            if root in FORBIDDEN]
@@ -51,6 +57,14 @@ def test_backend_without_device_raises_where_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CNNBackend(VGG_TINY)
     assert CNNBackend(VGG_TINY, device="cpu").device == torch.device("cpu")
+
+
+def test_lm_backend_without_device_raises_where_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("internlm2-1.8b"), d_model=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMBackend(cfg)
+    assert LMBackend(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_cuda_device_turns_tf32_off():
@@ -89,11 +103,67 @@ def test_non_cpu_tensor_goes_to_the_kernel(monkeypatch):
     assert [d.type for d in launched] == ["meta"] * 3
 
 
+def test_non_cpu_tensor_goes_to_the_flash_kernel(monkeypatch):
+    """The BSHD wrapper hands non-CPU tensors to the kernel's launcher as
+    (B,H,S,hd) views, never to the plain version."""
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    def launch(q, k, v, causal, window, softcap):
+        launched.append((q.device.type, q.shape, causal, window, softcap))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", plain)
+    monkeypatch.setattr(fa, "_launch", launch)
+    q = torch.empty((2, 16, 4, 32), device="meta")
+    kv = torch.empty((2, 16, 2, 32), device="meta")
+    out = ops.flash_attention(q, kv, kv, window=8, softcap=30.0)
+    assert out.shape == q.shape
+    assert launched == [("meta", (2, 4, 16, 32), True, 8, 30.0)]
+
+
+def test_flash_kernel_refuses_inputs_that_need_a_gradient():
+    """The kernel has no backward: under grad mode a non-CPU input that
+    requires grad raises before anything launches (a meta tensor stands in
+    for a CUDA one); without grad mode it gets as far as the device check."""
+    q = torch.empty((1, 2, 8, 32), device="meta", requires_grad=True)
+    kv = torch.empty((1, 1, 8, 32), device="meta")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa.flash_attention_bhsd(q, kv, kv)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fa.flash_attention_bhsd(q, kv, kv)
+
+
+@pytest.mark.parametrize("shape", [
+    (128, 1024, 64), (1, 4096, 2048), (3, 1000, 63), (2, 5, 33), (1, 1, 1),
+    (70000, 2, 3)])
+@pytest.mark.parametrize("tau", [0.0, 0.05])
+def test_signature_plain_counts_match_numpy(shape, tau):
+    """The plain version (what a CPU tensor takes) counts exact zeros for
+    tau <= 0 and ``|x| < f32(tau)`` otherwise, per sample and channel."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(0, 0.1, shape).astype(np.float32)
+    x[rng.random(shape) < 0.3] = 0.0
+    flags = x == 0 if tau <= 0 else np.abs(x) < np.float32(tau)
+    want = flags.sum(axis=1).astype(np.float32)
+    got = sig.signature_counts(torch.from_numpy(x), tau)
+    assert np.array_equal(got.numpy(), want)
+    means = sig.signature_counts(torch.from_numpy(x), tau, mean=True)
+    assert np.array_equal(means.numpy(),
+                          want * (np.float32(1) / np.float32(shape[1])))
+
+
 def test_launcher_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         sig._launch(torch.empty((2, 3, 4), device="meta"), 0.0, False)
     with pytest.raises(ValueError, match=r"\(N, T, C\)"):
         sig.signature_counts(torch.zeros(3, 4), 0.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa._launch(*(torch.empty((1, 2, 8, 32), device="meta"),) * 3,
+                   True, -1, 0.0)
 
 
 def _fake_nvcc(tmp_path: Path, body: str) -> str:
@@ -108,8 +178,9 @@ def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: _fake_nvcc(
         tmp_path, 'echo "signature.cu(3): error: fake"; exit 2\n'))
     with pytest.raises(RuntimeError, match="error: fake"):
-        build.build(["signature"])
+        build.build(["signature", "flash_attention"])
     assert not build.library_path("signature").exists()
+    assert not build.library_path("flash_attention").exists()
 
 
 def test_build_compiles_once_and_keys_by_source(tmp_path, monkeypatch):
@@ -119,11 +190,13 @@ def test_build_compiles_once_and_keys_by_source(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: _fake_nvcc(tmp_path, (
         f'echo "$@" >> {calls}\n'
         'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')))
-    path = build.build(["signature"])["signature"]
+    paths = build.build()
+    assert set(paths) == {"signature", "flash_attention"}
+    path = paths["signature"]
     assert path.exists() and path.parent == tmp_path / "build"
     assert "arch=compute_90a,code=sm_90a" in calls.read_text()
     build.build(["signature"])
-    assert len(calls.read_text().splitlines()) == 1     # cached by hash
+    assert len(calls.read_text().splitlines()) == 2     # cached by hash
     assert not [p for p in path.parent.iterdir() if p.suffix == ".tmp"]
     assert build.log_path("signature").exists()
 
