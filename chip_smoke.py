@@ -16,7 +16,11 @@ Phases, each printing one JSON line:
    form; the flash attention kernel within the reference's tolerances at
    the LM path's shape (from a strided (B,S,H,hd) view), at every shape of
    the reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
-   with a window and a soft-cap;
+   with a window and a soft-cap; the selective scan kernel within the
+   reference's 1e-5 at the reference's SCAN_CASES, at the hybrid path's
+   shape (with B and C as the strided views the model splits out of one
+   projection), at a ragged length from a non-zero state, and across two
+   calls that carry the state;
 4. the CNN path: the sequential DAG-AFL loop over four full-width VGG16
    clients on 32x32x3 images, driven through ``CNNBackend`` and
    ``DagAflCoordinator.run``, with every kernel's launch count set to 0
@@ -27,14 +31,23 @@ Phases, each printing one JSON line:
    2,048-token sub-vocabulary), driven through ``LMBackend``, with the
    launch counts set to 0 just before and read just after; and the
    kernel forward of the final global model held against its
-   plain-attention forward on the card.
+   plain-attention forward on the card; then one profiled backend round;
+6. the hybrid path: the same loop over three jamba-v0.1-52b clients at
+   full width, depth cut to one Mamba and one attention layer with dense
+   feed-forward layers (the MoE layers are not ported), with the launch
+   counts set to 0 just before and read just after; the kernel forward
+   (selective scan and flash attention) held against the plain forward
+   (the model's chunked scan and dense attention) on the card; then one
+   profiled backend round.
 
-Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-main paths, its error against the plain version and its times beside its
-bound; the card's name and power limit as ``nvidia-smi`` prints them; and
-last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-without that last line, as does a host without CUDA or a directory that
-holds this script and nothing else of the repository.
+Each path's run is counted on its own: every kernel's count is set to 0
+just before it and read just after.  Then one line ``{"kernels": [...]}``
+with each kernel's launches on the main paths, its error against the
+plain version and its times beside its bound; the card's name and power
+limit as ``nvidia-smi`` prints them; and last ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero without that last line, as does
+a host without CUDA or a directory that holds this script and nothing else
+of the repository.
 """
 from __future__ import annotations
 
@@ -68,11 +81,23 @@ FLASH_CASES = [(2, 4, 2, 256, 64, True, -1, 0.0),
 FLASH_HD256 = (1, 8, 4, 1024, 256, True, 256, 50.0)   # gemma2's head_dim
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # the reference's
 LM_DATA_VOCAB = 2048
-# the card's kernel forward against its plain-attention forward, bfloat16
-# end to end (the plain path rounds the scaled q and the softmax weights to
-# bfloat16, the kernel keeps them in float32): logits within LM_LOGIT_RTOL
-# of the largest logit, signature buckets within LM_SIG_TOL (about 650 net
-# flags of the 131,072 per bucket)
+# the hybrid path: jamba-v0.1-52b at full width, batch 8 of 512 positions
+SCAN_MAIN = (8, 512, 8192, 16)       # B, S, d_in, N
+# tests/test_kernels.py SCAN_CASES (B, S, d_in, N), and a ragged S (not a
+# multiple of the kernel's 8-step tile) over a partial block of channels
+SCAN_CASES = [(1, 64, 8, 4), (2, 100, 16, 8), (3, 37, 4, 2)]
+SCAN_RAGGED = (2, 301, 200, 16)
+SCAN_TOL = 1e-5                      # rtol and atol, the reference's
+SFU_EXP_PER_CLOCK_SM = 16            # H100: special-function unit rate
+H100_SMS, H100_BOOST_HZ = 132, 1.98e9
+HYBRID_PARAMS = 1_036_464_128        # the reference's tree at this cut
+# the card's kernel forward against its plain forward, bfloat16 end to end
+# (the plain attention rounds the scaled q and the softmax weights to
+# bfloat16, the kernel keeps them in float32; both scans are float32 and
+# differ in the last bits, which the bfloat16 casts after them can round
+# apart): logits within LM_LOGIT_RTOL of the largest logit, signature
+# buckets within LM_SIG_TOL (about 650 net flags of the 131,072 per bucket
+# at internlm2's width)
 LM_LOGIT_RTOL = 0.05
 LM_SIG_TOL = 0.005
 
@@ -355,6 +380,108 @@ def phase_flash(fa, ops, dev) -> dict:
     return record
 
 
+def scan_inputs(shape, generator, proj_width=None, h0_scale=0.1):
+    """x, dt, A, Bc, Cc, h0 as the reference's kernel tests draw them (dt
+    through a softplus, A negative).  With ``proj_width``, Bc and Cc are
+    views into one (B, S, proj_width + 2N) projection, as ``models.mamba``
+    splits them (row stride ``dt_rank + 2N``)."""
+    import torch
+    import torch.nn.functional as F
+    B, S, d_in, N = shape
+    dev = generator.device
+
+    def normal(*size):
+        return torch.randn(size, generator=generator, device=dev)
+
+    x = normal(B, S, d_in)
+    dt = F.softplus(normal(B, S, d_in))
+    A = -torch.exp(normal(d_in, N) * 0.5)
+    if proj_width is None:
+        Bc, Cc = normal(B, S, N), normal(B, S, N)
+    else:
+        proj = normal(B, S, proj_width + 2 * N)
+        Bc, Cc = proj[..., proj_width:proj_width + N], proj[..., -N:]
+    h0 = normal(B, d_in, N) * h0_scale
+    return x, dt, A, Bc, Cc, h0
+
+
+def phase_scan(ss, ops, dev) -> dict:
+    """The selective scan kernel against its plain version on the card,
+    within the reference's 1e-5; then timed at the hybrid path's shape."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4)
+    max_err = 0.0
+    compared = []
+
+    def compare(got, want, what):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("y", "h_last"), got, want):
+            check(a.is_cuda and a.shape == b.shape and a.dtype == b.dtype,
+                  f"scan {name} at {what}")
+            err = (a - b).abs().max().item() if a.numel() else 0.0
+            errs.append(err)
+            check(bool(((a - b).abs() <= SCAN_TOL + SCAN_TOL * b.abs())
+                       .all()),
+                  f"scan kernel != plain at {what}, {name}: max |diff| "
+                  f"{err}")
+        max_err = max(max_err, *errs)
+        compared.append({"case": what, "y_max_abs_err": errs[0],
+                         "h_max_abs_err": errs[1]})
+
+    cases = [(list(c), scan_inputs(c, g)) for c in SCAN_CASES]
+    cases.append(("main path, strided B and C",
+                  scan_inputs(SCAN_MAIN, g, proj_width=256)))
+    cases.append(("ragged, non-zero h0",
+                  scan_inputs(SCAN_RAGGED, g, proj_width=5, h0_scale=1.0)))
+    for what, inputs in cases:
+        compare(ops.selective_scan(*inputs),
+                ss.selective_scan_plain(*inputs), str(what))
+    # two calls carrying the state against one over the whole
+    x, dt, A, Bc, Cc, h0 = scan_inputs((2, 80, 300, 16), g, proj_width=7)
+    y1, h1 = ss.selective_scan_bsd(x[:, :43], dt[:, :43], A, Bc[:, :43],
+                                   Cc[:, :43], h0)
+    y2, h2 = ss.selective_scan_bsd(x[:, 43:], dt[:, 43:], A, Bc[:, 43:],
+                                   Cc[:, 43:], h1)
+    compare((torch.cat([y1, y2], 1), h2),
+            ss.selective_scan_plain(x, dt, A, Bc, Cc, h0),
+            "state continuation over two calls")
+
+    sets = [scan_inputs(SCAN_MAIN, g, proj_width=256) for _ in range(3)]
+    ms = device_ms(lambda a: ss.selective_scan_bsd(*a), sets)
+    plain_ms = device_ms(lambda a: ss.selective_scan_plain(*a), sets,
+                         reps=6)
+    B, S, d_in, N = SCAN_MAIN
+    bytes_moved = 4 * (3 * B * S * d_in       # x, dt read; y written
+                       + 2 * B * d_in * N     # h0 read, h_last written
+                       + d_in * N             # A
+                       + 2 * B * S * N)       # Bc, Cc
+    steps = B * S * d_in * N
+    # per (b, t, c, n): dt*A, exp, da*h, dx*B, +, h*C, +; per (b, t, c):
+    # dt*x
+    ops_done = 7 * steps + B * S * d_in
+    record = {"name": "selective_scan", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+              "replaces": "src/repro/kernels/selective_scan.py:50",
+              "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": max(bytes_moved / HBM_BYTES_PER_S,
+                              ops_done / F32_OPS_PER_S) * 1e3,
+              "bound_by": ("bytes" if bytes_moved / HBM_BYTES_PER_S
+                           >= ops_done / F32_OPS_PER_S else "operations"),
+              "library_ms": None,
+              "library_none": "no single PyTorch call computes a "
+                              "selective scan",
+              "timed_shape": list(SCAN_MAIN)}
+    # the exponentials' floor on the special-function units is derived,
+    # not measured: it stays out of the kernels line
+    emit(phase="scan_vs_plain", compared=len(compared), cases=compared,
+         bytes=bytes_moved, flops=ops_done,
+         exp_units_ms=steps / (SFU_EXP_PER_CLOCK_SM * H100_SMS
+                               * H100_BOOST_HZ) * 1e3, **record)
+    return record
+
+
 def reference_check(cnn, cfg, dev, params) -> dict:
     """The card's VGG16 forward against the port's CPU forward on a small
     input, from the same weights: logits within float32 convolution noise,
@@ -379,7 +506,7 @@ def reference_check(cnn, cfg, dev, params) -> dict:
             "signature_max_abs_err": sig_err}
 
 
-def phase_main_path(sig, dev) -> int:
+def phase_main_path(sig, fa, ss, dev) -> int:
     import numpy as np
     import torch
     from repro_torch.configs.cnn import vgg_for
@@ -436,12 +563,12 @@ def phase_main_path(sig, dev) -> int:
                                            local_epochs=1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sig.launches = 0                           # counts start here
+    sig.launches = fa.launches = ss.launches = 0   # counts start here
     t0 = time.perf_counter()
     result = coord.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sig.launches                    # and are read here
+    launches, others = sig.launches, (fa.launches, ss.launches)  # read here
     sig.signature_counts_plain = inner_plain
     seconds["rest"] = wall - sum(seconds.values())
     peak = torch.cuda.max_memory_allocated()
@@ -462,6 +589,7 @@ def phase_main_path(sig, dev) -> int:
           f"signature kernel launched {launches} times for "
           f"{calls['signature']} signature calls over {rounds} rounds")
     check(calls["plain"] == 0, "the main path ran the plain signature")
+    check(others == (0, 0), f"the CNN path launched flash or scan {others}")
     check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
           f"accuracies {accs}")
     check(all(p.is_cuda for p in tree_leaves(gm)), "model left the card")
@@ -481,9 +609,10 @@ def phase_main_path(sig, dev) -> int:
 
 
 def lm_reference_check(tfm, cfg, backend, params, stream) -> dict:
-    """The final global model's kernel forward (flash attention) against
-    its plain-attention forward, both on the card and in bfloat16, on one
-    batch of the global test stream."""
+    """The final global model's kernel forward (flash attention, and the
+    selective scan where the model has Mamba layers) against its plain
+    forward (dense attention, the model's chunked scan), both on the card
+    and in bfloat16, on one batch of the global test stream."""
     import numpy as np
     import torch
     from repro_torch.runtime import Runtime
@@ -579,13 +708,44 @@ def profile_lm_round(backend, params, stream) -> dict:
             "top_device_ms": [[k[:90], ms, n] for k, ms, n in top[:12]]}
 
 
-def phase_lm_path(sig, fa, dev) -> dict:
-    import dataclasses
+def tree_param_count(cfg) -> int:
+    """Parameters of the port's tree for a config of attention blocks
+    without biases and Mamba blocks, all with dense feed-forward layers,
+    counted leaf by leaf from its shapes (``ArchConfig.param_count()``
+    counts a Mamba layer's small leaves otherwise and leaves out the
+    norms)."""
+    d, total = cfg.d_model, cfg.vocab_size * cfg.d_model
+    if not cfg.tie_embeddings:
+        total += cfg.d_model * cfg.vocab_size
+    total += d                                           # final norm
+    for spec in cfg.layer_specs():
+        total += 2 * d + 3 * d * cfg.d_ff                # norms, ffn
+        if spec.kind == "attn":
+            total += 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+        else:
+            mc = cfg.mamba
+            d_in = mc.expand * d
+            rank = mc.dt_rank or -(-d // 16)
+            total += (d * 2 * d_in + mc.d_conv * d_in + d_in     # in, conv
+                      + d_in * (rank + 2 * mc.d_state)           # x_proj
+                      + rank * d_in + d_in                       # dt
+                      + d_in * mc.d_state + d_in                 # A_log, D
+                      + d_in * d)                                # out_proj
+    return total
+
+
+def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
+                  expected_params) -> dict:
+    """The sequential DAG-AFL loop over ``clients`` ``LMBackend`` clients
+    (2 rounds of 2 local SGD steps, batch 8 x 512 positions), with every
+    kernel's launch count set to 0 just before the run and read just
+    after; then the kernel forward against the plain forward on the card,
+    and one profiled backend round.  ``kern`` holds the kernel modules
+    ``sig``, ``fa`` and ``ss``."""
+    import gc
 
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import LayerSpec, Stage
     from repro_torch.core.aggregate import tree_leaves
     from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
     from repro_torch.core.verify import verify_full_dag
@@ -593,28 +753,31 @@ def phase_lm_path(sig, fa, dev) -> dict:
     from repro_torch.fl.backend import LMBackend
     from repro_torch.models import transformer as tfm
 
-    full = get_config("internlm2-1.8b")
-    cfg = dataclasses.replace(full, n_layers=4, stages=(
-        Stage((LayerSpec(kind="attn", ffn="dense"),), 4),))
+    sig, fa, ss = kern["sig"], kern["fa"], kern["ss"]
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # launch/train.py's streams, drawn from a sub-vocabulary: its
-    # vocab x vocab transition matrix at 92,544 tokens would take 68.5 GB
+    # vocab x vocab transition matrix would take 68.5 GB at internlm2's
+    # 92,544 tokens and 34.4 GB at jamba's 65,536
     streams = [make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
                                order=1.5 + 0.5 * c, seed=c)
-               for c in range(4)]
+               for c in range(clients)]
     client_data = [{"train": s, "val": s, "test": s} for s in streams]
     global_test = make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
                                   seed=999)
     data_s = time.perf_counter() - t0
-    backend = LMBackend(cfg, lr=3e-3, batch_size=8, seq_len=512)
-    check(backend.device.type == "cuda", "LM backend is not on the card")
+    backend = LMBackend(cfg, lr=3e-3, local_steps=local_steps, batch_size=8,
+                        seq_len=512)
+    check(backend.device.type == "cuda", f"{phase}: backend is not on the "
+          f"card")
     t0 = time.perf_counter()
     genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(genesis))
-    norms = cfg.d_model * (2 * cfg.n_layers + 1)    # not in param_count()
-    check(n_params == cfg.param_count() + norms, f"{n_params} parameters")
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{phase}: {n_params} parameters, expected {expected_params}")
     # warm-up outside the counted run: cuBLAS handles, allocator pools
     warm, _ = backend.train_local(genesis, streams[0], epochs=1)
     backend.evaluate(warm, streams[0])
@@ -622,7 +785,7 @@ def phase_lm_path(sig, fa, dev) -> dict:
     del warm
 
     calls = {"train_local": 0, "evaluate": 0, "signature": 0,
-             "plain_flash": 0, "plain_signature": 0}
+             "plain_flash": 0, "plain_signature": 0, "plain_scan": 0}
     seconds = {"train_local": 0.0, "evaluate": 0.0, "signature": 0.0}
     signatures, accs = [], []
 
@@ -638,24 +801,28 @@ def phase_lm_path(sig, fa, dev) -> dict:
             return out
         return wrapper
 
-    inner = (fa.flash_attention_plain, sig.signature_counts_plain)
+    inner = (fa.flash_attention_plain, sig.signature_counts_plain,
+             ss.selective_scan_plain)
     backend.train_local = counted("train_local", backend.train_local)
     backend.evaluate = counted("evaluate", backend.evaluate, accs)
     backend.signature = counted("signature", backend.signature, signatures)
     fa.flash_attention_plain = counted("plain_flash", inner[0])
     sig.signature_counts_plain = counted("plain_signature", inner[1])
+    ss.selective_scan_plain = counted("plain_scan", inner[2])
     coord = DagAflCoordinator(backend, client_data, global_test,
-                              DagAflConfig(n_clients=4, max_rounds=2,
+                              DagAflConfig(n_clients=clients, max_rounds=2,
                                            local_epochs=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sig.launches = fa.launches = 0             # counts start here
+    sig.launches = fa.launches = ss.launches = 0   # counts start here
     t0 = time.perf_counter()
     result = coord.run(init_model=genesis)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sig_launches, flash_launches = sig.launches, fa.launches   # read here
-    fa.flash_attention_plain, sig.signature_counts_plain = inner
+    launches = {"signature": sig.launches, "flash": fa.launches,
+                "scan": ss.launches}               # and are read here
+    (fa.flash_attention_plain, sig.signature_counts_plain,
+     ss.selective_scan_plain) = inner
     seconds["rest"] = wall - sum(seconds.values())
     peak = torch.cuda.max_memory_allocated()
 
@@ -667,41 +834,73 @@ def phase_lm_path(sig, fa, dev) -> dict:
     gm = coord.global_model()
     ok, why = verify_full_dag(coord.ledger)
     forwards = calls["evaluate"] + calls["signature"]
-    check(rounds == 8, f"LM: expected 8 rounds (4 clients x 2), got {rounds}")
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    expected = {"signature": calls["signature"],
+                "flash": kinds.count("attn") * forwards,
+                "scan": kinds.count("mamba") * forwards}
+    check(rounds == 2 * clients,
+          f"{phase}: expected {2 * clients} rounds, got {rounds}")
     check(result.extra["chain_len"] == 1 + rounds,
-          f"LM: chain_len {result.extra['chain_len']} != 1 + {rounds}")
-    check(result.extra["verify_failures"] == 0, "LM: path verification")
-    check(ok, f"LM: verify_full_dag: {why}")
-    check(flash_launches == cfg.n_layers * forwards,
-          f"flash kernel launched {flash_launches} times for {forwards} "
-          f"eval and signature forwards of {cfg.n_layers} layers")
-    check(sig_launches == calls["signature"] == rounds,
-          f"signature kernel launched {sig_launches} times for "
+          f"{phase}: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(result.extra["verify_failures"] == 0, f"{phase}: path "
+          f"verification")
+    check(ok, f"{phase}: verify_full_dag: {why}")
+    check(launches == expected and calls["signature"] == rounds,
+          f"{phase}: launches {launches}, expected {expected} for "
+          f"{forwards} eval and signature forwards and "
           f"{calls['signature']} signature calls")
-    check(calls["plain_flash"] == calls["plain_signature"] == 0,
-          "the LM path ran a plain kernel version")
+    check(calls["plain_flash"] == calls["plain_signature"]
+          == calls["plain_scan"] == 0,
+          f"{phase}: the path ran a plain kernel version")
     check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
-          f"LM accuracies {accs}")
-    check(all(p.is_cuda for p in tree_leaves(gm)), "LM model left the card")
+          f"{phase}: accuracies {accs}")
+    check(all(p.is_cuda for p in tree_leaves(gm)), f"{phase}: model left "
+          f"the card")
     check(all(s.shape == (64,) and np.all((s >= 0) & (s <= 1))
-              for s in signatures), "LM signatures are not 64 fractions")
+              for s in signatures), f"{phase}: signatures are not 64 "
+          f"fractions")
     ref = lm_reference_check(tfm, cfg, backend, gm, global_test)
     ref["profile"] = profile_lm_round(backend, gm, streams[0])
     record = dict(
-        phase="lm_path", model=cfg.name, layers=cfg.n_layers,
+        phase=phase, model=cfg.name,
+        layers=[spec.kind for spec in cfg.layer_specs()],
         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-        data_vocab=LM_DATA_VOCAB, batch=8, seq_len=512, n_params=n_params,
-        clients=4, rounds=rounds, chain_len=result.extra["chain_len"],
+        data_vocab=LM_DATA_VOCAB, batch=8, seq_len=512,
+        local_steps=local_steps, n_params=n_params,
+        clients=clients, rounds=rounds, chain_len=result.extra["chain_len"],
         wall_s=wall, s_per_round=wall / rounds, peak_bytes=peak,
         data_s=data_s, init_s=init_s,
         final_accuracy=result.final_accuracy,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
         client_mean_accuracy=result.extra["client_mean_accuracy"],
-        calls=calls, seconds=seconds, signature_launches=sig_launches,
-        flash_launches=flash_launches, verify_full_dag=why, **ref)
+        calls=calls, seconds=seconds, launches=launches,
+        verify_full_dag=why, **ref)
     emit(**record)
     return record
+
+
+def lm_config():
+    """internlm2-1.8b at full width, depth cut to 4 of 24 layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, Stage
+    return dataclasses.replace(get_config("internlm2-1.8b"), n_layers=4,
+                               stages=(Stage((LayerSpec(kind="attn",
+                                                        ffn="dense"),), 4),))
+
+
+def hybrid_config():
+    """jamba-v0.1-52b at full width, depth cut to its two dense-FFN block
+    kinds: one Mamba layer and one attention layer (the MoE layers at odd
+    indices are not ported)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, Stage
+    return dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=2,
+                               stages=(Stage((
+                                   LayerSpec(kind="mamba", ffn="dense"),
+                                   LayerSpec(kind="attn", ffn="dense")), 1),))
 
 
 def main() -> None:
@@ -711,6 +910,7 @@ def main() -> None:
     from repro_torch import runtime
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import signature as sig
 
     dev = runtime.resolve_device("cuda")
@@ -719,13 +919,26 @@ def main() -> None:
     sig_record = phase_kernels(sig, ops, dev)
     sig_record["lm"] = phase_signature_lm(sig, ops, dev)
     flash_record = phase_flash(fa, ops, dev)
-    cnn_launches = phase_main_path(sig, dev)
-    lm = phase_lm_path(sig, fa, dev)
-    sig_record["launches"] = cnn_launches + lm["signature_launches"]
+    scan_record = phase_scan(ss, ops, dev)
+    kern = {"sig": sig, "fa": fa, "ss": ss}
+    cnn_launches = phase_main_path(sig, fa, ss, dev)
+    lm = phase_lm_loop(kern, dev, phase="lm_path", cfg=lm_config(),
+                       clients=4, local_steps=8,
+                       expected_params=630_736_896)["launches"]
+    hybrid = phase_lm_loop(kern, dev, phase="hybrid_path",
+                           cfg=hybrid_config(), clients=3, local_steps=2,
+                           expected_params=HYBRID_PARAMS)["launches"]
     sig_record["launches_by_path"] = {"cnn": cnn_launches,
-                                      "lm": lm["signature_launches"]}
-    flash_record["launches"] = lm["flash_launches"]
-    print(json.dumps({"kernels": [sig_record, flash_record]}), flush=True)
+                                      "lm": lm["signature"],
+                                      "hybrid": hybrid["signature"]}
+    sig_record["launches"] = sum(sig_record["launches_by_path"].values())
+    flash_record["launches_by_path"] = {"lm": lm["flash"],
+                                        "hybrid": hybrid["flash"]}
+    flash_record["launches"] = lm["flash"] + hybrid["flash"]
+    scan_record["launches_by_path"] = {"hybrid": hybrid["scan"]}
+    scan_record["launches"] = hybrid["scan"]
+    print(json.dumps({"kernels": [sig_record, flash_record, scan_record]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 ``get_config(arch_id)`` returns the configs whose every feature the port's
 transformer runs: the dense GQA decoders ``internlm2-1.8b``, ``qwen2-7b``
 (QKV bias) and ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
-embeddings, GeLU).  The reference's other arch ids raise
-``NotImplementedError`` naming the blocks the port lacks for them.
+embeddings, GeLU), and the hybrid ``jamba-v0.1-52b``, whose Mamba and
+attention blocks with dense feed-forward layers run; its MoE layers raise
+``NotImplementedError`` at ``init_params`` and ``forward``.  The
+reference's other arch ids raise ``NotImplementedError`` naming the blocks
+the port lacks for them.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ _ARCH_MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "gemma2-2b": "gemma2_2b",
     "qwen2-7b": "qwen2_7b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 _UNPORTED = {
@@ -27,7 +31,6 @@ _UNPORTED = {
                   "(its config is not copied yet)",
     "qwen2-vl-72b": "M-RoPE",
     "llama4-maverick-400b-a17b": "MoE feed-forward layers",
-    "jamba-v0.1-52b": "Mamba blocks and MoE feed-forward layers",
     "deepseek-v2-236b": "MLA attention and MoE feed-forward layers",
 }
 

@@ -5,7 +5,8 @@ repeating ``pattern`` of :class:`LayerSpec` blocks, repeated ``repeats``
 times over parameters stacked along a leading ``repeats`` axis, so a JAX
 parameter tree loads into the port unchanged.  Copied as it is, without the
 assigned input-shape table of the TPU dry runs.  The port's transformer runs
-the dense GQA families; the other blocks' configs are kept so that
+the dense GQA families and Jamba's Mamba and attention blocks with dense
+feed-forward layers; the other blocks' configs are kept so that
 :func:`reduced` and the registry read every config.
 """
 from __future__ import annotations

@@ -2,11 +2,12 @@
 
 ``CNNBackend`` is the paper-faithful path: VGG-family clients on image data
 with exact Eq. 3 zero-count signatures, which go through the signature
-kernel on the card.  ``LMBackend`` federates a dense GQA transformer on
-token streams: its eval and signature forwards run the flash attention
-kernel and the bucketed signature kernel on the card, and its local
-training runs under autograd on the plain attention (the kernels have no
-gradient, as in the reference).
+kernel on the card.  ``LMBackend`` federates a transformer on token
+streams (the dense GQA decoders, or Jamba's hybrid of Mamba and attention
+blocks): its eval and signature forwards run the flash attention, selective
+scan and bucketed signature kernels on the card, and its local training
+runs under autograd on the plain attention and the model's chunked scan
+(the kernels have no gradient, as in the reference).
 
 Both run on the CUDA card unless ``device`` says otherwise, and raise where
 there is no card and no device was given.  Batches are drawn with the
@@ -122,8 +123,9 @@ class LMBackend:
         self.seq_len = seq_len
         self.device = resolve_device(device)
         self.opt = sgd(lr, momentum=0.9)
-        # training runs the default runtime: plain attention under
-        # autograd, no signature.  Eval and signature forwards: the kernels
+        # training runs the default runtime: plain attention and the
+        # model's scan under autograd, no signature.  Eval and signature
+        # forwards: the kernels
         self.eval_runtime = Runtime(use_kernels=True)
         self.signature_runtime = Runtime(use_kernels=True,
                                          want_signature=True)

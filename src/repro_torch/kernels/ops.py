@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.selective_scan import selective_scan_bsd
 from repro_torch.kernels.signature import _reciprocal, signature_counts
 
 
@@ -33,6 +34,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                v.transpose(1, 2), causal=causal,
                                window=window, softcap=softcap)
     return out.transpose(1, 2)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, h0: torch.Tensor):
+    """Drop-in for ``models.mamba.selective_scan_ref``: x, dt (B,S,d_in),
+    A (d_in,N), Bc, Cc (B,S,N), h0 (B,d_in,N), float32 -> (y, h_last).
+    The reference's ``chunk`` is its TPU tiling and does not change the
+    result, so there is none here."""
+    return selective_scan_bsd(x, dt, A, Bc, Cc, h0)
 
 
 def signature(x: torch.Tensor, *, tau: float = 0.05,

@@ -1,5 +1,6 @@
 """Staged decoder assembled from an ArchConfig (port of
-``repro.models.transformer``, the dense GQA path).
+``repro.models.transformer``: the dense GQA path and Jamba's hybrid of
+Mamba and attention blocks).
 
 The layer stack is organised as *stages*, as in the reference: each stage
 is a repeating pattern of blocks whose parameters are stacked along a
@@ -9,7 +10,8 @@ reference scans that axis with ``lax.scan``; here a Python loop takes
 period ``i`` as the leaves' index ``i``.
 
 Public API: init_params / forward_hidden / forward / loss_fn.  Attention
-blocks with dense feed-forward layers only; ``moe_aux`` is 0.  Serving
+and Mamba blocks with dense feed-forward layers; MoE layers, xLSTM blocks
+and encoders raise ``NotImplementedError``, and ``moe_aux`` is 0.  Serving
 (``prefill``, ``decode_step``, ``init_cache``) is not ported yet.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.aggregate import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        embed_tokens, init_embedding,
                                        init_mlp, init_norm, torch_dtype,
@@ -53,7 +56,7 @@ def resolve_window(cfg: ArchConfig, spec: LayerSpec, seq_len: int) -> int:
 
 
 def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.kind != "attn":
+    if spec.kind not in ("attn", "mamba"):
         raise NotImplementedError(f"{spec.kind} blocks are not ported")
     if spec.ffn == "moe":
         raise NotImplementedError("MoE feed-forward layers are not ported")
@@ -64,8 +67,11 @@ def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
 def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
     _check_supported(cfg, spec)
     device = generator.device
-    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device),
-         "core": attn.init_attn(generator, cfg, spec, dtype)}
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device)}
+    if spec.kind == "attn":
+        p["core"] = attn.init_attn(generator, cfg, spec, dtype)
+    else:
+        p["core"] = mam.init_mamba(generator, cfg, dtype)
     if spec.ffn == "dense" and cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
@@ -100,9 +106,13 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
                    window: int, runtime: Runtime):
     _check_supported(cfg, spec)
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    x = x + attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
-                              positions=positions, window=window,
-                              runtime=runtime)
+    if spec.kind == "attn":
+        core = attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
+                                 positions=positions, window=window,
+                                 runtime=runtime)
+    else:
+        core, _ = mam.mamba_forward(lp["core"], h, cfg=cfg, runtime=runtime)
+    x = x + core
     if spec.ffn == "dense" and cfg.d_ff > 0:
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, _ = apply_mlp(lp["ffn"], h3, cfg.act,

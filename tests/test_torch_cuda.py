@@ -5,6 +5,8 @@ marker and skip where CUDA is absent.  On the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -12,12 +14,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import runtime  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import LayerSpec, Stage  # noqa: E402
 from repro_torch.configs.cnn import vgg_for  # noqa: E402
 from repro_torch.core.aggregate import tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_lm_dataset  # noqa: E402
 from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
 from repro_torch.data.synthetic import make_benchmark_dataset  # noqa: E402
 
@@ -163,3 +167,92 @@ def test_backend_signature_launches_the_kernel(card):
     np.testing.assert_allclose(s_gpu, s_cpu, rtol=0, atol=0.01)
     rows = ops.signature_per_channel(_relu_like((4, 8, 8, 16), card))
     assert rows.shape == (4, 16) and rows.is_cuda
+
+
+# B, S, d_in, N: tests/test_kernels.py SCAN_CASES, the hybrid path's shape
+# with Bc and Cc as strided views of one projection, and a ragged S (not a
+# multiple of the kernel's 8-step tile)
+SCAN_CASES = [(1, 64, 8, 4), (2, 100, 16, 8), (3, 37, 4, 2),
+              (8, 512, 8192, 16), (2, 301, 200, 16)]
+
+
+def _scan_inputs(B, S, d_in, N, device, seed=0):
+    """As the reference's kernel tests draw them; Bc and Cc are views into
+    one (B, S, dt_rank + 2N) projection, as ``models.mamba`` splits them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = normal(B, S, d_in)
+    dt = torch.nn.functional.softplus(normal(B, S, d_in))
+    A = -torch.exp(normal(d_in, N) * 0.5)
+    proj = normal(B, S, 5 + 2 * N)
+    h0 = normal(B, d_in, N) * 0.1
+    return x, dt, A, proj[..., 5:5 + N], proj[..., 5 + N:], h0
+
+
+@pytest.mark.parametrize("B,S,d_in,N", SCAN_CASES)
+def test_scan_kernel_equals_plain(card, B, S, d_in, N):
+    """Within the reference's 1e-5 (rtol and atol), y and h_last."""
+    inputs = _scan_inputs(B, S, d_in, N, card)
+    assert not inputs[3].is_contiguous()
+    before = ss.launches
+    y, h = ops.selective_scan(*inputs)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    y_want, h_want = ss.selective_scan_plain(*inputs)
+    torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_kernel_state_continuation(card):
+    """Two calls with the carried state equal one call over the whole."""
+    x, dt, A, Bc, Cc, _ = _scan_inputs(1, 80, 8, 4, card, seed=4)
+    h0 = torch.zeros((1, 8, 4), device=card)
+    y_full, h_full = ss.selective_scan_bsd(x, dt, A, Bc, Cc, h0)
+    y1, h1 = ss.selective_scan_bsd(x[:, :40], dt[:, :40], A, Bc[:, :40],
+                                   Cc[:, :40], h0)
+    y2, h2 = ss.selective_scan_bsd(x[:, 40:], dt[:, 40:], A, Bc[:, 40:],
+                                   Cc[:, 40:], h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h2, h_full, rtol=1e-5, atol=1e-5)
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(card):
+    inputs = list(_scan_inputs(1, 8, 4, 4, card))
+    with pytest.raises(TypeError, match="float32"):
+        ss.selective_scan_bsd(*(t.double() for t in inputs))
+    wide = list(_scan_inputs(1, 8, 4, 32, card))
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_scan_bsd(*wide)
+    inputs[0] = inputs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ss.selective_scan_bsd(*inputs)
+    inputs[0] = inputs[0].detach().cpu()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ss.selective_scan_bsd(*inputs)
+
+
+def test_hybrid_backend_signature_launches_all_three_kernels(card):
+    """A reduced Jamba cut, one Mamba and one attention layer: a signature
+    call launches the scan and flash kernels once each and the signature
+    kernel once; training launches none of them."""
+    cfg = reduced(get_config("jamba-v0.1-52b"), d_model=256)
+    cfg = dataclasses.replace(cfg, n_layers=2, stages=(Stage(
+        (LayerSpec(kind="mamba", ffn="dense"),
+         LayerSpec(kind="attn", ffn="dense")), 1),))
+    backend = LMBackend(cfg, batch_size=4, seq_len=64, device=card)
+    params = backend.init(torch.Generator(device=card).manual_seed(0))
+    stream = make_lm_dataset(vocab=cfg.vocab_size, n_tokens=4000)
+    counts = lambda: (ss.launches, fa.launches, sig.launches)  # noqa: E731
+    c0 = counts()
+    params, _ = backend.train_local(params, stream, epochs=1)
+    assert counts() == c0
+    out = backend.signature(params, stream)
+    assert out.shape == (64,) and np.all((out >= 0) & (out <= 1))
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2] + 1)
+    cpu = LMBackend(cfg, batch_size=4, seq_len=64, device="cpu")
+    cpu_sig = cpu.signature(tree_map(lambda p: p.cpu(), params), stream)
+    assert np.sum(np.abs(cpu_sig - out) > 0) <= 4

@@ -22,6 +22,7 @@ from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -45,7 +46,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     names = {p.name for p in PORT_FILES}
     assert len(PORT_FILES) >= 30
     assert {"attention.py", "transformer.py", "layers.py",
-            "flash_attention.py", "internlm2_1_8b.py"} <= names
+            "flash_attention.py", "internlm2_1_8b.py", "mamba.py",
+            "selective_scan.py", "jamba_v01_52b.py"} <= names
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in PORT_FILES for line, root in _imported_roots(p)
            if root in FORBIDDEN]
@@ -137,6 +139,66 @@ def test_flash_kernel_refuses_inputs_that_need_a_gradient():
             fa.flash_attention_bhsd(q, kv, kv)
 
 
+def _scan_inputs(device, N=4, dtype=torch.float32, requires_grad=False,
+                 B=2, S=16, d_in=8):
+    shapes = [(B, S, d_in), (B, S, d_in), (d_in, N), (B, S, N), (B, S, N),
+              (B, d_in, N)]
+    return [torch.empty(s, device=device, dtype=dtype,
+                        requires_grad=requires_grad) for s in shapes]
+
+
+def test_non_cpu_tensor_goes_to_the_scan_kernel(monkeypatch):
+    """``ops.selective_scan`` hands non-CPU tensors to the kernel's
+    launcher, never to the plain version; so does one non-CPU input among
+    CPU ones, which the launcher then refuses."""
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    def launch(x, dt, A, Bc, Cc, h0):
+        launched.append((x.device.type, tuple(x.shape), A.shape[1]))
+        return torch.empty_like(x), torch.empty_like(h0)
+
+    monkeypatch.setattr(ss, "selective_scan_plain", plain)
+    monkeypatch.setattr(ss, "_launch", launch)
+    y, h = ops.selective_scan(*_scan_inputs("meta", N=16))
+    assert y.shape == (2, 16, 8) and h.shape == (2, 8, 16)
+    mixed = _scan_inputs("cpu")
+    mixed[3] = torch.empty((2, 16, 4), device="meta")
+    ops.selective_scan(*mixed)
+    assert launched == [("meta", (2, 16, 8), 16), ("cpu", (2, 16, 8), 4)]
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.selective_scan(*mixed)
+
+
+@pytest.mark.parametrize("what,inputs,error,match", [
+    ("a gradient", dict(requires_grad=True), RuntimeError, "no gradient"),
+    ("float64", dict(dtype=torch.float64), TypeError, "float32"),
+    ("bfloat16", dict(dtype=torch.bfloat16), TypeError, "float32"),
+    ("N = 32", dict(N=32), ValueError, "state size"),
+    ("N = 3", dict(N=3), ValueError, "state size"),
+])
+def test_scan_launcher_refuses_what_the_kernel_does_not_take(
+        what, inputs, error, match):
+    """Checked before any launch (a meta tensor stands in for a CUDA
+    one): inputs that need a gradient, other types than float32, and state
+    sizes without a template instance of the kernel."""
+    with pytest.raises(error, match=match):
+        ss.selective_scan_bsd(*_scan_inputs("meta", **inputs))
+
+
+def test_scan_shapes_are_checked():
+    x, dt, A, Bc, Cc, h0 = _scan_inputs("cpu")
+    with pytest.raises(ValueError, match="h0"):
+        ss.selective_scan_bsd(x, dt, A, Bc, Cc, h0[:, :4])
+    with pytest.raises(ValueError, match="Bc"):
+        ss.selective_scan_bsd(x, dt, A, Bc[:, :8], Cc, h0)
+    with pytest.raises(ValueError, match="A"):
+        ss.selective_scan_bsd(x, dt, A.T, Bc, Cc, h0)
+
+
 @pytest.mark.parametrize("shape", [
     (128, 1024, 64), (1, 4096, 2048), (3, 1000, 63), (2, 5, 33), (1, 1, 1),
     (70000, 2, 3)])
@@ -191,12 +253,12 @@ def test_build_compiles_once_and_keys_by_source(tmp_path, monkeypatch):
         f'echo "$@" >> {calls}\n'
         'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')))
     paths = build.build()
-    assert set(paths) == {"signature", "flash_attention"}
+    assert set(paths) == {"signature", "flash_attention", "selective_scan"}
     path = paths["signature"]
     assert path.exists() and path.parent == tmp_path / "build"
     assert "arch=compute_90a,code=sm_90a" in calls.read_text()
     build.build(["signature"])
-    assert len(calls.read_text().splitlines()) == 2     # cached by hash
+    assert len(calls.read_text().splitlines()) == 3     # cached by hash
     assert not [p for p in path.parent.iterdir() if p.suffix == ".tmp"]
     assert build.log_path("signature").exists()
 

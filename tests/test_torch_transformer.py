@@ -41,8 +41,7 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b"]
 UNPORTED = ["xlstm-125m", "whisper-medium", "gemma3-27b", "qwen2-vl-72b",
-            "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
-            "deepseek-v2-236b"]
+            "llama4-maverick-400b-a17b", "deepseek-v2-236b"]
 
 
 def _configs(arch, window=None):
@@ -84,6 +83,23 @@ def test_unported_configs_raise(arch):
     j_get_config(arch)                    # known to the reference
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config(arch)
+
+
+@pytest.mark.parametrize("d_model", [None, 64])
+def test_jamba_config_matches_reference_and_moe_raises(d_model):
+    """jamba-v0.1-52b is ported without its MoE layers: the config equals
+    the reference's, full and reduced, and the reduced config, whose two
+    layers are ``(mamba, dense)`` and ``(mamba, moe)``, raises at its MoE
+    layer."""
+    jc, tc = j_get_config("jamba-v0.1-52b"), get_config("jamba-v0.1-52b")
+    if d_model is not None:
+        jc, tc = j_reduced(jc, d_model=d_model), reduced(tc, d_model=d_model)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    if d_model is None:
+        return
+    assert [s.ffn for s in tc.layer_specs()] == ["dense", "moe"]
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tfm.init_params(torch.Generator().manual_seed(0), tc)
 
 
 def test_full_width_cut_config_size():
