@@ -3,11 +3,12 @@
 ``get_config(arch_id)`` returns the configs whose every feature the port's
 transformer runs: the dense GQA decoders ``internlm2-1.8b``, ``qwen2-7b``
 (QKV bias) and ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
-embeddings, GeLU), and the hybrid ``jamba-v0.1-52b``, whose Mamba and
-attention blocks with dense feed-forward layers run; its MoE layers raise
-``NotImplementedError`` at ``init_params`` and ``forward``.  The
-reference's other arch ids raise ``NotImplementedError`` naming the blocks
-the port lacks for them.
+embeddings, GeLU), the recurrent ``xlstm-125m`` (mLSTM and sLSTM blocks,
+layer norms with biases, no feed-forward sublayer), and the hybrid
+``jamba-v0.1-52b``, whose Mamba and attention blocks with dense
+feed-forward layers run; its MoE layers raise ``NotImplementedError`` at
+``init_params`` and ``forward``.  The reference's other arch ids raise
+``NotImplementedError`` naming the blocks the port lacks for them.
 """
 from __future__ import annotations
 
@@ -22,10 +23,10 @@ _ARCH_MODULES = {
     "gemma2-2b": "gemma2_2b",
     "qwen2-7b": "qwen2_7b",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 _UNPORTED = {
-    "xlstm-125m": "xLSTM blocks (mLSTM, sLSTM)",
     "whisper-medium": "the audio encoder and decoder cross-attention",
     "gemma3-27b": "the banded sliding-window path beyond 2048 tokens "
                   "(its config is not copied yet)",

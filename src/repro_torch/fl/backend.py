@@ -3,11 +3,12 @@
 ``CNNBackend`` is the paper-faithful path: VGG-family clients on image data
 with exact Eq. 3 zero-count signatures, which go through the signature
 kernel on the card.  ``LMBackend`` federates a transformer on token
-streams (the dense GQA decoders, or Jamba's hybrid of Mamba and attention
-blocks): its eval and signature forwards run the flash attention, selective
-scan and bucketed signature kernels on the card, and its local training
-runs under autograd on the plain attention and the model's chunked scan
-(the kernels have no gradient, as in the reference).
+streams (the dense GQA decoders, Jamba's hybrid of Mamba and attention
+blocks, or xLSTM's mLSTM and sLSTM blocks): its eval and signature
+forwards run the flash attention, selective scan, chunkwise mLSTM, sLSTM
+and bucketed signature kernels on the card, and its local training runs
+under autograd on the plain attention and the models' own scans (the
+kernels have no gradient, as in the reference).
 
 Both run on the CUDA card unless ``device`` says otherwise, and raise where
 there is no card and no device was given.  Batches are drawn with the
@@ -124,8 +125,8 @@ class LMBackend:
         self.device = resolve_device(device)
         self.opt = sgd(lr, momentum=0.9)
         # training runs the default runtime: plain attention and the
-        # model's scan under autograd, no signature.  Eval and signature
-        # forwards: the kernels
+        # models' own scans under autograd, no signature.  Eval and
+        # signature forwards: the kernels
         self.eval_runtime = Runtime(use_kernels=True)
         self.signature_runtime = Runtime(use_kernels=True,
                                          want_signature=True)

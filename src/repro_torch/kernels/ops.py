@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.mlstm import mlstm_chunkwise_bshd
 from repro_torch.kernels.selective_scan import selective_scan_bsd
 from repro_torch.kernels.signature import _reciprocal, signature_counts
+from repro_torch.kernels.slstm import slstm_scan_bsd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -75,3 +77,23 @@ def signature_per_channel(x: torch.Tensor, *, tau: float = 0.0
     """
     flat = x.reshape(x.shape[0], -1, x.shape[-1])
     return signature_counts(flat, tau) * _reciprocal(flat.shape[1])
+
+
+def slstm_scan(gates_x: torch.Tensor, R: torch.Tensor, c0: torch.Tensor,
+               n0: torch.Tensor, h0: torch.Tensor, m0: torch.Tensor):
+    """The sLSTM recurrence (inference path): gates_x (B,S,4d), R (d,4d),
+    states (B,d), float32 -> (hs (B,S,d), (c, n, h, m)).  The reference's
+    ``chunk`` is its TPU tiling and does not change the result, so there is
+    none here."""
+    return slstm_scan_bsd(gates_x, R, c0, n0, h0, m0)
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+                    chunk: int = 128, h_dtype: torch.dtype = None):
+    """Chunkwise mLSTM from a fresh state (inference path): q, k
+    (B,S,H,dk), v (B,S,H,dv), gates (B,S,H) -> (h (B,S,H,dv), {C, n, m}).
+    ``h`` comes in ``h_dtype``, by default ``q.dtype`` as the reference's;
+    the kernel computes it in float32."""
+    h, state = mlstm_chunkwise_bshd(q, k, v, i_gate, f_gate, chunk=chunk)
+    return h.to(h_dtype or q.dtype), state

@@ -1,6 +1,6 @@
 """Staged decoder assembled from an ArchConfig (port of
-``repro.models.transformer``: the dense GQA path and Jamba's hybrid of
-Mamba and attention blocks).
+``repro.models.transformer``: the dense GQA path, Jamba's hybrid of
+Mamba and attention blocks, and xLSTM's mLSTM and sLSTM blocks).
 
 The layer stack is organised as *stages*, as in the reference: each stage
 is a repeating pattern of blocks whose parameters are stacked along a
@@ -9,10 +9,11 @@ parameter tree loads through ``weights.params_from_numpy`` unchanged.  The
 reference scans that axis with ``lax.scan``; here a Python loop takes
 period ``i`` as the leaves' index ``i``.
 
-Public API: init_params / forward_hidden / forward / loss_fn.  Attention
-and Mamba blocks with dense feed-forward layers; MoE layers, xLSTM blocks
-and encoders raise ``NotImplementedError``, and ``moe_aux`` is 0.  Serving
-(``prefill``, ``decode_step``, ``init_cache``) is not ported yet.
+Public API: init_params / forward_hidden / forward / loss_fn.  Attention,
+Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers or none
+(``ffn="none"``, or ``d_ff = 0``); MoE layers and encoders raise
+``NotImplementedError``, and ``moe_aux`` is 0.  Serving (``prefill``,
+``decode_step``, ``init_cache``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core.aggregate import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        embed_tokens, init_embedding,
                                        init_mlp, init_norm, torch_dtype,
@@ -56,7 +58,7 @@ def resolve_window(cfg: ArchConfig, spec: LayerSpec, seq_len: int) -> int:
 
 
 def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "mamba"):
+    if spec.kind not in ("attn", "mamba", "mlstm", "slstm"):
         raise NotImplementedError(f"{spec.kind} blocks are not ported")
     if spec.ffn == "moe":
         raise NotImplementedError("MoE feed-forward layers are not ported")
@@ -70,8 +72,12 @@ def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device)}
     if spec.kind == "attn":
         p["core"] = attn.init_attn(generator, cfg, spec, dtype)
-    else:
+    elif spec.kind == "mamba":
         p["core"] = mam.init_mamba(generator, cfg, dtype)
+    elif spec.kind == "mlstm":
+        p["core"] = xl.init_mlstm(generator, cfg, dtype)
+    else:
+        p["core"] = xl.init_slstm(generator, cfg, dtype)
     if spec.ffn == "dense" and cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
@@ -110,8 +116,12 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
         core = attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
                                  positions=positions, window=window,
                                  runtime=runtime)
-    else:
+    elif spec.kind == "mamba":
         core, _ = mam.mamba_forward(lp["core"], h, cfg=cfg, runtime=runtime)
+    elif spec.kind == "mlstm":
+        core, _ = xl.mlstm_forward(lp["core"], h, cfg=cfg, runtime=runtime)
+    else:
+        core, _ = xl.slstm_forward(lp["core"], h, cfg=cfg, runtime=runtime)
     x = x + core
     if spec.ffn == "dense" and cfg.d_ff > 0:
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)

@@ -1,0 +1,315 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
+(scalar memory, strictly recurrent), arXiv:2405.04517 (port of
+``repro.models.xlstm``, used by xlstm-125m).
+
+The parameter trees are the reference's, with ``b_if`` and ``b_gates`` in
+float32 whatever the param dtype, so a JAX tree loads through
+``weights.params_from_numpy`` unchanged.
+
+Two paths for each recurrence, as in the Mamba block:
+
+- ``runtime.use_kernels``: the kernels through ``kernels.ops``, on the card
+  (their plain versions on the CPU).  No gradient: the eval and signature
+  forwards.  :func:`mlstm_forward` calls ``ops.mlstm_chunkwise`` (with
+  ``chunk = xlstm.chunk``, and ``h`` taken in float32 as the model's own
+  form gives it) only from a fresh state, since the kernel starts from
+  ``C = 0, n = 0, m = -1e30``; a carried state takes the model's form.
+  :func:`slstm_forward` hoists ``gates_x = xconv @ W + b`` and ``R`` in
+  float32 as :func:`_slstm_scan` does, then calls ``ops.slstm_scan``.
+- otherwise the model's own forms, the path local training runs under
+  autograd: :func:`mlstm_chunkwise` (the reference's chunkwise form, its
+  padding of ``f_gate`` with 30.0 included) and :func:`_slstm_scan` (one
+  ``slstm_step`` per position).
+
+The reference's JAX model never reaches its two Pallas kernels (they are
+reachable only through its ``ops`` entry points), although each kernel is
+the forward path of exactly these functions; the port routes its no-grad
+forwards through them, as it does the Mamba block's, which computes the
+same function and adds no knob.
+
+Memory of the model's mLSTM under autograd: a chunk keeps its ``(L, L)``
+decay and score matrices and the ``(dk, dv)`` state products for its
+backward.  The reference wraps each chunk in ``jax.checkpoint``; the port
+runs each chunk under ``torch.utils.checkpoint`` (non-reentrant), which
+keeps only the chunk-boundary states.
+
+Not ported: the mesh branch of the reference's
+``_slstm_scan_maybe_sharded`` (one card, no mesh) and ``mlstm_decode`` /
+``slstm_decode``, which wait for the serving slice; each raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.mlstm import mlstm_chunk
+from repro_torch.kernels.slstm import slstm_step
+from repro_torch.models.layers import (_normal, apply_norm, dense_init,
+                                       init_norm, torch_dtype)
+
+
+def _mdims(cfg: ArchConfig):
+    xc = cfg.xlstm
+    d_in = xc.m_expand * cfg.d_model
+    d_qk = int(xc.m_qk_dim_factor * d_in)
+    return xc, d_in, d_qk, cfg.n_heads
+
+
+def _causal_conv(xp, conv_w, conv_b, S: int):
+    """Depthwise causal conv over time of ``xp`` (B, S + s_conv - 1, C),
+    then SiLU."""
+    xconv = sum(xp[:, i:i + S] * conv_w[i] for i in range(conv_w.shape[0]))
+    return F.silu(xconv + conv_b)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(generator, cfg: ArchConfig, dtype) -> dict:
+    """Weights drawn on ``generator`` in the reference's order."""
+    xc, d_in, d_qk, H = _mdims(cfg)
+    device = generator.device
+    up_proj = dense_init(generator, cfg.d_model, 2 * d_in, dtype)
+    conv_w = (_normal(generator, (xc.s_conv, d_in))
+              / math.sqrt(xc.s_conv)).to(dtype)
+    wq = dense_init(generator, d_in, d_qk, dtype)
+    wk = dense_init(generator, d_in, d_qk, dtype)
+    wv = dense_init(generator, d_in, d_in, dtype)
+    w_if = dense_init(generator, d_in, 2 * H, dtype, scale=0.01)
+    down_proj = dense_init(generator, d_in, cfg.d_model, dtype)
+    return {
+        "up_proj": up_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "wq": wq,
+        "wk": wk,
+        "wv": wv,
+        "w_if": w_if,
+        "b_if": torch.cat([torch.zeros((H,), device=device),
+                           torch.full((H,), 3.0, device=device)]),
+        "head_norm": init_norm("rmsnorm", d_in, dtype, device),
+        "down_proj": down_proj,
+    }
+
+
+def init_mlstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+    """Fresh state and conv tail.  The reference's ``leading`` axes serve
+    its decode caches, which wait for the serving slice."""
+    xc, d_in, d_qk, H = _mdims(cfg)
+    return {
+        "C": torch.zeros((batch, H, d_qk // H, d_in // H), device=device),
+        "n": torch.zeros((batch, H, d_qk // H), device=device),
+        "m": torch.full((batch, H), -1e30, device=device),
+        "conv": torch.zeros((batch, xc.s_conv - 1, d_in), device=device),
+    }
+
+
+def _mlstm_qkvif(params, x, cfg: ArchConfig, compute):
+    """x (B,S,d) -> q, k (B,S,H,dqk/H), v (B,S,H,d_in/H), i, f (B,S,H)
+    float32 (views into one projection), z and xm (B,S,d_in)."""
+    xc, d_in, d_qk, H = _mdims(cfg)
+    B, S, _ = x.shape
+    up = x.to(compute) @ params["up_proj"].to(compute)
+    xm, z = up.chunk(2, dim=-1)
+    # causal conv + silu feeds q/k (the paper's block layout)
+    xcn = _causal_conv(F.pad(xm, (0, 0, xc.s_conv - 1, 0)),
+                       params["conv_w"].to(compute),
+                       params["conv_b"].to(compute), S)
+    q = (xcn @ params["wq"].to(compute)).reshape(B, S, H, d_qk // H)
+    k = (xcn @ params["wk"].to(compute)).reshape(B, S, H, d_qk // H)
+    v = (xm @ params["wv"].to(compute)).reshape(B, S, H, d_in // H)
+    gif = (xm @ params["w_if"].to(compute)).float() + params["b_if"]
+    i_gate, f_gate = gif.chunk(2, dim=-1)
+    return q, k, v, i_gate, f_gate, z, xm
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, state, chunk: int = 256):
+    """Stabilised chunkwise mLSTM (the model's own form).
+
+    q, k (B,S,H,dk), v (B,S,H,dv); gates (B,S,H) raw (i pre-exp, f
+    pre-logsigmoid); state {C (B,H,dk,dv), n (B,H,dk), m (B,H)}.  Returns
+    (h (B,S,H,dv) float32, state).  S is padded to whole chunks with zero
+    inputs and ``f_gate = 30`` (forget ~1), as in the reference.  Under
+    autograd each chunk runs under ``torch.utils.checkpoint``.
+    """
+    B, S, H, dk = q.shape
+    L = min(chunk, S)
+    n_chunks = -(-S // L)
+    pad = n_chunks * L - S
+    scale = 1.0 / math.sqrt(dk)
+    track = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_gate, f_gate))
+    # (B, H, S, *) float32
+    qt = F.pad(q.float().transpose(1, 2) * scale, (0, 0, 0, pad))
+    kt = F.pad(k.float().transpose(1, 2), (0, 0, 0, pad))
+    vt = F.pad(v.float().transpose(1, 2), (0, 0, 0, pad))
+    it = F.pad(i_gate.transpose(1, 2), (0, pad))
+    lf = F.logsigmoid(F.pad(f_gate.transpose(1, 2), (0, pad), value=30.0))
+    C, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for s0 in range(0, n_chunks * L, L):
+        sl = slice(s0, s0 + L)
+        args = (C, n, m, qt[:, :, sl], kt[:, :, sl], vt[:, :, sl],
+                it[:, :, sl], lf[:, :, sl])
+        if track:
+            h, (C, n, m) = checkpoint(mlstm_chunk, *args, use_reentrant=False)
+        else:
+            h, (C, n, m) = mlstm_chunk(*args)
+        hs.append(h)
+    h = torch.cat(hs, 2)[:, :, :S].transpose(1, 2)
+    return h, {"C": C, "n": n, "m": m}
+
+
+def mlstm_recurrent_ref(q, k, v, i_gate, f_gate, state):
+    """Step-by-step oracle (same signature, one step per position)."""
+    B, S, H, dk = q.shape
+    scale = 1.0 / math.sqrt(dk)
+    C, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for t in range(S):
+        qt = q[:, t].float() * scale                      # (B,H,dk)
+        kt, vt = k[:, t].float(), v[:, t].float()
+        it = i_gate[:, t]
+        logf = F.logsigmoid(f_gate[:, t])
+        m_new = torch.maximum(logf + m, it)
+        fprime = torch.exp(logf + m - m_new)
+        iprime = torch.exp(it - m_new)
+        C = C * fprime[..., None, None] + iprime[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = n * fprime[..., None] + iprime[..., None] * kt
+        num = (qt[..., None, :] @ C)[..., 0, :]
+        den = (qt * n).sum(dim=-1)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])
+        m = m_new
+    return torch.stack(hs, 1), {"C": C, "n": n, "m": m}
+
+
+def mlstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
+    """Full-sequence mLSTM block.  x (B,S,d) -> (out (B,S,d), state with
+    the conv tail kept for decode continuity)."""
+    xc, d_in, _, _ = _mdims(cfg)
+    compute = torch_dtype(cfg.compute_dtype)
+    B, S, _ = x.shape
+    fresh = state is None
+    if fresh:
+        state = init_mlstm_state(cfg, B, device=x.device)
+    q, k, v, i_gate, f_gate, z, xm = _mlstm_qkvif(params, x, cfg, compute)
+    if fresh and runtime is not None and runtime.use_kernels:
+        h, core = ops.mlstm_chunkwise(q, k, v, i_gate, f_gate,
+                                      chunk=xc.chunk, h_dtype=torch.float32)
+    else:
+        h, core = mlstm_chunkwise(q, k, v, i_gate, f_gate, state,
+                                  chunk=xc.chunk)
+    h = apply_norm(params["head_norm"], h.reshape(B, S, d_in), "rmsnorm")
+    out = (h.to(compute) * F.silu(z)) @ params["down_proj"].to(compute)
+    new_state = dict(core)
+    tail = xc.s_conv - 1
+    new_state["conv"] = xm[:, S - tail:].float() if S >= tail else \
+        torch.cat([state["conv"][:, S:], xm.float()], dim=1)
+    return out.to(x.dtype), new_state
+
+
+def mlstm_decode(params, x, state, *, cfg: ArchConfig):
+    raise NotImplementedError("mlstm_decode waits for the serving slice")
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(generator, cfg: ArchConfig, dtype) -> dict:
+    """Weights drawn on ``generator`` in the reference's order."""
+    d = cfg.d_model
+    xc = cfg.xlstm
+    device = generator.device
+    d_up = int(4 * d / 3) // 2 * 2
+    conv_w = (_normal(generator, (xc.s_conv, d))
+              / math.sqrt(xc.s_conv)).to(dtype)
+    w_gates = dense_init(generator, d, 4 * d, dtype)
+    r_gates = dense_init(generator, d, 4 * d, dtype, scale=0.01)
+    up_proj = dense_init(generator, d, 2 * d_up, dtype)
+    down_proj = dense_init(generator, d_up, d, dtype)
+    return {
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((d,), dtype=dtype, device=device),
+        "w_gates": w_gates,
+        "r_gates": r_gates,
+        "b_gates": torch.cat([torch.zeros((d,), device=device),
+                              torch.full((d,), 3.0, device=device),
+                              torch.zeros((2 * d,), device=device)]),
+        "up_proj": up_proj,
+        "down_proj": down_proj,
+        "out_norm": init_norm("rmsnorm", d, dtype, device),
+    }
+
+
+def init_slstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((batch, d), device=device)  # noqa: E731
+    return {"c": zeros(), "n": zeros(), "h": zeros(),
+            "m": torch.full((batch, d), -1e30, device=device),
+            "conv": torch.zeros((batch, cfg.xlstm.s_conv - 1, d),
+                                device=device)}
+
+
+def _slstm_inputs(params, xconv):
+    """The input side of the gates, ``xconv @ W + b``, hoisted out of the
+    loop as one product, and ``R``, both float32."""
+    gates_x = (xconv.float() @ params["w_gates"].float()
+               + params["b_gates"])
+    return gates_x, params["r_gates"].float()
+
+
+def _slstm_scan(params, xconv, state):
+    """xconv (B,S,d) -> (hs (B,S,d), {c, n, h, m}): the exponentially
+    gated recurrence, one :func:`slstm_step` per position (the model's own
+    form)."""
+    gates_x, R = _slstm_inputs(params, xconv)
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    hs = []
+    for t in range(gates_x.shape[1]):
+        c, n, h, m = slstm_step(c, n, h, m, gates_x[:, t], R)
+        hs.append(h)
+    return torch.stack(hs, 1), {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
+    """Full-sequence sLSTM block.  x (B,S,d) -> (out (B,S,d), state)."""
+    xc = cfg.xlstm
+    compute = torch_dtype(cfg.compute_dtype)
+    B, S, _ = x.shape
+    if getattr(runtime, "mesh", None) is not None:
+        raise NotImplementedError("the sharded sLSTM scan over a mesh is not "
+                                  "ported: the port runs on one card")
+    if state is None:
+        state = init_slstm_state(cfg, B, device=x.device)
+    xp = torch.cat([state["conv"].to(compute), x.to(compute)], dim=1)
+    xconv = _causal_conv(xp, params["conv_w"].to(compute),
+                         params["conv_b"].to(compute), S)
+    if runtime is not None and runtime.use_kernels:
+        hs, (c, n, h, m) = ops.slstm_scan(
+            *_slstm_inputs(params, xconv), state["c"], state["n"],
+            state["h"], state["m"])
+        core = {"c": c, "n": n, "h": h, "m": m}
+    else:
+        hs, core = _slstm_scan(params, xconv, state)
+    hs = apply_norm(params["out_norm"], hs.to(x.dtype), "rmsnorm")
+    up = hs.to(compute) @ params["up_proj"].to(compute)
+    a, g = up.chunk(2, dim=-1)
+    out = (F.gelu(a, approximate="tanh") * g) @ params["down_proj"].to(compute)
+    new_state = dict(core)
+    new_state["conv"] = xp[:, S:].float()
+    return out.to(x.dtype), new_state
+
+
+def slstm_decode(params, x, state, *, cfg: ArchConfig):
+    raise NotImplementedError("slstm_decode waits for the serving slice")

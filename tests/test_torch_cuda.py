@@ -20,9 +20,11 @@ from repro_torch.core.aggregate import tree_map  # noqa: E402
 from repro_torch.data.synthetic import make_lm_dataset  # noqa: E402
 from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mlstm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
+from repro_torch.kernels import slstm  # noqa: E402
 from repro_torch.data.synthetic import make_benchmark_dataset  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -247,6 +249,161 @@ def test_hybrid_backend_signature_launches_all_three_kernels(card):
     params = backend.init(torch.Generator(device=card).manual_seed(0))
     stream = make_lm_dataset(vocab=cfg.vocab_size, n_tokens=4000)
     counts = lambda: (ss.launches, fa.launches, sig.launches)  # noqa: E731
+    c0 = counts()
+    params, _ = backend.train_local(params, stream, epochs=1)
+    assert counts() == c0
+    out = backend.signature(params, stream)
+    assert out.shape == (64,) and np.all((out >= 0) & (out <= 1))
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2] + 1)
+    cpu = LMBackend(cfg, batch_size=4, seq_len=64, device="cpu")
+    cpu_sig = cpu.signature(tree_map(lambda p: p.cpu(), params), stream)
+    assert np.sum(np.abs(cpu_sig - out) > 0) <= 4
+
+
+# B, S, d, R's scale: tests/test_kernels.py SLSTM_CASES (R x 0.05), the
+# xLSTM path's shape, and ragged widths (a partly filled last block) over
+# an odd S, at 2 and 8 units per block.  Wide cases draw R at the model's
+# 0.01 (models.xlstm.init_slstm): at 0.05 x sqrt(d) > 1 the recurrence
+# expands and any two float32 orders of the h @ R sums drift apart
+SLSTM_CASES = [(2, 100, 32, 0.05), (1, 64, 16, 0.05), (3, 50, 8, 0.05),
+               (8, 512, 768, 0.01), (3, 301, 100, 0.05),
+               (3, 301, 1001, 0.01)]
+
+
+def _slstm_inputs(B, S, d, device, seed=0, fresh=True, r_scale=0.05):
+    """As the reference's kernel tests draw them (R scaled by 0.05, or
+    ``r_scale``); a fresh state or a carried one."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    gx, R = normal(B, S, 4 * d), normal(d, 4 * d) * r_scale
+    if fresh:
+        zeros = torch.zeros((B, d), device=device)
+        return gx, R, zeros, zeros, zeros, torch.full((B, d), -1e30,
+                                                      device=device)
+    return (gx, R, normal(B, d), 1.0 + torch.rand((B, d), generator=g,
+                                                  device=device),
+            normal(B, d) * 0.5, normal(B, d))
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("B,S,d,r_scale", SLSTM_CASES)
+def test_slstm_kernel_equals_plain(card, B, S, d, r_scale, fresh):
+    """hs within the reference's 1e-5, the states within 1e-4 (rtol and
+    atol)."""
+    inputs = _slstm_inputs(B, S, d, card, fresh=fresh, r_scale=r_scale)
+    before = slstm.launches
+    hs, state = ops.slstm_scan(*inputs)
+    torch.cuda.synchronize()
+    assert slstm.launches == before + 1
+    hs_want, st_want = slstm.slstm_scan_plain(*inputs)
+    torch.testing.assert_close(hs, hs_want, rtol=1e-5, atol=1e-5)
+    for a, b in zip(state, st_want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_slstm_kernel_state_continuation(card):
+    """Two calls with the carried state equal one call over the whole."""
+    gx, R, c0, n0, h0, m0 = _slstm_inputs(2, 80, 96, card, seed=12)
+    hs_full, st_full = slstm.slstm_scan_bsd(gx, R, c0, n0, h0, m0)
+    hs1, st1 = slstm.slstm_scan_bsd(gx[:, :40], R, c0, n0, h0, m0)
+    hs2, st2 = slstm.slstm_scan_bsd(gx[:, 40:], R, *st1)
+    torch.testing.assert_close(torch.cat([hs1, hs2], 1), hs_full, rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(st2, st_full):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_slstm_kernel_refuses_what_it_does_not_take(card):
+    inputs = list(_slstm_inputs(2, 8, 16, card))
+    with pytest.raises(TypeError, match="float32"):
+        slstm.slstm_scan_bsd(*(t.double() for t in inputs))
+    with pytest.raises(ValueError, match="units per block"):
+        slstm.slstm_scan_bsd(*_slstm_inputs(200, 4, 16, card))
+    inputs[0] = inputs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        slstm.slstm_scan_bsd(*inputs)
+    inputs[0] = inputs[0].detach().cpu()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        slstm.slstm_scan_bsd(*inputs)
+
+
+# B, S, H, dk, dv, dtype: tests/test_kernels.py MLSTM_CASES, the xLSTM
+# path's shape, and a ragged S with a partial v tile
+MLSTM_CASES = [(2, 100, 2, 16, 24, torch.float32),
+               (1, 64, 4, 32, 32, torch.float32),
+               (2, 50, 1, 8, 8, torch.float32),
+               (8, 512, 4, 192, 384, torch.bfloat16),
+               (2, 301, 3, 64, 100, torch.float32),
+               (2, 301, 3, 64, 100, torch.bfloat16)]
+
+
+def _mlstm_inputs(B, S, H, dk, dv, dtype, device, seed=0):
+    """As the reference's kernel tests draw them (forget gates shifted by
+    +2); the gates as the two halves of one (B, S, 2H) projection, as
+    ``models.xlstm`` splits them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    q, k, v = (normal(B, S, H, n).to(dtype) for n in (dk, dk, dv))
+    gif = normal(B, S, 2 * H)
+    gif[..., H:] += 2.0
+    i_gate, f_gate = gif.chunk(2, dim=-1)
+    return q, k, v, i_gate, f_gate
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv,dtype", MLSTM_CASES)
+def test_mlstm_kernel_equals_plain(card, B, S, H, dk, dv, dtype):
+    """h and the last state within the reference's 1e-4 (rtol and atol) of
+    the plain version at the model's 256-step chunk (the kernel walks its
+    own 32)."""
+    inputs = _mlstm_inputs(B, S, H, dk, dv, dtype, card)
+    assert not inputs[3].is_contiguous()
+    before = mlstm.launches
+    h, state = ops.mlstm_chunkwise(*inputs, chunk=256, h_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mlstm.launches == before + 1
+    h_want, st_want = mlstm.mlstm_chunkwise_plain(*inputs, chunk=256)
+    torch.testing.assert_close(h, h_want, rtol=1e-4, atol=1e-4)
+    for name in ("C", "n", "m"):
+        torch.testing.assert_close(state[name], st_want[name], rtol=1e-4,
+                                   atol=1e-4)
+    h_q, _ = ops.mlstm_chunkwise(*inputs, chunk=256)
+    assert h_q.dtype == dtype and torch.equal(h_q, h.to(dtype))
+
+
+def test_mlstm_kernel_refuses_what_it_does_not_take(card):
+    inputs = list(_mlstm_inputs(1, 8, 2, 8, 8, torch.float32, card))
+    with pytest.raises(TypeError, match="bfloat16"):
+        mlstm.mlstm_chunkwise_bshd(*(t.half() for t in inputs))
+    with pytest.raises(ValueError, match="dk=320"):
+        mlstm.mlstm_chunkwise_bshd(*_mlstm_inputs(1, 8, 1, 320, 8,
+                                                  torch.float32, card))
+    inputs[0] = inputs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        mlstm.mlstm_chunkwise_bshd(*inputs)
+    inputs[0] = inputs[0].detach().cpu()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        mlstm.mlstm_chunkwise_bshd(*inputs)
+
+
+def test_xlstm_backend_signature_launches_the_kernels(card):
+    """A reduced xlstm-125m, one mLSTM and one sLSTM layer: a signature call
+    launches the mLSTM, sLSTM and signature kernels once each; training
+    launches none of them."""
+    cfg = reduced(get_config("xlstm-125m"), d_model=256)
+    cfg = dataclasses.replace(cfg, n_layers=2, stages=(Stage(
+        (LayerSpec(kind="mlstm", ffn="none"),
+         LayerSpec(kind="slstm", ffn="none")), 1),))
+    backend = LMBackend(cfg, batch_size=4, seq_len=64, device=card)
+    params = backend.init(torch.Generator(device=card).manual_seed(0))
+    stream = make_lm_dataset(vocab=cfg.vocab_size, n_tokens=4000)
+    counts = lambda: (mlstm.launches, slstm.launches,  # noqa: E731
+                      sig.launches)
     c0 = counts()
     params, _ = backend.train_local(params, stream, epochs=1)
     assert counts() == c0

@@ -21,9 +21,11 @@ from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator  # noqa
 from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mlstm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels import signature as sig  # noqa: E402
+from repro_torch.kernels import slstm  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -47,7 +49,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(PORT_FILES) >= 30
     assert {"attention.py", "transformer.py", "layers.py",
             "flash_attention.py", "internlm2_1_8b.py", "mamba.py",
-            "selective_scan.py", "jamba_v01_52b.py"} <= names
+            "selective_scan.py", "jamba_v01_52b.py", "xlstm.py",
+            "mlstm.py", "slstm.py", "xlstm_125m.py"} <= names
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in PORT_FILES for line, root in _imported_roots(p)
            if root in FORBIDDEN]
@@ -199,6 +202,120 @@ def test_scan_shapes_are_checked():
         ss.selective_scan_bsd(x, dt, A.T, Bc, Cc, h0)
 
 
+def _slstm_inputs(device, dtype=torch.float32, requires_grad=False, B=2,
+                  S=16, d=8):
+    shapes = [(B, S, 4 * d), (d, 4 * d)] + [(B, d)] * 4
+    return [torch.empty(s, device=device, dtype=dtype,
+                        requires_grad=requires_grad) for s in shapes]
+
+
+def _mlstm_inputs(device, dtype=torch.float32, gate_dtype=torch.float32,
+                  requires_grad=False, B=2, S=16, H=2, dk=8, dv=12):
+    qkv = [torch.empty((B, S, H, n), device=device, dtype=dtype,
+                       requires_grad=requires_grad) for n in (dk, dk, dv)]
+    # the gates as the model splits them out of one (B, S, 2H) projection
+    gif = torch.empty((B, S, 2 * H), device=device, dtype=gate_dtype)
+    return qkv + list(gif.chunk(2, dim=-1))
+
+
+def test_non_cpu_tensor_goes_to_the_xlstm_kernels(monkeypatch):
+    """``ops.slstm_scan`` and ``ops.mlstm_chunkwise`` hand non-CPU tensors
+    to the kernels' launchers (the gates as strided views), never to the
+    plain versions; so does one non-CPU input among CPU ones, which the
+    launchers then refuse."""
+    launched = []
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    def launch_s(gx, R, c0, n0, h0, m0):
+        launched.append(("slstm", gx.device.type, tuple(gx.shape)))
+        return torch.empty_like(gx[..., :R.shape[0]]), (c0, n0, h0, m0)
+
+    def launch_m(q, k, v, i_gate, f_gate):
+        launched.append(("mlstm", q.device.type, i_gate.stride()))
+        return torch.empty(v.shape, device=v.device), {}
+
+    monkeypatch.setattr(slstm, "slstm_scan_plain", plain)
+    monkeypatch.setattr(slstm, "_launch", launch_s)
+    monkeypatch.setattr(mlstm, "mlstm_chunkwise_plain", plain)
+    monkeypatch.setattr(mlstm, "_launch", launch_m)
+    hs, _ = ops.slstm_scan(*_slstm_inputs("meta"))
+    assert hs.shape == (2, 16, 8)
+    h, _ = ops.mlstm_chunkwise(*_mlstm_inputs("meta"), chunk=8)
+    assert h.shape == (2, 16, 2, 12) and h.dtype == torch.float32
+    mixed_s = _slstm_inputs("cpu")
+    mixed_s[1] = torch.empty((8, 32), device="meta")
+    ops.slstm_scan(*mixed_s)
+    mixed_m = _mlstm_inputs("cpu")
+    mixed_m[4] = torch.empty((2, 16, 2), device="meta")
+    ops.mlstm_chunkwise(*mixed_m)
+    assert launched == [("slstm", "meta", (2, 16, 32)),
+                        ("mlstm", "meta", (64, 4, 1)),
+                        ("slstm", "cpu", (2, 16, 32)),
+                        ("mlstm", "cpu", (64, 4, 1))]
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.slstm_scan(*mixed_s)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.mlstm_chunkwise(*mixed_m)
+
+
+@pytest.mark.parametrize("what,inputs,error,match", [
+    ("a gradient", dict(requires_grad=True), RuntimeError, "no gradient"),
+    ("float64", dict(dtype=torch.float64), TypeError, "float32"),
+    ("bfloat16", dict(dtype=torch.bfloat16), TypeError, "float32"),
+])
+def test_slstm_launcher_refuses_what_the_kernel_does_not_take(
+        what, inputs, error, match):
+    """Checked before any launch (a meta tensor stands in for a CUDA one):
+    inputs that need a gradient and other types than float32."""
+    with pytest.raises(error, match=match):
+        slstm.slstm_scan_bsd(*_slstm_inputs("meta", **inputs))
+
+
+@pytest.mark.parametrize("what,inputs,error,match", [
+    ("a gradient", dict(requires_grad=True), RuntimeError, "no gradient"),
+    ("float16", dict(dtype=torch.float16), TypeError, "bfloat16"),
+    ("float64", dict(dtype=torch.float64), TypeError, "bfloat16"),
+    ("bfloat16 gates", dict(gate_dtype=torch.bfloat16), TypeError,
+     "float32 gates"),
+    ("dk = 320", dict(dk=320), ValueError, "dk=320"),
+])
+def test_mlstm_launcher_refuses_what_the_kernel_does_not_take(
+        what, inputs, error, match):
+    """Checked before any launch (a meta tensor stands in for a CUDA one):
+    inputs that need a gradient, q, k, v other than float32 or bfloat16,
+    gates other than float32, and head dims above the kernel's 256."""
+    with pytest.raises(error, match=match):
+        mlstm.mlstm_chunkwise_bshd(*_mlstm_inputs("meta", **inputs))
+
+
+def test_xlstm_launchers_refuse_mixed_types_and_check_shapes():
+    q, k, v, i, f = _mlstm_inputs("meta")
+    with pytest.raises(TypeError, match="one type"):
+        mlstm.mlstm_chunkwise_bshd(q, k.to(torch.bfloat16), v, i, f)
+    with pytest.raises(ValueError, match="v"):
+        mlstm.mlstm_chunkwise_bshd(q, k, v[:, :4], i, f)
+    with pytest.raises(ValueError, match="i_gate"):
+        mlstm.mlstm_chunkwise_bshd(q, k, v, i[..., :1], f)
+    gx, R, c0, n0, h0, m0 = _slstm_inputs("meta")
+    with pytest.raises(ValueError, match="R"):
+        slstm.slstm_scan_bsd(gx, R.T, c0, n0, h0, m0)
+    with pytest.raises(ValueError, match="m0"):
+        slstm.slstm_scan_bsd(gx, R, c0, n0, h0, m0[:1])
+
+
+@pytest.mark.parametrize("d,sms,units", [(768, 132, 6), (8, 132, 2),
+                                         (300, 132, 4), (2048, 132, 8),
+                                         (768, 114, 8)])
+def test_slstm_grid_fits_the_card(d, sms, units):
+    """The persistent grid's block owns the fewest units that need no more
+    blocks than the card has SMs: 128 blocks of 6 units at xlstm-125m's
+    768 on an H100's 132 SMs."""
+    assert slstm.units_per_block(d, sms) == units
+
+
 @pytest.mark.parametrize("shape", [
     (128, 1024, 64), (1, 4096, 2048), (3, 1000, 63), (2, 5, 33), (1, 1, 1),
     (70000, 2, 3)])
@@ -253,12 +370,13 @@ def test_build_compiles_once_and_keys_by_source(tmp_path, monkeypatch):
         f'echo "$@" >> {calls}\n'
         'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')))
     paths = build.build()
-    assert set(paths) == {"signature", "flash_attention", "selective_scan"}
+    assert set(paths) == {"signature", "flash_attention", "selective_scan",
+                          "mlstm", "slstm"}
     path = paths["signature"]
     assert path.exists() and path.parent == tmp_path / "build"
     assert "arch=compute_90a,code=sm_90a" in calls.read_text()
     build.build(["signature"])
-    assert len(calls.read_text().splitlines()) == 3     # cached by hash
+    assert len(calls.read_text().splitlines()) == 5     # cached by hash
     assert not [p for p in path.parent.iterdir() if p.suffix == ".tmp"]
     assert build.log_path("signature").exists()
 

@@ -40,7 +40,7 @@ from repro_torch.runtime import Runtime  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b"]
-UNPORTED = ["xlstm-125m", "whisper-medium", "gemma3-27b", "qwen2-vl-72b",
+UNPORTED = ["whisper-medium", "gemma3-27b", "qwen2-vl-72b",
             "llama4-maverick-400b-a17b", "deepseek-v2-236b"]
 
 
