@@ -13,15 +13,19 @@ Phases, each printing one JSON line:
 3. kernels against their plain PyTorch versions on the card, then timed:
    the signature kernel bit for bit at the CNN path's shape and at ragged
    shapes (float32), and at the LM path's bfloat16 shape in its bucketed
-   form; the flash attention kernel within the reference's tolerances at
-   the LM path's shape (from a strided (B,S,H,hd) view), at every shape of
-   the reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
-   with a window and a soft-cap; the selective scan kernel within the
-   reference's 1e-5 at the reference's SCAN_CASES, at the hybrid path's
-   shape (with B and C as the strided views the model splits out of one
-   projection), at a ragged length from a non-zero state, and across two
-   calls that carry the state; the chunkwise mLSTM kernel within the
-   reference's 1e-4 (h and the last C, n, m) at the reference's
+   form; flash attention at the LM and hybrid paths' shapes (each from
+   separate (B,S,H,hd) tensors and from views into one fused qkv), at
+   every shape of the reference's FLASH_CASES in float32 and
+   bfloat16, and at head_dim 256 with a window and a soft-cap: every
+   bfloat16 case on the Hopper kernel (wgmma, TMA) within the reference's
+   2e-2 and within FLASH_TC_TOL of the plain version of its own
+   arithmetic, every float32 case on the FMA kernel within 2e-5, each
+   case's route read from the per-route counts; the selective scan kernel
+   within the reference's 1e-5 at the reference's SCAN_CASES, at the
+   hybrid path's shape (with B and C as the strided views the model splits
+   out of one projection), at a ragged length from a non-zero state, and
+   across two calls that carry the state; the chunkwise mLSTM kernel
+   within the reference's 1e-4 (h and the last C, n, m) at the reference's
    MLSTM_CASES, at the xLSTM path's bfloat16 shape (the gates as strided
    views) and at a ragged length over a partial v tile; the sLSTM kernel
    within the reference's 1e-5 (hs; 1e-4 for the states) at its
@@ -35,7 +39,8 @@ Phases, each printing one JSON line:
 5. the LM path: the same loop over four internlm2-1.8b clients at full
    width (depth cut to 4 of 24 layers, token streams drawn from a
    2,048-token sub-vocabulary), driven through ``LMBackend``, with the
-   launch counts set to 0 just before and read just after; and the
+   launch counts set to 0 just before and read just after (every flash
+   launch on the Hopper kernel); and the
    kernel forward of the final global model held against its
    plain-attention forward on the card; then one profiled backend round;
 6. the hybrid path: the same loop over three jamba-v0.1-52b clients at
@@ -83,6 +88,7 @@ RAGGED_SHAPE = (3, 1000, 63)
 LM_SIG_SHAPE = (1, 8 * 512, 2048)   # final-norm output, bfloat16
 LM_SIG_RAGGED = (2, 300, 1000)      # d % 64 != 0
 FLASH_MAIN = (8, 16, 8, 512, 128)   # B, H, K, S, hd; causal, bfloat16
+FLASH_HYBRID = (8, 32, 8, 512, 128)  # the hybrid path's attention layer
 # tests/test_kernels.py FLASH_CASES: B, H, K, S, hd, causal, window, cap
 FLASH_CASES = [(2, 4, 2, 256, 64, True, -1, 0.0),
                (1, 4, 4, 300, 32, True, 48, 0.0),
@@ -92,6 +98,10 @@ FLASH_CASES = [(2, 4, 2, 256, 64, True, -1, 0.0),
                (2, 4, 2, 192, 64, True, -1, 0.0)]
 FLASH_HD256 = (1, 8, 4, 1024, 256, True, 256, 50.0)   # gemma2's head_dim
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # the reference's
+# the Hopper kernel against the plain version of its own arithmetic: one
+# bfloat16 rounding of the output (2^-8 relative, here 2^-7), and P rounded
+# against the running rather than the final row max (2e-3 absolute)
+FLASH_TC_TOL = {"atol": 2e-3, "rtol": 2 ** -7}
 LM_DATA_VOCAB = 2048
 # the hybrid path: jamba-v0.1-52b at full width, batch 8 of 512 positions
 SCAN_MAIN = (8, 512, 8192, 16)       # B, S, d_in, N
@@ -346,22 +356,32 @@ def phase_signature_lm(sig, ops, dev) -> dict:
 
 
 def phase_flash(fa, ops, dev) -> dict:
-    """The flash attention kernel against its plain version on the card,
-    within the reference's tolerances; then timed at the LM path's shape
-    beside the library's scaled_dot_product_attention."""
+    """The flash attention kernels against their plain versions on the
+    card: every bfloat16 case on the Hopper route (``sm90``) within the
+    reference's 2e-2 of ``flash_attention_plain`` and within FLASH_TC_TOL
+    of ``flash_attention_tc_plain``, every float32 case on the FMA route
+    within 2e-5; then timed at the LM and hybrid paths' shapes beside the
+    FMA kernel on the same bfloat16 inputs and the library's
+    scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    max_err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_tc": 0.0}
     compared = []
 
     def compare(q, k, v, causal, window, cap, what):
         dtype = str(q.dtype).split(".")[-1]
+        want_route = "sm90" if q.dtype == torch.bfloat16 else "fma"
+        before = (fa.launches_sm90, fa.launches_fma)
         got = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=cap)
+        routes = (fa.launches_sm90 - before[0], fa.launches_fma - before[1])
+        check(routes == ((1, 0) if want_route == "sm90" else (0, 1)),
+              f"flash at {what} {dtype}: launches by route (sm90, fma) "
+              f"{routes}, expected the {want_route} route")
+        bhsd = [t.transpose(1, 2) for t in (q, k, v)]
         want = fa.flash_attention_plain(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, softcap=cap).transpose(1, 2)
+            *bhsd, causal=causal, window=window, softcap=cap).transpose(1, 2)
         torch.cuda.synchronize()
         check(got.is_cuda and got.shape == q.shape and got.dtype == q.dtype
               and got.is_contiguous(), f"flash output at {what}")
@@ -371,13 +391,33 @@ def phase_flash(fa, ops, dev) -> dict:
         max_err[dtype] = max(max_err[dtype], err)
         check(bool((diff <= tol + tol * want.float().abs()).all()),
               f"flash kernel != plain at {what} {dtype}: max |diff| {err}")
-        compared.append({"case": what, "dtype": dtype, "max_abs_err": err})
+        case = {"case": what, "dtype": dtype, "route": want_route,
+                "max_abs_err": err}
+        if want_route == "sm90":
+            tc = fa.flash_attention_tc_plain(
+                *bhsd, causal=causal, window=window,
+                softcap=cap).transpose(1, 2).float()
+            diff = (got.float() - tc).abs()
+            err = diff.max().item()
+            max_err["bfloat16_tc"] = max(max_err["bfloat16_tc"], err)
+            check(bool((diff <= FLASH_TC_TOL["atol"]
+                        + FLASH_TC_TOL["rtol"] * tc.abs()).all()),
+                  f"flash kernel != tc plain at {what}: max |diff| {err}")
+            case["max_abs_err_tc"] = err
+        compared.append(case)
 
-    B, H, K, S, hd = FLASH_MAIN
-    qkv = torch.randn((B, S, H + 2 * K, hd), generator=g,
-                      device=dev).to(torch.bfloat16)
-    compare(qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:], True, -1,
-            0.0, "main path, strided view")
+    # the paths' shapes: 512 (LM) and 1,024 (hybrid) work items of the
+    # persistent grid, as q, k, v of their own (as the models project
+    # them) and as views into one fused qkv
+    for path, shape in (("LM", FLASH_MAIN), ("hybrid", FLASH_HYBRID)):
+        B, H, K, S, hd = shape
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                   .to(torch.bfloat16) for n in (H, K, K))
+        compare(q, k, v, True, -1, 0.0, f"{path} path {list(shape)}")
+        qkv = torch.randn((B, S, H + 2 * K, hd), generator=g,
+                          device=dev).to(torch.bfloat16)
+        compare(qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:], True,
+                -1, 0.0, f"{path} path {list(shape)}, fused qkv view")
     for case in FLASH_CASES + [FLASH_HD256]:
         b, h, kh, s, d, causal, window, cap = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -385,35 +425,53 @@ def phase_flash(fa, ops, dev) -> dict:
                        .to(dtype) for n in (h, kh, kh))
             compare(q, k, v, causal, window, cap, list(case))
 
-    sets = [tuple(torch.randn((B, S, n, hd), generator=g, device=dev)
-                  .to(torch.bfloat16) for n in (H, K, K)) for _ in range(4)]
-    bhsd = [tuple(t.transpose(1, 2).contiguous() for t in st)
-            for st in sets]
-    ms = device_ms(lambda a: ops.flash_attention(*a), sets)
-    plain_ms = device_ms(lambda a: fa.flash_attention_plain(
-        *(t.transpose(1, 2) for t in a)), sets)
-    library_ms = device_ms(lambda a: F.scaled_dot_product_attention(
-        *a, is_causal=True, enable_gqa=True), bhsd)
-    bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
-        + sets[0][0].numel() * 2
-    pairs = S * (S + 1) // 2                  # causal (row, col) pairs
-    flops = 2 * 2 * hd * pairs * B * H        # QK^T and PV, 2 per MAC
-    bound_ms, bound_by = bound(bytes_moved, flops, peak=BF16_OPS_PER_S)
+    def timed(shape):
+        B, H, K, S, hd = shape
+        sets = [tuple(torch.randn((B, S, n, hd), generator=g, device=dev)
+                      .to(torch.bfloat16) for n in (H, K, K))
+                for _ in range(4)]
+        bhsd = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+        packed = [tuple(t.contiguous() for t in st) for st in bhsd]
+
+        def fma(a):                    # the FMA kernel on the same inputs
+            return fa._dispatch(*a, torch.empty_like(a[0]), "fma", True,
+                                -1, 0.0)
+
+        ms = device_ms(lambda a: ops.flash_attention(*a), sets)
+        fma_ms = device_ms(fma, bhsd)
+        plain_ms = device_ms(lambda a: fa.flash_attention_plain(*a), bhsd)
+        library_ms = device_ms(lambda a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True), packed)
+        bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
+            + sets[0][0].numel() * 2
+        pairs = S * (S + 1) // 2              # causal (row, col) pairs
+        flops = 2 * 2 * hd * pairs * B * H    # QK^T and PV, 2 per MAC
+        bound_ms, bound_by = bound(bytes_moved, flops, peak=BF16_OPS_PER_S)
+        return {"timed_shape": list(shape), "timed_dtype": "bfloat16",
+                "ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "bytes": bytes_moved,
+                "flops": flops}
+
+    main = timed(FLASH_MAIN)
+    hybrid = timed(FLASH_HYBRID)
     record = {"name": "flash_attention", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+              "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:86",
-              "max_abs_err": max(max_err.values()),
+              "max_abs_err": max(max_err["float32"], max_err["bfloat16"]),
               "max_abs_err_float32": max_err["float32"],
               "max_abs_err_bfloat16": max_err["bfloat16"],
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by,
-              "library_ms": library_ms, "timed_shape": list(FLASH_MAIN),
-              "timed_dtype": "bfloat16"}
+              "max_abs_err_bfloat16_tc": max_err["bfloat16_tc"],
+              **{k: v for k, v in main.items()
+                 if k not in ("bytes", "flops")},
+              "hybrid": {k: v for k, v in hybrid.items()
+                         if k not in ("bytes", "flops")}}
     # the float32-core floor is derived, not measured: it stays out of the
     # kernels line and is printed only with this phase
-    emit(phase="flash_vs_plain", compared=len(compared),
-         cases=compared, bytes=bytes_moved, flops=flops,
-         f32_core_ms=flops / F32_OPS_PER_S * 1e3, **record)
+    emit(phase="flash_vs_plain", compared=len(compared), cases=compared,
+         bytes=main["bytes"], flops=main["flops"],
+         f32_core_ms=main["flops"] / F32_OPS_PER_S * 1e3, **record)
     return record
 
 
@@ -945,11 +1003,14 @@ def profile_lm_round(backend, params, stream) -> dict:
                   for a in traced.get("averages", ())
                   if a.device_type == cuda and on_device(a.key)),
                  key=lambda kv: -kv[1])
+    flash = [(ms, n) for key, ms, n in top if "flash_attention" in key]
     return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": (1.0 - busy_us / 1e6 / wall
                                   if spans else None),
             "device_kernels": len(spans),
             "device_kernel_ms": sum(ms for _, ms, _ in top),
+            "flash_device_ms": sum(ms for ms, _ in flash),
+            "flash_device_launches": sum(n for _, n in flash),
             "top_device_ms": [[k[:90], ms, n] for k, ms, n in top[:12]]}
 
 
@@ -1087,6 +1148,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     torch.cuda.reset_peak_memory_stats()
     for mod in (sig, fa, ss, ml, sl):              # counts start here
         mod.launches = 0
+    fa.launches_sm90 = fa.launches_fma = 0
     t0 = time.perf_counter()
     result = coord.run(init_model=genesis)
     torch.cuda.synchronize()
@@ -1094,6 +1156,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     launches = {"signature": sig.launches, "flash": fa.launches,
                 "scan": ss.launches, "mlstm": ml.launches,
                 "slstm": sl.launches}              # and are read here
+    flash_routes = {"sm90": fa.launches_sm90, "fma": fa.launches_fma}
     (fa.flash_attention_plain, sig.signature_counts_plain,
      ss.selective_scan_plain, ml.mlstm_chunkwise_plain,
      sl.slstm_scan_plain) = inner
@@ -1125,6 +1188,9 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
           f"{phase}: launches {launches}, expected {expected} for "
           f"{forwards} eval and signature forwards and "
           f"{calls['signature']} signature calls")
+    check(flash_routes == {"sm90": launches["flash"], "fma": 0},
+          f"{phase}: flash launches by route {flash_routes}: every one "
+          f"of the {launches['flash']} must take the sm90 kernel")
     check(not any(n for name, n in calls.items()
                   if name.startswith("plain_")),
           f"{phase}: the path ran a plain kernel version: {calls}")
@@ -1156,7 +1222,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
         client_mean_accuracy=result.extra["client_mean_accuracy"],
         calls=calls, seconds=seconds, launches=launches,
-        verify_full_dag=why, **ref)
+        flash_routes=flash_routes, verify_full_dag=why, **ref)
     emit(**record)
     return record
 

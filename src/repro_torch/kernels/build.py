@@ -22,8 +22,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("signature", "flash_attention", "selective_scan", "mlstm",
-           "slstm")
+SOURCES = ("signature", "flash_attention", "flash_attention_sm90",
+           "selective_scan", "mlstm", "slstm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -118,6 +118,92 @@ def test_flash_kernel_equals_plain(card, B, H, K, S, hd, causal, window, cap,
                                rtol=tol, atol=tol)
 
 
+FLASH_TC_TOL = {"atol": 2e-3, "rtol": 2 ** -7}     # as chip_smoke.py's
+SM90_CASES = [c[:8] for c in FLASH_CASES if c[8] == torch.bfloat16] + [
+    (1, 4, 2, 300, 128, True, -1, 0.0),            # ragged S
+    (2, 4, 4, 77, 32, False, -1, 0.0),             # S under one tile
+]
+
+
+def _sm90_against_both_plain_versions(q, k, v, causal, window, cap):
+    before = (fa.launches_sm90, fa.launches_fma)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cap)
+    torch.cuda.synchronize()
+    assert (fa.launches_sm90 - before[0], fa.launches_fma - before[1]) \
+        == (1, 0)
+    assert got.is_contiguous() and got.dtype == torch.bfloat16
+    bhsd = [t.transpose(1, 2) for t in (q, k, v)]
+    kw = dict(causal=causal, window=window, softcap=cap)
+    want = fa.flash_attention_plain(*bhsd, **kw).transpose(1, 2).float()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    tc = fa.flash_attention_tc_plain(*bhsd, **kw).transpose(1, 2).float()
+    torch.testing.assert_close(got.float(), tc, rtol=FLASH_TC_TOL["rtol"],
+                               atol=FLASH_TC_TOL["atol"])
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,window,cap", SM90_CASES)
+def test_flash_sm90_kernel_equals_both_plain_versions(card, B, H, K, S, hd,
+                                                      causal, window, cap):
+    """bfloat16 takes the Hopper kernel: within the reference's 2e-2 of the
+    plain version, and within about one bfloat16 rounding of the plain
+    version of its own arithmetic (P rounded to bfloat16 before P.V)."""
+    g = torch.Generator(device=card).manual_seed(S + hd + 1)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=card)
+               .to(torch.bfloat16) for n in (H, K, K))
+    _sm90_against_both_plain_versions(q, k, v, causal, window, cap)
+
+
+def test_flash_sm90_kernel_reads_the_fused_qkv_view(card):
+    """q, k and v as the strided views of one (B, S, H + 2K, hd)
+    projection, as the model splits them: no copy, the Hopper route."""
+    B, H, K, S, hd = 2, 8, 2, 320, 128
+    g = torch.Generator(device=card).manual_seed(7)
+    qkv = torch.randn((B, S, H + 2 * K, hd), generator=g,
+                      device=card).to(torch.bfloat16)
+    _sm90_against_both_plain_versions(qkv[:, :, :H], qkv[:, :, H:H + K],
+                                      qkv[:, :, H + K:], True, -1, 0.0)
+
+
+def test_flash_route_counters(card):
+    """float32 and bfloat16 views that TMA cannot address (a base moved by
+    2 bytes) take the FMA kernel; aligned bfloat16 the Hopper kernel; each
+    launch moves its route's counter and the total."""
+    g = torch.Generator(device=card).manual_seed(11)
+    raw = torch.randn((1, 128, 6, 72), generator=g, device=card)
+    views = {"sm90": raw[..., :64].to(torch.bfloat16),
+             "fma": raw[..., :64]}
+    shifted = raw.to(torch.bfloat16)[..., 1:65]
+    assert shifted.data_ptr() % 16 == 2
+    for want, x in [("sm90", views["sm90"]), ("fma", views["fma"]),
+                    ("fma", shifted)]:
+        q, k, v = x[:, :, :4], x[:, :, 4:5], x[:, :, 5:]
+        before = (fa.launches, fa.launches_sm90, fa.launches_fma)
+        got = ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.launches_sm90, fa.launches_fma) == (
+            before[0] + 1, before[1] + (want == "sm90"),
+            before[2] + (want == "fma"))
+        want_out = fa.flash_attention_plain(
+            *(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+        tol = 2e-2 if x.dtype == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(got.float(), want_out.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_sm90_build_has_no_spills(card):
+    """nvcc's -Xptxas -v report for the Hopper kernel: every head_dim's
+    instantiation without spills, and setmaxnreg not ignored."""
+    from repro_torch.kernels import build
+    build.build(["flash_attention_sm90"])
+    log = build.log_path("flash_attention_sm90").read_text()
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == 4, log
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line
+               for line in spills), log
+    assert "setmaxnreg ignored" not in log, log
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 8, 48), device=card)
     with pytest.raises(ValueError, match="head_dim"):

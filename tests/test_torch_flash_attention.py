@@ -1,7 +1,9 @@
 """The port's flash attention against the JAX reference's Pallas kernel.
 
 ``flash_attention_plain`` (what a CPU tensor takes, and what the CUDA
-kernel is held against on the card) is compared with
+kernels are held against on the card) and ``flash_attention_tc_plain``
+(the arithmetic of the bfloat16 tensor-core kernel: P rounded to bfloat16
+before P.V) are compared with
 ``repro.kernels.flash_attention.flash_attention_bhsd`` run in interpret
 mode, on the same inputs drawn with numpy.  Tolerances are the reference's
 own (``tests/test_kernels.py``): 2e-5 for float32, where the two differ only
@@ -32,7 +34,9 @@ CASES = [
     (1, 2, 2, 200, 64, False, -1, 0.0, "float32"),
     (2, 4, 2, 192, 64, True, -1, 0.0, "bfloat16"),
     (1, 2, 1, 130, 256, True, 40, 50.0, "bfloat16"),
+    (1, 2, 1, 256, 256, True, 128, 50.0, "bfloat16"),
 ]
+BF16_CASES = [c[:8] for c in CASES if c[8] == "bfloat16"]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -57,6 +61,36 @@ def test_plain_matches_interpret_kernel(B, H, K, S, hd, causal, window, cap,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,window,cap", BF16_CASES)
+def test_tc_plain_matches_interpret_kernel(B, H, K, S, hd, causal, window,
+                                           cap):
+    """The tensor-core kernel's arithmetic within the reference's bfloat16
+    tolerance of the Pallas kernel."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        [(B, H, S, hd), (B, K, S, hd), (B, K, S, hd)], "bfloat16",
+        seed=S + hd)
+    want = j_flash(jq, jk, jv, causal=causal, window=window, softcap=cap,
+                   block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_tc_plain(tq, tk, tv, causal=causal,
+                                      window=window, softcap=cap)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,causal,window,cap", BF16_CASES)
+def test_tc_plain_matches_plain(B, H, K, S, hd, causal, window, cap):
+    (_, _, _), (tq, tk, tv) = _inputs(
+        [(B, H, S, hd), (B, K, S, hd), (B, K, S, hd)], "bfloat16",
+        seed=S + hd + 1)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    np.testing.assert_allclose(
+        fa.flash_attention_tc_plain(tq, tk, tv, **kw).float().numpy(),
+        fa.flash_attention_plain(tq, tk, tv, **kw).float().numpy(),
+        rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
 
 def test_bshd_wrapper_layout():

@@ -51,6 +51,10 @@ def test_port_imports_neither_jax_nor_reference_package():
             "flash_attention.py", "internlm2_1_8b.py", "mamba.py",
             "selective_scan.py", "jamba_v01_52b.py", "xlstm.py",
             "mlstm.py", "slstm.py", "xlstm_125m.py"} <= names
+    csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        f"{name}.cu" for name in build.SOURCES}
+    assert "flash_attention_sm90.cu" in {p.name for p in csrc.glob("*.cu")}
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in PORT_FILES for line, root in _imported_roots(p)
            if root in FORBIDDEN]
@@ -140,6 +144,145 @@ def test_flash_kernel_refuses_inputs_that_need_a_gradient():
     with torch.no_grad():
         with pytest.raises(ValueError, match="CPU or CUDA"):
             fa.flash_attention_bhsd(q, kv, kv)
+
+
+def _meta_bshd(B=2, S=16, n=4, hd=32, dtype=torch.bfloat16, offset=0):
+    """A (B,H,S,hd) view of (B,S,H,hd) storage on the meta device, its
+    base moved by ``offset`` elements."""
+    x = torch.empty((B, S, n, hd + offset), device="meta", dtype=dtype)
+    return x[..., offset:].transpose(1, 2)
+
+
+class _FakeEntry:
+    """Stands in for a route's C entry: records its calls, the device that
+    was current at each (None outside a device context) and the stream it
+    was given; returns ``err``."""
+
+    def __init__(self, devices, err=0):
+        self.devices, self.err, self.calls = devices, err, []
+
+    def __call__(self, *args):
+        self.calls.append((self.devices[-1] if self.devices else None,
+                           args[-1]))
+        return self.err
+
+    @staticmethod
+    def repro_cuda_error_string(code):
+        return b"fake failure %d" % code
+
+
+def _fake_libraries(monkeypatch, sm90_err=0):
+    """Fake C entries for both routes, and a ``torch.cuda.device`` context
+    and current stream that work for meta tensors and record the device
+    each launch ran under."""
+    devices = []
+
+    class device:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            devices.append(self.dev)
+
+        def __exit__(self, *exc):
+            devices.pop()
+
+    class stream:
+        cuda_stream = 1234
+
+    entries = {"sm90": _FakeEntry(devices, sm90_err),
+               "fma": _FakeEntry(devices)}
+    monkeypatch.setattr(fa, "_library", lambda which: (entries[which],
+                                                      entries[which]))
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    monkeypatch.setattr(fa, "flash_attention_plain", _no_plain)
+    monkeypatch.setattr(fa, "flash_attention_tc_plain", _no_plain)
+    return entries
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("a plain version was called for a non-CPU tensor")
+
+
+@pytest.mark.parametrize("dtype,offset,want", [
+    (torch.bfloat16, 0, "sm90"),      # 16-byte bases and strides
+    (torch.bfloat16, 8, "sm90"),      # moved by 16 bytes
+    (torch.bfloat16, 1, "fma"),       # moved by 2 bytes: no tensor map
+    (torch.float32, 0, "fma"),        # float32 needs IEEE products
+])
+def test_flash_route_is_fixed_by_dtype_and_strides(monkeypatch, dtype, offset,
+                                                  want):
+    """The route is chosen before the launch from dtype and strides, each
+    route's counter moves with its launches, and no plain version runs."""
+    entries = _fake_libraries(monkeypatch)
+    q = _meta_bshd(n=4, dtype=dtype, offset=offset)
+    kv = _meta_bshd(n=2, dtype=dtype, offset=offset)
+    out = torch.empty_like(q)
+    assert fa.route(q, kv, kv, out) == want
+    before = (fa.launches, fa.launches_sm90, fa.launches_fma)
+    assert fa._dispatch(q, kv, kv, out, fa.route(q, kv, kv, out), True, -1,
+                        0.0) is out
+    assert len(entries[want].calls) == 1
+    assert entries["fma" if want == "sm90" else "sm90"].calls == []
+    assert (fa.launches, fa.launches_sm90, fa.launches_fma) == (
+        before[0] + 1, before[1] + (want == "sm90"),
+        before[2] + (want == "fma"))
+
+
+def test_flash_route_needs_aligned_strides_on_every_tensor():
+    """One tensor whose sequence stride is not a multiple of 16 bytes (a
+    head_dim-36 storage viewed at 32) sends the call to the FMA kernel."""
+    q = _meta_bshd(n=4)
+    odd = torch.empty((2, 16, 2, 36), device="meta",
+                      dtype=torch.bfloat16)[..., :32].transpose(1, 2)
+    assert fa.route(q, _meta_bshd(n=2), odd, torch.empty_like(q)) == "fma"
+    assert fa.route(q, _meta_bshd(n=2), _meta_bshd(n=2),
+                    torch.empty_like(q)) == "sm90"
+
+
+def test_failed_sm90_launch_raises_without_fallback(monkeypatch):
+    """An error code from the Hopper kernel's entry raises; neither the
+    FMA kernel nor a plain version is tried, and no counter moves."""
+    entries = _fake_libraries(monkeypatch, sm90_err=2)
+    q, kv = _meta_bshd(n=4), _meta_bshd(n=2)
+    before = (fa.launches, fa.launches_sm90, fa.launches_fma)
+    with pytest.raises(RuntimeError, match=r"\(sm90\).*fake failure 2"):
+        fa._dispatch(q, kv, kv, torch.empty_like(q), "sm90", True, -1, 0.0)
+    assert len(entries["sm90"].calls) == 1 and entries["fma"].calls == []
+    assert (fa.launches, fa.launches_sm90, fa.launches_fma) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_launches_under_the_inputs_device(monkeypatch, dtype):
+    """Each route's entry is called inside a device context for the
+    inputs' device, with that context's current stream, so that a tensor
+    on a card that is not the current one launches on its own card."""
+    entries = _fake_libraries(monkeypatch)
+    q, kv = _meta_bshd(n=4, dtype=dtype), _meta_bshd(n=2, dtype=dtype)
+    out = torch.empty_like(q)
+    which = fa.route(q, kv, kv, out)
+    assert which == ("sm90" if dtype == torch.bfloat16 else "fma")
+    fa._dispatch(q, kv, kv, out, which, True, -1, 0.0)
+    assert entries[which].calls == [(q.device, 1234)]
+
+
+def test_sm90_route_refuses_inputs_it_cannot_address(monkeypatch):
+    """Only the FMA kernel may be asked for explicitly on inputs of the
+    other route (to time the two on the same bfloat16 inputs): the sm90
+    kernel asked for float32 or unaligned bfloat16 raises before its entry
+    is called."""
+    entries = _fake_libraries(monkeypatch)
+    q, kv = _meta_bshd(n=4), _meta_bshd(n=2)
+    out = torch.empty_like(q)
+    assert fa._dispatch(q, kv, kv, out, "fma", True, -1, 0.0) is out
+    for dtype, offset in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q = _meta_bshd(n=4, dtype=dtype, offset=offset)
+        kv = _meta_bshd(n=2, dtype=dtype, offset=offset)
+        with pytest.raises(ValueError, match="sm90"):
+            fa._dispatch(q, kv, kv, torch.empty_like(q), "sm90", True, -1,
+                         0.0)
+    assert entries["sm90"].calls == [] and len(entries["fma"].calls) == 1
 
 
 def _scan_inputs(device, N=4, dtype=torch.float32, requires_grad=False,
@@ -370,13 +513,14 @@ def test_build_compiles_once_and_keys_by_source(tmp_path, monkeypatch):
         f'echo "$@" >> {calls}\n'
         'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n')))
     paths = build.build()
-    assert set(paths) == {"signature", "flash_attention", "selective_scan",
-                          "mlstm", "slstm"}
+    assert set(paths) == {"signature", "flash_attention",
+                          "flash_attention_sm90", "selective_scan", "mlstm",
+                          "slstm"}
     path = paths["signature"]
     assert path.exists() and path.parent == tmp_path / "build"
     assert "arch=compute_90a,code=sm_90a" in calls.read_text()
     build.build(["signature"])
-    assert len(calls.read_text().splitlines()) == 5     # cached by hash
+    assert len(calls.read_text().splitlines()) == 6     # cached by hash
     assert not [p for p in path.parent.iterdir() if p.suffix == ".tmp"]
     assert build.log_path("signature").exists()
 
