@@ -27,10 +27,13 @@ Phases, each printing one JSON line:
    across two calls that carry the state; the chunkwise mLSTM kernel
    within the reference's 1e-4 (h and the last C, n, m) at the reference's
    MLSTM_CASES, at the xLSTM path's bfloat16 shape (the gates as strided
-   views) and at a ragged length over a partial v tile; the sLSTM kernel
-   within the reference's 1e-5 (hs; 1e-4 for the states) at its
+   views) and at a ragged length over a partial v tile, against both the
+   reference's chunk loop and the kernel's own two-pass form; the sLSTM
+   kernel within the reference's 1e-5 (hs; 1e-4 for the states) at its
    SLSTM_CASES, at the xLSTM path's shape from a fresh and a carried
-   state, at a ragged width, and across two calls that carry the state;
+   state, at a ragged width, at batches 43 and 64 (one launch each), and
+   across two calls that carry the state; then its time a step and the
+   time a step of its exchange alone (the step loop without products);
 4. the CNN path: the sequential DAG-AFL loop over four full-width VGG16
    clients on 32x32x3 images, driven through ``CNNBackend`` and
    ``DagAflCoordinator.run``, with every kernel's launch count set to 0
@@ -125,18 +128,20 @@ LM_SIG_TOL = 0.005
 # the xLSTM path: xlstm-125m at full width and depth, batch 8 of 512
 MLSTM_MAIN = (8, 512, 4, 192, 384)   # B, S, H, dk, dv; bfloat16 q, k, v
 # tests/test_kernels.py MLSTM_CASES (B, S, H, dk, dv, chunk), and a ragged
-# S (not a multiple of the kernel's 32-step chunk) over a partial v tile
+# S (not a multiple of the kernel's 64-step chunk) over a partial v tile
 MLSTM_CASES = [(2, 100, 2, 16, 24, 16), (1, 64, 4, 32, 32, 64),
                (2, 50, 1, 8, 8, 13)]
 MLSTM_RAGGED = (2, 301, 3, 64, 100, 256)
 MLSTM_TOL = 1e-4                     # rtol and atol, the reference's
-MLSTM_KERNEL_CHUNK = 32              # csrc/mlstm.cu's steps per chunk
+MLSTM_BOUND_CHUNK = 32               # the chunk length the bound counts
 SLSTM_MAIN = (8, 512, 768)           # B, S, d
 # tests/test_kernels.py SLSTM_CASES (B, S, d), and ragged widths (a partly
 # filled last block of the persistent grid) over an odd S, at 2 and 8
 # units per block
 SLSTM_CASES = [(2, 100, 32), (1, 64, 16), (3, 50, 8)]
 SLSTM_RAGGED = [(3, 301, 100), (3, 301, 1001)]
+# batches past the first kernel's limit of 42 rows at xlstm-125m's width
+SLSTM_BATCHES = [(43, 128, 768), (64, 128, 768)]
 SLSTM_TOL = {"hs": 1e-5, "state": 1e-4}   # rtol and atol, the reference's
 # R's scale: the reference's kernel tests draw N(0, 1) x 0.05 at widths up
 # to 32; the model draws r_gates at 0.01 (models.xlstm.init_slstm).  At
@@ -603,8 +608,9 @@ def mlstm_flops(B, S, H, dk, dv, L) -> int:
 
 
 def phase_mlstm(ml, ops, dev) -> dict:
-    """The chunkwise mLSTM kernel against its plain version on the card,
-    within the reference's 1e-4; then timed at the xLSTM path's shape."""
+    """The chunkwise mLSTM kernel against its plain versions on the card
+    (the reference's chunk loop and the kernel's own two-pass form), within
+    the reference's 1e-4; then timed at the xLSTM path's shape."""
     import torch
     g = torch.Generator(device=dev).manual_seed(5)
     max_err = 0.0
@@ -619,22 +625,35 @@ def phase_mlstm(ml, ops, dev) -> dict:
         inputs = mlstm_inputs(shape, g, dtype)
         h, state = ops.mlstm_chunkwise(*inputs, chunk=chunk,
                                        h_dtype=torch.float32)
-        h_want, st_want = ml.mlstm_chunkwise_plain(*inputs, chunk=chunk)
-        torch.cuda.synchronize()
         errs = {}
-        for name, a, b in [("h", h, h_want)] + [
-                (n, state[n], st_want[n]) for n in ("C", "n", "m")]:
-            check(a.is_cuda and a.shape == b.shape and a.dtype == b.dtype,
-                  f"mLSTM {name} at {what}")
-            errs[name] = (a - b).abs().max().item()
-            check(bool(((a - b).abs() <= MLSTM_TOL + MLSTM_TOL * b.abs())
-                       .all()),
-                  f"mLSTM kernel != plain at {what}, {name}: max |diff| "
-                  f"{errs[name]}")
-        max_err = max(max_err, errs["h"])
+        for plain, (h_want, st_want) in (
+                ("plain", ml.mlstm_chunkwise_plain(*inputs, chunk=chunk)),
+                ("two_pass", ml.mlstm_two_pass_plain(*inputs))):
+            torch.cuda.synchronize()
+            errs[plain] = {}
+            for name, a, b in [("h", h, h_want)] + [
+                    (n, state[n], st_want[n]) for n in ("C", "n", "m")]:
+                check(a.is_cuda and a.shape == b.shape
+                      and a.dtype == b.dtype, f"mLSTM {name} at {what}")
+                err = (a - b).abs().max().item()
+                errs[plain][name] = err
+                check(bool(((a - b).abs() <= MLSTM_TOL + MLSTM_TOL * b.abs())
+                           .all()),
+                      f"mLSTM kernel != {plain} at {what}, {name}: max "
+                      f"|diff| {err}")
+        max_err = max(max_err, errs["plain"]["h"])
         compared.append({"case": what, "max_abs_err": errs})
     sets = [mlstm_inputs(MLSTM_MAIN, g, torch.bfloat16) for _ in range(3)]
     ms = device_ms(lambda a: ml.mlstm_chunkwise_bshd(*a), sets)
+    # the device time of each of the kernel's three launches, a call
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in sets:
+            ml.mlstm_chunkwise_bshd(*a)
+        torch.cuda.synchronize()
+    pass_ms = {name: sum(e.self_device_time_total for e in prof.key_averages()
+                         if f"mlstm_{name}_kernel" in e.key) / 1e3 / len(sets)
+               for name in ("scores", "state", "output")}
     plain_ms = device_ms(lambda a: ml.mlstm_chunkwise_plain(*a, chunk=256),
                          sets, reps=12)
     B, S, H, dk, dv = MLSTM_MAIN
@@ -642,8 +661,12 @@ def phase_mlstm(ml, ops, dev) -> dict:
                    + 4 * (2 * B * S * H                        # gates
                           + B * S * H * dv                     # h
                           + B * H * dk * dv + B * H * dk + B * H))  # C, n, m
-    flops = mlstm_flops(B, S, H, dk, dv, MLSTM_KERNEL_CHUNK)
+    # the bound counts the chunkwise form's work at 32-step chunks, one
+    # yardstick for every design of the kernel; the work at the kernel's
+    # own chunk is counted beside it
+    flops = mlstm_flops(B, S, H, dk, dv, MLSTM_BOUND_CHUNK)
     bound_ms, bound_by = bound(bytes_moved, flops)
+    kernel_flops = mlstm_flops(B, S, H, dk, dv, ml.KERNEL_CHUNK)
     record = {"name": "mlstm_chunkwise", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/mlstm.cu",
               "replaces": "src/repro/kernels/mlstm.py:96",
@@ -652,10 +675,13 @@ def phase_mlstm(ml, ops, dev) -> dict:
               "library_none": "no single PyTorch call computes the mLSTM "
                               "recurrence",
               "timed_shape": list(MLSTM_MAIN), "timed_dtype": "bfloat16"}
-    # the count at the model's 256-step chunk is derived, not measured: it
-    # stays out of the kernels line
+    # the counts at other chunks are derived, not measured: they stay out
+    # of the kernels line
     emit(phase="mlstm_vs_plain", compared=len(compared), cases=compared,
-         bytes=bytes_moved, flops=flops,
+         pass_ms=pass_ms, bytes=bytes_moved, flops=flops,
+         bound_chunk=MLSTM_BOUND_CHUNK,
+         kernel_chunk=ml.KERNEL_CHUNK, flops_at_kernel_chunk=kernel_flops,
+         bound_ms_at_kernel_chunk=bound(bytes_moved, kernel_flops)[0],
          flops_at_chunk_256=mlstm_flops(B, S, H, dk, dv, 256), **record)
     return record
 
@@ -717,9 +743,19 @@ def phase_slstm(sl, ops, dev) -> dict:
     cases.append(("wide ragged d, carried state",
                   slstm_inputs(SLSTM_RAGGED[1], g, fresh=False,
                                r_scale=model)))
+    for shape in SLSTM_BATCHES:
+        cases.append((f"batch {shape[0]}, carried state",
+                      slstm_inputs(shape, g, fresh=False, r_scale=model)))
+    launched = {}
     for what, inputs in cases:
+        before = sl.launches
         compare(ops.slstm_scan(*inputs), sl.slstm_scan_plain(*inputs),
                 str(what))
+        launched[str(what)] = sl.launches - before
+    for shape in SLSTM_BATCHES:
+        check(launched[f"batch {shape[0]}, carried state"] == 1,
+              f"sLSTM at batch {shape[0]} took "
+              f"{launched[f'batch {shape[0]}, carried state']} launches")
     # the drift at the reference's R scale and the main shape: the kernel
     # and the float32 plain version, each against the plain version in
     # float64
@@ -745,7 +781,19 @@ def phase_slstm(sl, ops, dev) -> dict:
 
     sets = [slstm_inputs(SLSTM_MAIN, g, r_scale=model) for _ in range(2)]
     ms = device_ms(lambda a: sl.slstm_scan_bsd(*a), sets, reps=20)
+    # the same grid and step loop without the h @ R products: the exchange
+    # of h between blocks, the gating and the barriers alone
+    floor_ms = device_ms(lambda a: sl.exchange_floor(*a), sets, reps=20)
     plain_ms = device_ms(lambda a: sl.slstm_scan_plain(*a), sets, reps=4)
+    batch_ms = {}
+    for shape in SLSTM_BATCHES:
+        bsets = [slstm_inputs(shape, g, r_scale=model) for _ in range(2)]
+        batch_ms[str(shape[0])] = {
+            "shape": list(shape),
+            "ms": device_ms(lambda a: sl.slstm_scan_bsd(*a), bsets, reps=10)}
+        batch_ms[str(shape[0])]["us_per_step"] = (
+            batch_ms[str(shape[0])]["ms"] * 1e3 / shape[1])
+        del bsets
     B, S, d = SLSTM_MAIN
     bytes_moved = 4 * (B * S * 4 * d + d * 4 * d     # gates_x, R
                        + 4 * B * d + 4 * B * d       # states in and out
@@ -763,11 +811,14 @@ def phase_slstm(sl, ops, dev) -> dict:
               "bound_by": bound_by, "library_ms": None,
               "library_none": "no single PyTorch call computes the sLSTM "
                               "recurrence",
-              "timed_shape": list(SLSTM_MAIN)}
+              "timed_shape": list(SLSTM_MAIN),
+              "us_per_step": ms * 1e3 / S,
+              "exchange_floor_ms": floor_ms,
+              "exchange_floor_us_per_step": floor_ms * 1e3 / S}
     props = torch.cuda.get_device_properties(dev)
     emit(phase="slstm_vs_plain", compared=len(compared), cases=compared,
-         drift_vs_float64_at_r_scale_005=drift, bytes=bytes_moved,
-         flops=flops,
+         launches_by_case=launched, drift_vs_float64_at_r_scale_005=drift,
+         bytes=bytes_moved, flops=flops, batches=batch_ms,
          grid_blocks=-(-d // sl.units_per_block(
              d, props.multi_processor_count)),
          **record)
@@ -1004,6 +1055,9 @@ def profile_lm_round(backend, params, stream) -> dict:
                   if a.device_type == cuda and on_device(a.key)),
                  key=lambda kv: -kv[1])
     flash = [(ms, n) for key, ms, n in top if "flash_attention" in key]
+    # the xLSTM kernels' device time (the mLSTM's three launches a call)
+    xlstm = {name: [(ms, n) for key, ms, n in top if mark in key]
+             for name, mark in (("mlstm", "mlstm_"), ("slstm", "slstm_"))}
     return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": (1.0 - busy_us / 1e6 / wall
                                   if spans else None),
@@ -1011,6 +1065,10 @@ def profile_lm_round(backend, params, stream) -> dict:
             "device_kernel_ms": sum(ms for _, ms, _ in top),
             "flash_device_ms": sum(ms for ms, _ in flash),
             "flash_device_launches": sum(n for _, n in flash),
+            **{f"{name}_device_ms": sum(ms for ms, _ in found)
+               for name, found in xlstm.items()},
+            **{f"{name}_device_kernels": sum(n for _, n in found)
+               for name, found in xlstm.items()},
             "top_device_ms": [[k[:90], ms, n] for k, ms, n in top[:12]]}
 
 

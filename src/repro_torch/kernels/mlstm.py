@@ -13,7 +13,9 @@ float32 and the last state ``{C, n, m}``.
 form (``models.xlstm.mlstm_chunkwise``) runs it too.  The chunkwise form is
 exact at any chunk length, so the chunk changes the result only in
 rounding: the plain version walks the caller's ``chunk``, the kernel its
-own 32 steps.
+own ``KERNEL_CHUNK`` steps.  The kernel splits the work in two passes over
+the chunks (all chunks' scores and states first, then all outputs), and
+:func:`mlstm_two_pass_plain` is the plain version of that arithmetic.
 
 A CPU tensor takes :func:`mlstm_chunkwise_plain` (the TPU kernel's chunk
 loop in torch, with its masking of the padded steps: ``log sigmoid(f) = 0``
@@ -37,7 +39,8 @@ from repro_torch.kernels import build
 
 launches = 0
 
-MAX_DK = 256        # the kernel's q and k chunk tiles and C fit in 227 KB
+MAX_DK = 256        # the output kernel keeps one chunk's n in shared memory
+KERNEL_CHUNK = 64   # csrc/mlstm.cu's steps per chunk
 _NEG = -1e30
 
 
@@ -121,6 +124,78 @@ def mlstm_chunkwise_plain(q, k, v, i_gate, f_gate, chunk: int = 128):
     return h.transpose(1, 2), {"C": C, "n": n, "m": m}
 
 
+def mlstm_two_pass_plain(q, k, v, i_gate, f_gate, chunk: int = KERNEL_CHUNK):
+    """Plain version of the kernel's arithmetic: the chunkwise form in two
+    passes.  First, per chunk, the cumulative log sigmoid ``b``, the
+    intra-chunk maxima ``m_intra_t = max_{s<=t} D[t,s]`` and the scores
+    ``W'[t,s] = exp(D[t,s] - m_intra_t) q_t.k_s``; the carry from chunk to
+    chunk, keeping the state ``(C, n, m)`` that enters every chunk.  Then
+    all outputs at once, with ``m_t = max(b_t + m, m_intra_t)``,
+    ``w_t = exp(b_t + m - m_t)`` and ``r_t = exp(m_intra_t - m_t)``:
+    ``h_t = (w_t q_t C + r_t W'_t v) / max(|w_t q_t n + r_t sum W'_t|,
+    exp(-m_t))``.  Equal to :func:`mlstm_chunkwise_plain` up to float32
+    rounding."""
+    _check_shapes(q, k, v, i_gate, f_gate)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    L = chunk
+    nch = -(-S // L)
+    pad = nch * L - S
+    scale = 1.0 / math.sqrt(dk)
+
+    def chunks(x):  # (B, S, H, *) -> (B, H, nch, L, *), padded with zeros
+        x = F.pad(x.float().transpose(1, 2), (0, 0, 0, pad))
+        return x.reshape(B, H, nch, L, x.shape[-1])
+
+    qc, kc, vc = chunks(q) * scale, chunks(k), chunks(v)
+    valid = (torch.arange(nch * L, device=dev) < S).reshape(nch, L)
+    it = torch.where(valid, F.pad(i_gate.float().transpose(1, 2),
+                                  (0, pad)).reshape(B, H, nch, L), _NEG)
+    lf = torch.where(valid, F.logsigmoid(F.pad(
+        f_gate.float().transpose(1, 2), (0, pad))).reshape(B, H, nch, L),
+        0.0)
+    b = torch.cumsum(lf, dim=-1)
+    tri = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    D = torch.where(tri, b[..., :, None] - b[..., None, :]
+                    + it[..., None, :], float("-inf"))
+    m_intra = D.amax(dim=-1)
+    Wp = torch.where(tri, torch.exp(D - m_intra[..., None])
+                     * (qc @ kc.transpose(-1, -2)), 0.0)
+    # the carry, keeping the state that enters each chunk
+    g = b[..., -1]
+    u = g[..., None] - b + it
+    m_loc = u.amax(dim=-1)
+    C = torch.zeros((B, H, dk, dv), device=dev)
+    n = torch.zeros((B, H, dk), device=dev)
+    m = torch.full((B, H), _NEG, device=dev)
+    Cs, ns, ms = [], [], []
+    for c in range(nch):
+        Cs.append(C)
+        ns.append(n)
+        ms.append(m)
+        m_next = torch.maximum(g[..., c] + m, m_loc[..., c])
+        w_c = torch.exp(g[..., c] + m - m_next)
+        w_s = torch.exp(u[..., c, :] - m_next[..., None])
+        kw = kc[:, :, c] * w_s[..., None]
+        C = C * w_c[..., None, None] + kw.transpose(-1, -2) @ vc[:, :, c]
+        n = n * w_c[..., None] + kw.sum(dim=-2)
+        m = m_next
+    if nch == 0:
+        return q.new_zeros((B, S, H, dv), dtype=torch.float32), {
+            "C": C, "n": n, "m": m}
+    Cb, nb, mb = torch.stack(Cs, 2), torch.stack(ns, 2), torch.stack(ms, 2)
+    # all outputs
+    m_t = torch.maximum(b + mb[..., None], m_intra)
+    w_t = torch.exp(b + mb[..., None] - m_t)
+    r_t = torch.exp(m_intra - m_t)
+    num = (qc @ Cb) * w_t[..., None] + (Wp @ vc) * r_t[..., None]
+    den = (qc @ nb[..., None])[..., 0] * w_t + Wp.sum(dim=-1) * r_t
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    h = h.reshape(B, H, nch * L, dv)[:, :, :S]
+    return h.transpose(1, 2), {"C": C, "n": n, "m": m}
+
+
 def mlstm_chunkwise_bshd(q, k, v, i_gate, f_gate, chunk: int = 128):
     """q, k (B,S,H,dk); v (B,S,H,dv), float32 or bfloat16; gates (B,S,H)
     float32 -> (h (B,S,H,dv) float32, {C (B,H,dk,dv), n (B,H,dk),
@@ -137,10 +212,12 @@ def mlstm_chunkwise_bshd(q, k, v, i_gate, f_gate, chunk: int = 128):
 def _library() -> ctypes.CDLL:
     lib = build.load("mlstm")
     fn = lib.repro_mlstm_chunkwise
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.repro_mlstm_scratch_floats.argtypes = [ctypes.c_int] * 5
+    lib.repro_mlstm_scratch_floats.restype = ctypes.c_longlong
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -179,13 +256,17 @@ def _launch(q, k, v, i_gate, f_gate):
     strides = (ctypes.c_longlong * 18)(*q.stride(), *k.stride(), *v.stride(),
                                        *i_gate.stride(), *f_gate.stride())
     lib = _library()
+    # the chunks' scores, gate terms and entering states, between the passes
+    scratch = torch.empty(lib.repro_mlstm_scratch_floats(B, S, H, dk, dv),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_mlstm_chunkwise(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), i_gate.data_ptr(),
             f_gate.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-            m.data_ptr(), B, S, H, dk, dv, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(dk), strides, stream)
+            m.data_ptr(), scratch.data_ptr(), B, S, H, dk, dv,
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dk), strides,
+            stream)
     if err != 0:
         raise RuntimeError("mLSTM kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())

@@ -15,9 +15,12 @@ there is none here.
 
 A CPU tensor takes :func:`slstm_scan_plain`, one :func:`slstm_step` per
 position (the port of ``repro.kernels.ref.slstm_scan_ref``); CUDA tensors
-launch the kernel (``csrc/slstm.cu``) or raise.  There is no gradient: the
-wrapper raises when grad mode is on and an input requires grad.
-``launches`` counts kernel launches.
+launch the kernel (``csrc/slstm.cu``) or raise.  The kernel takes any
+batch: :func:`row_plan` fits as many rows into one launch as the block's
+shared memory holds (up to 423 rows at xlstm-125m's width), and larger
+batches go in slices, one launch each (rows are independent, so the result
+is the same).  There is no gradient: the wrapper raises when grad mode is
+on and an input requires grad.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from repro_torch.kernels import build
 
 launches = 0
 
-THREADS = 256                   # the kernel's block; one thread per (b, unit)
+SMEM_LIMIT = 232_448            # shared memory one block may take (227 KB)
+MAX_D = 1024                    # the widest d the kernel's k split covers
 
 
 def units_per_block(d: int, sms: int) -> int:
@@ -38,6 +42,33 @@ def units_per_block(d: int, sms: int) -> int:
     2, 4, 6 and 8 that need no more blocks than the card has SMs (the most,
     8, where none does)."""
     return next((u for u in (2, 4, 6) if -(-d // u) <= sms), 8)
+
+
+def smem_bytes(units: int, rows: int, d: int) -> int:
+    """Shared memory of one block (``csrc/slstm.cu`` ``smem_floats``): R's
+    4U columns over the 256 lanes' k, each warp's tile of 8 rows of h, the
+    warps' partial sums of two passes, and per row two steps of gates_x and
+    the four states."""
+    kpt = next(k for k, top in ((4, 256), (8, 512), (12, 768), (16, MAX_D))
+               if d <= top)
+    pitch = kpt if (kpt // 4) % 2 else kpt + 4
+    return 4 * (256 * kpt * units + 512 * pitch + 512 * units
+                + rows * 12 * units)
+
+
+def row_plan(B: int, d: int, units: int) -> int:
+    """The batch rows one launch takes: as many as the block's shared
+    memory holds beside R's columns (a larger batch goes in slices of that
+    many rows, one launch each)."""
+    if d > MAX_D:
+        raise ValueError(f"the sLSTM kernel takes d <= {MAX_D}; got d={d}")
+    rows = (SMEM_LIMIT - smem_bytes(units, 0, d)) // (
+        smem_bytes(units, 1, d) - smem_bytes(units, 0, d))
+    if rows < 1:
+        raise ValueError(f"the sLSTM kernel cannot hold R's columns at "
+                         f"d={d} ({units} units per block) in {SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    return min(B, rows)
 
 
 def _check_shapes(gates_x, R, c0, n0, h0, m0) -> None:
@@ -90,11 +121,20 @@ def slstm_scan_bsd(gates_x, R, c0, n0, h0, m0):
     return _launch(*inputs)
 
 
+def exchange_floor(gates_x, R, c0, n0, h0, m0):
+    """The kernel's grid and step loop without the ``h @ R`` products (the
+    gates are ``gates_x`` alone) on CUDA tensors: what the exchange of h
+    between blocks costs by itself.  A measurement, not the recurrence:
+    ``launches`` does not count it."""
+    _check_shapes(gates_x, R, c0, n0, h0, m0)
+    return _launch(gates_x, R, c0, n0, h0, m0, products=False)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load("slstm")
     fn = lib.repro_slstm_scan
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -102,8 +142,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(gates_x, R, c0, n0, h0, m0):
-    global launches
+def _launch(gates_x, R, c0, n0, h0, m0, products=True):
     inputs = (gates_x, R, c0, n0, h0, m0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise RuntimeError("the sLSTM kernel has no gradient: call it under "
@@ -117,28 +156,42 @@ def _launch(gates_x, R, c0, n0, h0, m0):
     if len({t.device for t in inputs}) != 1:
         raise ValueError("sLSTM inputs lie on different cards")
     gates_x, R, c0, n0, h0, m0 = (t.contiguous() for t in inputs)
+    d = R.shape[0]
+    props = torch.cuda.get_device_properties(gates_x.device)
+    return _run(gates_x, R, c0, n0, h0, m0,
+                units_per_block(d, props.multi_processor_count), products)
+
+
+def _run(gates_x, R, c0, n0, h0, m0, units: int, products: bool = True):
+    """The launches for contiguous float32 inputs on one card, ``units``
+    hidden units a block: the batch in slices of :func:`row_plan`'s rows,
+    one launch each."""
+    global launches
     B, S, d4 = gates_x.shape
     d = d4 // 4
-    props = torch.cuda.get_device_properties(gates_x.device)
-    units = units_per_block(d, props.multi_processor_count)
-    if B * units > THREADS:
-        raise ValueError(f"the sLSTM kernel takes B * units per block <= "
-                         f"{THREADS}; got B={B} at {units} units per block")
+    rows = row_plan(B, d, units)
     hs = gates_x.new_empty((B, S, d))
     out = [c0.new_empty((B, d)) for _ in range(4)]
     if B * d == 0:
         return hs, tuple(out)
-    barrier = torch.zeros(1, dtype=torch.int32, device=gates_x.device)
+    # the exchange of h between blocks: tagged 64-bit words, zeroed before
+    # each launch so that no tag of an earlier one is read
+    xchg = torch.empty(2 * rows * d, dtype=torch.int64,
+                       device=gates_x.device)
     lib = _library()
     with torch.cuda.device(gates_x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_slstm_scan(
-            gates_x.data_ptr(), R.data_ptr(), c0.data_ptr(), n0.data_ptr(),
-            h0.data_ptr(), m0.data_ptr(), hs.data_ptr(),
-            *(t.data_ptr() for t in out), barrier.data_ptr(), B, S, d,
-            units // 2, stream)
-    if err != 0:
-        raise RuntimeError("sLSTM kernel launch failed: "
-                           + lib.repro_cuda_error_string(err).decode())
-    launches += 1
+        for r0 in range(0, B, rows):
+            part = slice(r0, min(B, r0 + rows))
+            xchg.zero_()
+            err = lib.repro_slstm_scan(
+                gates_x[part].data_ptr(), R.data_ptr(),
+                *(t[part].data_ptr() for t in (c0, n0, h0, m0, hs, *out)),
+                xchg.data_ptr(), part.stop - r0, S, d, units // 2,
+                int(products), stream)
+            if err != 0:
+                raise RuntimeError("sLSTM kernel launch failed: "
+                                   + lib.repro_cuda_error_string(err)
+                                   .decode())
+            launches += products
     return hs, tuple(out)

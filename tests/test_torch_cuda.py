@@ -402,12 +402,29 @@ def test_slstm_kernel_state_continuation(card):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("B", [43, 200])
+def test_slstm_kernel_takes_any_batch(card, B):
+    """Batches past the first kernel's limit (42 rows at xlstm-125m's
+    width) in one launch, equal to the plain version: hs within 1e-5, the
+    states within 1e-4."""
+    inputs = _slstm_inputs(B, 32, 768, card, seed=B, fresh=False,
+                           r_scale=0.01)
+    before = slstm.launches
+    hs, state = slstm.slstm_scan_bsd(*inputs)
+    torch.cuda.synchronize()
+    assert slstm.launches == before + 1
+    hs_want, st_want = slstm.slstm_scan_plain(*inputs)
+    torch.testing.assert_close(hs, hs_want, rtol=1e-5, atol=1e-5)
+    for a, b in zip(state, st_want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
 def test_slstm_kernel_refuses_what_it_does_not_take(card):
     inputs = list(_slstm_inputs(2, 8, 16, card))
     with pytest.raises(TypeError, match="float32"):
         slstm.slstm_scan_bsd(*(t.double() for t in inputs))
-    with pytest.raises(ValueError, match="units per block"):
-        slstm.slstm_scan_bsd(*_slstm_inputs(200, 4, 16, card))
+    with pytest.raises(ValueError, match="d <= 1024"):
+        slstm.slstm_scan_bsd(*_slstm_inputs(2, 4, 1025, card))
     inputs[0] = inputs[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no gradient"):
         slstm.slstm_scan_bsd(*inputs)
@@ -446,20 +463,36 @@ def _mlstm_inputs(B, S, H, dk, dv, dtype, device, seed=0):
 def test_mlstm_kernel_equals_plain(card, B, S, H, dk, dv, dtype):
     """h and the last state within the reference's 1e-4 (rtol and atol) of
     the plain version at the model's 256-step chunk (the kernel walks its
-    own 32)."""
+    own 64), and of the plain version of the kernel's two-pass form."""
     inputs = _mlstm_inputs(B, S, H, dk, dv, dtype, card)
     assert not inputs[3].is_contiguous()
     before = mlstm.launches
     h, state = ops.mlstm_chunkwise(*inputs, chunk=256, h_dtype=torch.float32)
     torch.cuda.synchronize()
     assert mlstm.launches == before + 1
-    h_want, st_want = mlstm.mlstm_chunkwise_plain(*inputs, chunk=256)
-    torch.testing.assert_close(h, h_want, rtol=1e-4, atol=1e-4)
-    for name in ("C", "n", "m"):
-        torch.testing.assert_close(state[name], st_want[name], rtol=1e-4,
-                                   atol=1e-4)
+    for h_want, st_want in (mlstm.mlstm_chunkwise_plain(*inputs, chunk=256),
+                            mlstm.mlstm_two_pass_plain(*inputs)):
+        torch.testing.assert_close(h, h_want, rtol=1e-4, atol=1e-4)
+        for name in ("C", "n", "m"):
+            torch.testing.assert_close(state[name], st_want[name],
+                                       rtol=1e-4, atol=1e-4)
     h_q, _ = ops.mlstm_chunkwise(*inputs, chunk=256)
     assert h_q.dtype == dtype and torch.equal(h_q, h.to(dtype))
+
+
+@pytest.mark.parametrize("name,entries", [("slstm", 16), ("mlstm", 6)])
+def test_xlstm_builds_have_no_spills(card, name, entries):
+    """nvcc's -Xptxas -v report for the sLSTM kernel (4 units-per-block x 4
+    k-per-lane instantiations) and the mLSTM kernels (scores, carry and
+    outputs, float32 and bfloat16): no spills and no stack frame, so no
+    array of the products' sums lives in local memory."""
+    from repro_torch.kernels import build
+    build.build([name])
+    log = build.log_path(name).read_text()
+    frames = [line for line in log.splitlines() if "stack frame" in line]
+    assert len(frames) == entries, log
+    assert all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+               "loads" in line for line in frames), log
 
 
 def test_mlstm_kernel_refuses_what_it_does_not_take(card):
@@ -499,3 +532,37 @@ def test_xlstm_backend_signature_launches_the_kernels(card):
     cpu = LMBackend(cfg, batch_size=4, seq_len=64, device="cpu")
     cpu_sig = cpu.signature(tree_map(lambda p: p.cpu(), params), stream)
     assert np.sum(np.abs(cpu_sig - out) > 0) <= 4
+
+
+def test_xlstm_backend_evaluates_batch_43(card):
+    """``LMBackend(xlstm-125m, batch_size=43).evaluate`` on the card: the
+    first sLSTM kernel refused batches above 42 at this width.  The kernel
+    forward (3 sLSTM launches, one a layer) is finite and agrees with the
+    plain forward on the same batch within the xLSTM path's tolerance
+    (logits within 5% of the largest, with float32 products), and so do
+    the two accuracies, up to the rows whose argmax differs."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Runtime
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              compute_dtype="float32")
+    backend = LMBackend(cfg, batch_size=43, seq_len=64, device=card)
+    params = backend.init(torch.Generator(device=card).manual_seed(0))
+    stream = make_lm_dataset(vocab=2048, n_tokens=20_000)
+    before = slstm.launches
+    acc = backend.evaluate(params, stream)
+    assert slstm.launches == before + 3
+    assert np.isfinite(acc) and 0.0 <= acc <= 1.0
+    batch = backend._batch(backend._sample(stream, np.random.default_rng(1),
+                                           1)[0])
+    with torch.inference_mode():
+        k_logits, _ = tfm.forward(params, batch, cfg, Runtime(
+            use_kernels=True))
+        p_logits, _ = tfm.forward(params, batch, cfg, Runtime())
+    assert bool(torch.isfinite(k_logits).all())
+    scale = p_logits.abs().max().item()
+    assert (k_logits - p_logits).abs().max().item() <= 0.05 * scale
+    plain_acc = float((p_logits.argmax(-1) == batch["labels"]).float()
+                      .mean())
+    differ = float((k_logits.argmax(-1) != p_logits.argmax(-1)).float()
+                   .mean())
+    assert abs(acc - plain_acc) <= differ + 1e-6

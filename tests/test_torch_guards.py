@@ -459,6 +459,116 @@ def test_slstm_grid_fits_the_card(d, sms, units):
     assert slstm.units_per_block(d, sms) == units
 
 
+@pytest.mark.parametrize("B,d,units,rows", [
+    (8, 768, 6, 8), (43, 768, 6, 43), (64, 768, 6, 64), (5000, 768, 6, 423),
+    (300, 1001, 8, 114), (1, 16, 2, 1), (4000, 100, 2, 2208)])
+def test_slstm_row_plan_fills_the_block(B, d, units, rows):
+    """One launch takes every row that fits in the block's 227 KB beside
+    R's columns, its warps' h tiles and the partial sums: xlstm-125m's
+    batches up to 423 rows in one launch, and a larger batch in slices of
+    the most that fit."""
+    assert slstm.row_plan(B, d, units) == rows
+    assert slstm.smem_bytes(units, rows, d) <= slstm.SMEM_LIMIT
+    if rows < B:
+        assert slstm.smem_bytes(units, rows + 1, d) > slstm.SMEM_LIMIT
+
+
+def test_slstm_row_plan_refuses_widths_past_the_kernel():
+    with pytest.raises(ValueError, match="d <= 1024"):
+        slstm.row_plan(8, 1025, 8)
+
+
+class _FakeSlstmLibrary:
+    """A stand-in for the sLSTM library: records each launch's row-slice
+    pointers and sizes, and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.calls = []
+        self.err = err
+
+    def repro_slstm_scan(self, gx, R, c0, n0, h0, m0, hs, c, n, h, m, xchg,
+                         B, S, d, cpw, products, stream):
+        self.calls.append(dict(gx=gx, c0=c0, hs=hs, c=c, xchg=xchg, B=B,
+                               S=S, d=d, cpw=cpw, products=products,
+                               stream=stream))
+        return self.err
+
+    def repro_cuda_error_string(self, err):
+        return f"fake failure {err}".encode()
+
+
+def _fake_slstm(monkeypatch, err=0):
+    lib = _FakeSlstmLibrary(err)
+
+    class stream:
+        cuda_stream = 1234
+
+    class device:
+        def __init__(self, dev):
+            pass
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    monkeypatch.setattr(slstm, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    monkeypatch.setattr(slstm, "slstm_scan_plain", _no_plain)
+    return lib
+
+
+@pytest.mark.parametrize("B,rows_per_launch,launches", [
+    (43, None, 1), (64, None, 1), (64, 24, 3), (10, 4, 3)])
+def test_slstm_batches_reach_the_kernel_row_by_row(monkeypatch, B,
+                                                   rows_per_launch,
+                                                   launches):
+    """Batches past the first kernel's 42-row limit at xlstm-125m's width
+    reach the kernel without a refusal; every row goes to exactly one
+    launch, each launch's pointers at its first row, and ``launches``
+    counts them.  Where the plan caps a launch's rows (forced here), the
+    batch goes in slices."""
+    lib = _fake_slstm(monkeypatch)
+    if rows_per_launch is not None:
+        monkeypatch.setattr(slstm, "row_plan",
+                            lambda B, d, units: min(B, rows_per_launch))
+    S, d = 3, 768
+    inputs = [torch.zeros(s) for s in [(B, S, 4 * d), (d, 4 * d)]
+              + [(B, d)] * 4]
+    before = slstm.launches
+    hs, state = slstm._run(*inputs, units=6)
+    assert slstm.launches == before + launches
+    assert len(lib.calls) == launches
+    covered = []
+    for call in lib.calls:
+        r0 = (call["gx"] - inputs[0].data_ptr()) // (S * 4 * d * 4)
+        assert call["gx"] == inputs[0].data_ptr() + r0 * S * 4 * d * 4
+        assert call["c0"] == inputs[2].data_ptr() + r0 * d * 4
+        assert call["hs"] == hs.data_ptr() + r0 * S * d * 4
+        assert call["c"] == state[0].data_ptr() + r0 * d * 4
+        assert (call["S"], call["d"], call["cpw"], call["products"],
+                call["stream"]) == (S, d, 3, 1, 1234)
+        covered += range(r0, r0 + call["B"])
+    assert covered == list(range(B))
+
+
+def test_slstm_exchange_floor_is_not_counted_and_failures_raise(
+        monkeypatch):
+    """The exchange floor runs the kernel with products = 0 and leaves
+    ``launches`` alone; a failed launch raises, with no plain fallback."""
+    lib = _fake_slstm(monkeypatch)
+    inputs = [torch.zeros(s) for s in [(8, 3, 64), (16, 64)] + [(8, 16)] * 4]
+    before = slstm.launches
+    slstm._run(*inputs, units=2, products=False)
+    assert slstm.launches == before and lib.calls[0]["products"] == 0
+    lib.err = 2
+    with pytest.raises(RuntimeError, match="fake failure 2"):
+        slstm._run(*inputs, units=2)
+    assert slstm.launches == before
+
+
 @pytest.mark.parametrize("shape", [
     (128, 1024, 64), (1, 4096, 2048), (3, 1000, 63), (2, 5, 33), (1, 1, 1),
     (70000, 2, 3)])

@@ -1,7 +1,8 @@
 """The port's chunkwise mLSTM against the JAX reference.
 
 ``mlstm_chunkwise_plain`` (what a CPU tensor takes, and what the CUDA
-kernel is held against on the card) is compared with
+kernel is held against on the card) and ``mlstm_two_pass_plain`` (the
+plain version of the kernel's two-pass arithmetic) are compared with
 ``repro.kernels.mlstm.mlstm_chunkwise_bshd`` run in interpret mode and with
 the reference's step-by-step oracle ``mlstm_recurrent_ref``; the model's
 own chunkwise form (``models.xlstm.mlstm_chunkwise``, the path local
@@ -84,6 +85,42 @@ def test_plain_matches_interpret_kernel_and_oracle(B, S, H, dk, dv, chunk):
     h_ref, _ = xlstm.mlstm_recurrent_ref(
         *_torch(arrays), _torch_state(_state(B, H, dk, dv)))
     np.testing.assert_allclose(h_ref.numpy(), np.asarray(h_oracle), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk", CASES + [
+    (2, 130, 2, 20, 12, 64)])
+def test_two_pass_plain_matches_interpret_kernel_and_oracle(B, S, H, dk, dv,
+                                                            chunk):
+    """The plain version of the CUDA kernel's arithmetic (chunk scores and
+    states first, then all outputs, at the kernel's 64 steps) against the
+    interpret-mode Pallas kernel at the case's chunk and the step-by-step
+    oracle, at the reference's 1e-4; a ragged S over three chunks too."""
+    arrays = _inputs(B, S, H, dk, dv, seed=S)
+    jin = tuple(map(jnp.asarray, arrays))
+    h_kernel, st_kernel = j_kernel(*jin, chunk=chunk, interpret=True)
+    h_oracle, _ = j_xlstm.mlstm_recurrent_ref(
+        *jin, {k: jnp.asarray(v) for k, v in _state(B, H, dk, dv).items()})
+    h, state = mlstm.mlstm_two_pass_plain(*_torch(arrays))
+    assert h.shape == (B, S, H, dv) and h.dtype == torch.float32
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_kernel), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_oracle), **TOL)
+    for name in ("C", "n", "m"):
+        np.testing.assert_allclose(state[name].numpy(),
+                                   np.asarray(st_kernel[name]), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_two_pass_plain_matches_chunk_loop(chunk):
+    """The two passes at any chunk length against the chunk loop, in bf16
+    q, k, v as the model feeds the kernel."""
+    q, k, v, i, f = _torch(_inputs(2, 150, 2, 24, 40, seed=chunk))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    h, st = mlstm.mlstm_two_pass_plain(q, k, v, i, f, chunk=chunk)
+    h_want, st_want = mlstm.mlstm_chunkwise_plain(q, k, v, i, f, chunk=100)
+    torch.testing.assert_close(h, h_want, **TOL)
+    for name in ("C", "n", "m"):
+        torch.testing.assert_close(st[name], st_want[name], **TOL)
 
 
 @pytest.mark.parametrize("S,chunk,carried", [(96, 32, False), (70, 32, True),
