@@ -11,17 +11,20 @@ Phases, each printing one JSON line:
 2. build: every CUDA source of the port compiled with nvcc for sm_90a,
    one nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, then timed:
-   the signature kernel bit for bit at the CNN path's shape and at ragged
-   shapes (float32), and at the LM path's bfloat16 shape in its bucketed
-   form; flash attention at the LM and hybrid paths' shapes (each from
-   separate (B,S,H,hd) tensors and from views into one fused qkv), at
-   every shape of the reference's FLASH_CASES in float32 and
-   bfloat16, and at head_dim 256 with a window and a soft-cap: every
-   bfloat16 case on the Hopper kernel (wgmma, TMA) within the reference's
-   2e-2 and within FLASH_TC_TOL of the plain version of its own
-   arithmetic, every float32 case on the FMA kernel within 2e-5, each
-   case's route read from the per-route counts; the selective scan kernel
-   within the reference's 1e-5 at the reference's SCAN_CASES, at the
+   the signature kernel bit for bit on both its routes (vec and strided)
+   at the CNN path's shape and at ragged shapes (float32), and at each
+   LM-family path's width in bfloat16 and float32, also in its bucketed
+   form, then timed at each path's shape by both routes; flash attention
+   at the LM and hybrid paths' shapes (each from separate (B,S,H,hd)
+   tensors and from views into one fused qkv), at every shape of the
+   reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
+   with a window and a soft-cap: every bfloat16 case on the Hopper kernel
+   (wgmma, TMA) within the reference's 2e-2 and within FLASH_TC_TOL of the
+   plain version of its own arithmetic, every float32 case on the FMA
+   kernel within 2e-5, each case's route read from the per-route counts;
+   the selective scan kernel
+   within the reference's 1e-5 of both its plain versions (the reference's
+   arithmetic and its own) at the reference's SCAN_CASES, at the
    hybrid path's shape (with B and C as the strided views the model splits
    out of one projection), at a ragged length from a non-zero state, and
    across two calls that carry the state; the chunkwise mLSTM kernel
@@ -37,13 +40,15 @@ Phases, each printing one JSON line:
 4. the CNN path: the sequential DAG-AFL loop over four full-width VGG16
    clients on 32x32x3 images, driven through ``CNNBackend`` and
    ``DagAflCoordinator.run``, with every kernel's launch count set to 0
-   just before and read just after; and the card's forward pass held
-   against the port's CPU forward on a small input;
+   just before and read just after (every signature launch on the vec
+   route); and the card's forward pass held against the port's CPU
+   forward on a small input;
 5. the LM path: the same loop over four internlm2-1.8b clients at full
    width (depth cut to 4 of 24 layers, token streams drawn from a
    2,048-token sub-vocabulary), driven through ``LMBackend``, with the
    launch counts set to 0 just before and read just after (every flash
-   launch on the Hopper kernel); and the
+   launch on the Hopper kernel, every signature launch on the vec route,
+   on this path and the next two); and the
    kernel forward of the final global model held against its
    plain-attention forward on the card; then one profiled backend round;
 6. the hybrid path: the same loop over three jamba-v0.1-52b clients at
@@ -87,9 +92,12 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12        # dense, tensor cores
 MAIN_SHAPE = (128, 1024, 64)   # VGG16 conv 1 at 32x32, 128 samples
 RAGGED_SHAPE = (3, 1000, 63)
-# the LM path: internlm2-1.8b at full width, batch 8 of 512 positions
-LM_SIG_SHAPE = (1, 8 * 512, 2048)   # final-norm output, bfloat16
-LM_SIG_RAGGED = (2, 300, 1000)      # d % 64 != 0
+# the LM-family paths' final-norm outputs, bfloat16, batch 8 of 512
+# positions, at each model's width: xlstm-125m, internlm2-1.8b, jamba
+SIG_WIDTHS = {"xlstm": (1, 8 * 512, 768), "lm": (1, 8 * 512, 2048),
+              "hybrid": (1, 8 * 512, 4096)}
+# d % 64 != 0 (on the vec route), and d % 8 != 0 (on the strided route)
+LM_SIG_RAGGED = [(2, 300, 1000), (3, 257, 100)]
 FLASH_MAIN = (8, 16, 8, 512, 128)   # B, H, K, S, hd; causal, bfloat16
 FLASH_HYBRID = (8, 32, 8, 512, 128)  # the hybrid path's attention layer
 # tests/test_kernels.py FLASH_CASES: B, H, K, S, hd, causal, window, cap
@@ -108,9 +116,12 @@ FLASH_TC_TOL = {"atol": 2e-3, "rtol": 2 ** -7}
 LM_DATA_VOCAB = 2048
 # the hybrid path: jamba-v0.1-52b at full width, batch 8 of 512 positions
 SCAN_MAIN = (8, 512, 8192, 16)       # B, S, d_in, N
-# tests/test_kernels.py SCAN_CASES (B, S, d_in, N), and a ragged S (not a
-# multiple of the kernel's 8-step tile) over a partial block of channels
-SCAN_CASES = [(1, 64, 8, 4), (2, 100, 16, 8), (3, 37, 4, 2)]
+# tests/test_kernels.py SCAN_CASES (B, S, d_in, N), one with d_in % 4 != 0
+# (x and dt copied a float at a time, not in 16-byte pieces), and a ragged
+# S (not a multiple of the kernel's 8-step tile) over a partial block of
+# channels
+SCAN_CASES = [(1, 64, 8, 4), (2, 100, 16, 8), (3, 37, 4, 2),
+              (2, 45, 130, 16)]
 SCAN_RAGGED = (2, 301, 200, 16)
 SCAN_TOL = 1e-5                      # rtol and atol, the reference's
 SFU_EXP_PER_CLOCK_SM = 16            # H100: special-function unit rate
@@ -259,8 +270,21 @@ def phase_build(build) -> None:
          ptxas=ptxas)
 
 
+def signature_routes(sig, x, tau, mean=False):
+    """The kernel's output on ``x`` by the route ``sig.route`` picks, and,
+    where that is ``"vec"``, by the strided kernel on the same input too."""
+    import torch
+    out = [(sig.route(x), sig.signature_counts(x, tau, mean=mean))]
+    if out[0][0] == "vec":
+        strided = torch.empty_like(out[0][1])
+        out.append(("strided", sig._dispatch(x, strided, "strided", tau,
+                                             mean)))
+    return out
+
+
 def phase_kernels(sig, ops, dev) -> dict:
-    """Kernel against plain version, bit for bit; then times."""
+    """Kernel against plain version, bit for bit, on both routes; then
+    times at the CNN path's shape."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
@@ -269,95 +293,111 @@ def phase_kernels(sig, ops, dev) -> dict:
         for tau in (0.0, 0.05):
             x = relu_like(shape, g)
             strided = x.transpose(1, 2).contiguous().transpose(1, 2)
-            pairs = [
-                (sig.signature_counts(x, tau),
-                 sig.signature_counts_plain(x, tau)),
-                (sig.signature_counts(strided, tau),
-                 sig.signature_counts_plain(x, tau)),
-                (sig.signature_counts(x, tau, mean=True),
-                 sig.signature_counts_plain(x, tau, mean=True)),
-                (sig.signature_td(x[0], tau=tau),
-                 sig.signature_td_plain(x[0], tau=tau)),
-            ]
+            pairs = [(r, got, sig.signature_counts_plain(x, tau))
+                     for r, got in signature_routes(sig, x, tau)]
+            pairs += [(r, got, sig.signature_counts_plain(x, tau))
+                      for r, got in signature_routes(sig, strided, tau)]
+            pairs += [(r, got, sig.signature_counts_plain(x, tau, mean=True))
+                      for r, got in signature_routes(sig, x, tau, True)]
+            pairs.append((sig.route(x[0][None]),
+                          sig.signature_td(x[0], tau=tau),
+                          sig.signature_td_plain(x[0], tau=tau)))
             torch.cuda.synchronize()
-            for got, want in pairs:
+            for r, got, want in pairs:
                 check(got.is_cuda and got.shape == want.shape,
                       f"signature kernel output at {shape}, tau {tau}")
                 err = (got - want).abs().max().item()
                 max_err = max(max_err, err)
                 check(torch.equal(got, want),
-                      f"signature kernel != plain at {shape}, tau {tau}: "
-                      f"max |diff| {err}")
-            compared.append({"shape": list(shape), "tau": tau})
+                      f"signature kernel ({r}) != plain at {shape}, tau "
+                      f"{tau}: max |diff| {err}")
+            compared.append({"shape": list(shape), "tau": tau,
+                             "routes": sorted({r for r, _, _ in pairs})})
     # the model-facing wrapper on a channels-last activation
     act = relu_like((16, 64, 32, 32), g).to(memory_format=torch.channels_last)
     nhwc = act.permute(0, 2, 3, 1)
+    check(sig.route(nhwc.reshape(16, -1, 64)) == "vec",
+          "a channels-last activation does not take the vec route")
     got = ops.signature_per_channel(nhwc)
     want = (sig.signature_counts_plain(nhwc.reshape(16, -1, 64), 0.0)
             * float(1 / 1024))
     check(torch.equal(got, want), "signature_per_channel on the card")
 
-    n, t, c = MAIN_SHAPE
     inputs = [relu_like(MAIN_SHAPE, g) for _ in range(4)]
-    ms = device_ms(lambda x: sig.signature_counts(x, 0.0), inputs)
-    plain_ms = device_ms(lambda x: sig.signature_counts_plain(x, 0.0),
-                         inputs)
-    library_ms = device_ms(lambda x: t - torch.count_nonzero(x, dim=1),
-                           inputs)
-    bytes_moved = n * t * c * 4 + n * c * 4
-    ops_done = 2 * n * t * c                  # one compare, one add
-    bound_ms, bound_by = bound(bytes_moved, ops_done)
+    library_ms = device_ms(lambda x: MAIN_SHAPE[1]
+                           - torch.count_nonzero(x, dim=1), inputs)
+    cnn = signature_timing(sig, "cnn", inputs, 0.0, library_ms)
     record = {"name": "signature_counts", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/signature.cu",
               "replaces": "src/repro/kernels/signature.py:45",
-              "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by,
-              "library_ms": library_ms, "timed_shape": list(MAIN_SHAPE)}
-    emit(phase="kernels_vs_plain", compared=compared, **record)
+              "max_abs_err": max_err, "ms": cnn["ms"],
+              "plain_ms": cnn["plain_ms"], "bound_ms": cnn["bound_ms"],
+              "bound_by": cnn["bound_by"], "library_ms": library_ms,
+              "timed_shape": list(MAIN_SHAPE), "widths": [cnn]}
+    emit(phase="kernels_vs_plain", compared=compared, **cnn)
     return record
 
 
-def phase_signature_lm(sig, ops, dev) -> dict:
-    """The signature kernel on bfloat16 input and in the bucketed form of
-    the LM path, bit for bit; then timed at the LM path's shape."""
+def signature_timing(sig, path, inputs, tau, library_ms=None) -> dict:
+    """The signature kernel's time on ``inputs`` by its route, the strided
+    kernel's on the same inputs, the plain version's, and the bound."""
+    import torch
+    x = inputs[0]
+    n, t, c = x.shape
+    which = sig.route(x)
+    ms = device_ms(lambda a: sig.signature_counts(a, tau), inputs)
+    out = torch.empty((n, c), device=x.device)
+    strided_ms = device_ms(lambda a: sig._dispatch(a, out, "strided", tau,
+                                                   False), inputs)
+    plain_ms = device_ms(lambda a: sig.signature_counts_plain(a, tau),
+                         inputs, reps=20)
+    bound_ms, bound_by = bound(n * t * c * x.element_size() + n * c * 4,
+                               2 * n * t * c)   # one compare, one add
+    return {"path": path, "shape": [n, t, c], "dtype": str(x.dtype),
+            "tau": tau, "route": which, "ms": ms, "strided_ms": strided_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_signature_lm(sig, ops, dev) -> list:
+    """The signature kernel on bfloat16 and float32 input, on both routes
+    and in the bucketed form of the LM-family paths, bit for bit; then
+    timed at each LM-family path's width."""
     import torch
     from repro_torch.models.layers import activation_signature
     g = torch.Generator(device=dev).manual_seed(3)
     compared = []
-    for shape in (LM_SIG_SHAPE, LM_SIG_RAGGED):
+    for shape in (*SIG_WIDTHS.values(), *LM_SIG_RAGGED):
         for dtype in (torch.bfloat16, torch.float32):
             x = lm_activation(shape, g, dtype)
+            routes = set()
             for tau in (0.0, 0.05):
-                got = sig.signature_counts(x, tau)
                 want = sig.signature_counts_plain(x, tau)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want),
-                      f"signature kernel != plain at {shape} {dtype} "
-                      f"tau {tau}")
+                for r, got in signature_routes(sig, x, tau):
+                    torch.cuda.synchronize()
+                    routes.add(r)
+                    check(torch.equal(got, want),
+                          f"signature kernel ({r}) != plain at {shape} "
+                          f"{dtype} tau {tau}")
             got = ops.signature(x, tau=0.05, n_sig=64)
             want = activation_signature(x, n_sig=64, tau=0.05)
             check(torch.equal(got, want) and torch.equal(
                 got.cpu(), ops.signature(x.cpu(), tau=0.05, n_sig=64)),
                 f"bucketed signature != plain at {shape} {dtype}")
-            compared.append({"shape": list(shape), "dtype": str(dtype)})
-    inputs = [lm_activation(LM_SIG_SHAPE, g, torch.bfloat16)
-              for _ in range(6)]
-    n, t, c = LM_SIG_SHAPE
-    ms = device_ms(lambda x: sig.signature_counts(x, 0.05), inputs)
-    plain_ms = device_ms(lambda x: sig.signature_counts_plain(x, 0.05),
-                         inputs)
-    bucketed_ms = device_ms(lambda x: ops.signature(x, tau=0.05, n_sig=64),
-                            inputs)
-    bytes_moved = n * t * c * 2 + n * c * 4
-    ops_done = 2 * n * t * c
-    bound_ms, bound_by = bound(bytes_moved, ops_done)
-    lm = {"timed_shape": list(LM_SIG_SHAPE), "dtype": "bfloat16",
-          "tau": 0.05, "ms": ms, "plain_ms": plain_ms,
-          "bucketed_ms": bucketed_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "library_ms": None}
-    emit(phase="signature_lm_vs_plain", compared=compared, **lm)
-    return lm
+            compared.append({"shape": list(shape), "dtype": str(dtype),
+                             "routes": sorted(routes)})
+    widths = []
+    for path, shape in SIG_WIDTHS.items():
+        size = shape[0] * shape[1] * shape[2] * 2
+        inputs = [lm_activation(shape, g, torch.bfloat16)
+                  for _ in range(max(6, -(-120_000_000 // size)))]
+        timing = signature_timing(sig, path, inputs, 0.05)
+        timing["bucketed_ms"] = device_ms(
+            lambda x: ops.signature(x, tau=0.05, n_sig=64), inputs)
+        widths.append(timing)
+        del inputs
+    emit(phase="signature_lm_vs_plain", compared=compared, widths=widths)
+    return widths
 
 
 def phase_flash(fa, ops, dev) -> dict:
@@ -536,8 +576,11 @@ def phase_scan(ss, ops, dev) -> dict:
     cases.append(("ragged, non-zero h0",
                   scan_inputs(SCAN_RAGGED, g, proj_width=5, h0_scale=1.0)))
     for what, inputs in cases:
-        compare(ops.selective_scan(*inputs),
-                ss.selective_scan_plain(*inputs), str(what))
+        got = ops.selective_scan(*inputs)
+        compare(got, ss.selective_scan_plain(*inputs), str(what))
+        # and against the plain version of the kernel's own arithmetic
+        compare(got, ss.selective_scan_split_plain(*inputs),
+                f"{what}, split plain")
     # two calls carrying the state against one over the whole
     x, dt, A, Bc, Cc, h0 = scan_inputs((2, 80, 300, 16), g, proj_width=7)
     y1, h1 = ss.selective_scan_bsd(x[:, :43], dt[:, :43], A, Bc[:, :43],
@@ -573,10 +616,13 @@ def phase_scan(ss, ops, dev) -> dict:
               "timed_shape": list(SCAN_MAIN)}
     # the exponentials' floor on the special-function units is derived,
     # not measured: it stays out of the kernels line
+    x, dt, A = sets[0][:3]
     emit(phase="scan_vs_plain", compared=len(compared), cases=compared,
          bytes=bytes_moved, flops=ops_done,
          exp_units_ms=steps / (SFU_EXP_PER_CLOCK_SM * H100_SMS
-                               * H100_BOOST_HZ) * 1e3, **record)
+                               * H100_BOOST_HZ) * 1e3,
+         max_abs_dt_A=(dt.amax(dim=(0, 1)) * A.abs().amax(1)).max().item(),
+         **record)
     return record
 
 
@@ -910,11 +956,13 @@ def phase_main_path(kern, dev) -> int:
     torch.cuda.reset_peak_memory_stats()
     for mod in [sig] + others:                     # counts start here
         mod.launches = 0
+    sig.launches_vec = sig.launches_strided = 0
     t0 = time.perf_counter()
     result = coord.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sig.launches                        # and are read here
+    routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
     other_launches = [mod.launches for mod in others]
     sig.signature_counts_plain = inner_plain
     seconds["rest"] = wall - sum(seconds.values())
@@ -936,6 +984,9 @@ def phase_main_path(kern, dev) -> int:
           f"signature kernel launched {launches} times for "
           f"{calls['signature']} signature calls over {rounds} rounds")
     check(calls["plain"] == 0, "the main path ran the plain signature")
+    check(routes == {"vec": launches, "strided": 0},
+          f"signature launches by route {routes}: every one of the "
+          f"{launches} must take the vec kernel")
     check(not any(other_launches), f"the CNN path launched flash, scan or "
           f"xLSTM kernels {other_launches}")
     check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
@@ -952,8 +1003,8 @@ def phase_main_path(kern, dev) -> int:
          tip_mean_accuracy=result.extra["tip_mean_accuracy"],
          client_mean_accuracy=result.extra["client_mean_accuracy"],
          calls=calls, seconds=seconds, signature_launches=launches,
-         verify_full_dag=why, **ref)
-    return launches
+         signature_routes=routes, verify_full_dag=why, **ref)
+    return {"signature": launches, "signature_routes": routes}
 
 
 def lm_reference_check(tfm, cfg, backend, params, stream,
@@ -1207,6 +1258,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     for mod in (sig, fa, ss, ml, sl):              # counts start here
         mod.launches = 0
     fa.launches_sm90 = fa.launches_fma = 0
+    sig.launches_vec = sig.launches_strided = 0
     t0 = time.perf_counter()
     result = coord.run(init_model=genesis)
     torch.cuda.synchronize()
@@ -1215,6 +1267,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
                 "scan": ss.launches, "mlstm": ml.launches,
                 "slstm": sl.launches}              # and are read here
     flash_routes = {"sm90": fa.launches_sm90, "fma": fa.launches_fma}
+    sig_routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
     (fa.flash_attention_plain, sig.signature_counts_plain,
      ss.selective_scan_plain, ml.mlstm_chunkwise_plain,
      sl.slstm_scan_plain) = inner
@@ -1249,6 +1302,9 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     check(flash_routes == {"sm90": launches["flash"], "fma": 0},
           f"{phase}: flash launches by route {flash_routes}: every one "
           f"of the {launches['flash']} must take the sm90 kernel")
+    check(sig_routes == {"vec": launches["signature"], "strided": 0},
+          f"{phase}: signature launches by route {sig_routes}: every one "
+          f"of the {launches['signature']} must take the vec kernel")
     check(not any(n for name, n in calls.items()
                   if name.startswith("plain_")),
           f"{phase}: the path ran a plain kernel version: {calls}")
@@ -1280,7 +1336,8 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
         client_mean_accuracy=result.extra["client_mean_accuracy"],
         calls=calls, seconds=seconds, launches=launches,
-        flash_routes=flash_routes, verify_full_dag=why, **ref)
+        flash_routes=flash_routes, signature_routes=sig_routes,
+        verify_full_dag=why, **ref)
     emit(**record)
     return record
 
@@ -1330,19 +1387,19 @@ def main() -> None:
     smi = phase_environment(build)
     phase_build(build)
     sig_record = phase_kernels(sig, ops, dev)
-    sig_record["lm"] = phase_signature_lm(sig, ops, dev)
+    sig_record["widths"] += phase_signature_lm(sig, ops, dev)
     flash_record = phase_flash(fa, ops, dev)
     scan_record = phase_scan(ss, ops, dev)
     mlstm_record = phase_mlstm(ml, ops, dev)
     slstm_record = phase_slstm(sl, ops, dev)
     kern = {"sig": sig, "fa": fa, "ss": ss, "ml": ml, "sl": sl}
-    cnn_launches = phase_main_path(kern, dev)
+    cnn = phase_main_path(kern, dev)
     lm = phase_lm_loop(kern, dev, phase="lm_path", cfg=lm_config(),
                        clients=4, local_steps=8,
-                       expected_params=630_736_896)["launches"]
+                       expected_params=630_736_896)
     hybrid = phase_lm_loop(kern, dev, phase="hybrid_path",
                            cfg=hybrid_config(), clients=3, local_steps=2,
-                           expected_params=HYBRID_PARAMS)["launches"]
+                           expected_params=HYBRID_PARAMS)
     # the xLSTM stack's 12 bfloat16 layers carry the one-ulp rounding
     # flips that the kernels' float32 h and the plain version's cause in
     # each layer's bfloat16 output on to the logits, past LM_LOGIT_RTOL;
@@ -1351,17 +1408,26 @@ def main() -> None:
     # reported beside it (PERF.md)
     xl = phase_lm_loop(kern, dev, phase="xlstm_path", cfg=xlstm_config(),
                        clients=3, local_steps=2, expected_params=XLSTM_PARAMS,
-                       reference_compute="float32")["launches"]
+                       reference_compute="float32")
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
     for key, record in records.items():
-        by_path = {"cnn": cnn_launches} if key == "signature" else {}
-        by_path.update({name: counts[key] for name, counts in paths.items()
-                        if counts[key]})
+        by_path = {"cnn": cnn["signature"]} if key == "signature" else {}
+        by_path.update({name: p["launches"][key] for name, p in paths.items()
+                        if p["launches"][key]})
         record["launches_by_path"] = by_path
         record["launches"] = sum(by_path.values())
+    sig_record["launches_by_route"] = {
+        "cnn": cnn["signature_routes"],
+        **{name: p["signature_routes"] for name, p in paths.items()}}
+    flash_record["launches_by_route"] = {
+        name: p["flash_routes"] for name, p in paths.items()
+        if p["launches"]["flash"]}
+    for width in sig_record["widths"]:
+        width["launches"] = sig_record["launches_by_path"].get(
+            width["path"], 0)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

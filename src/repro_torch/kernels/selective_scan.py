@@ -12,7 +12,10 @@ there is none here.
 
 A CPU tensor takes :func:`selective_scan_plain`, a plain loop over S (the
 port of ``repro.kernels.ref.selective_scan_seq_ref``); CUDA tensors launch
-the kernel (``csrc/selective_scan.cu``) or raise.  The kernel reads Bc and
+the kernel (``csrc/selective_scan.cu``) or raise.
+:func:`selective_scan_split_plain` repeats the kernel's own arithmetic
+(``exp(dt*A)`` as a power of 2, ``y`` summed in two halves of the states);
+nothing on the model's path calls it.  The kernel reads Bc and
 Cc through their strides, so the views that ``models.mamba`` splits out of
 one projection go in without a copy.  There is no gradient: the wrapper
 raises when grad mode is on and an input requires grad.  ``launches``
@@ -30,6 +33,7 @@ from repro_torch.kernels import build
 launches = 0
 
 STATE_SIZES = (2, 4, 8, 16)     # the kernel's template instances of N
+LOG2E = 1.4426950408889634
 
 
 def _check_shapes(x, dt, A, Bc, Cc, h0) -> None:
@@ -59,6 +63,33 @@ def selective_scan_plain(x, dt, A, Bc, Cc, h0):
         da = torch.exp(dtt[..., None] * A)
         h = da * h + (dtt * x[:, t])[..., None] * Bc[:, t, None, :]
         ys.append((h * Cc[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) if ys else torch.zeros_like(x)
+    return y, h
+
+
+def selective_scan_split_plain(x, dt, A, Bc, Cc, h0):
+    """The CUDA kernel's arithmetic in plain PyTorch: ``exp(dt*A)`` as
+    ``2**(dt*A2)``, with ``A2 = A*log2(e)`` rounded once to float32, and
+    ``y`` as the kernel sums it: two threads carry half of the N states
+    each (N >= 4), each sums its half in order, then the halves are added.
+    The kernel's power of 2 is the card's ``ex2.approx`` (2 ulp) and its
+    products feed fused multiply-adds, so the two agree to rounding."""
+    _check_shapes(x, dt, A, Bc, Cc, h0)
+    B, S, d_in = x.shape
+    N = A.shape[1]
+    split = 2 if N >= 4 else 1
+    A2 = (A.double() * LOG2E).float()
+    h = h0
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t]
+        da = torch.exp2(dtt[..., None] * A2)
+        h = da * h + (dtt * x[:, t])[..., None] * Bc[:, t, None, :]
+        terms = (h * Cc[:, t, None, :]).reshape(B, d_in, split, N // split)
+        acc = terms[..., 0]
+        for n in range(1, N // split):
+            acc = acc + terms[..., n]
+        ys.append(acc[..., 0] + acc[..., 1] if split == 2 else acc[..., 0])
     y = torch.stack(ys, 1) if ys else torch.zeros_like(x)
     return y, h
 

@@ -13,7 +13,14 @@ them by the float32 reciprocal of T, as the reference's ``acc / total_t``
 does once XLA has compiled it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/signature.cu``) or raises.  ``launches`` counts kernel launches.
+(``csrc/signature.cu``) or raises.  The kernel has two routes, and
+:func:`route` picks one before the launch from dtype, strides and
+alignment alone: ``"vec"`` (16-byte loads along contiguous channels, T
+split over blocks, the blocks' integer counts joined with atomics in a
+zeroed int32 scratch that the launch leaves zero) or ``"strided"`` (any
+strides, one element a lane).  Both give the same bits.  ``launches``
+counts kernel launches, ``launches_vec`` and ``launches_strided`` each
+route's.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+launches_vec = 0
+launches_strided = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,15 +90,57 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def route(x: torch.Tensor) -> str:
+    """The kernel route a non-CPU ``x (N, T, C)`` takes, from dtype,
+    strides and alignment alone: ``"vec"`` when the channels are contiguous,
+    C is a multiple of one 16-byte vector (8 bfloat16 or 4 float32) and the
+    base and the sample and row strides of every axis longer than 1 are
+    multiples of 16 bytes, so that every row's channels load as whole
+    16-byte vectors; else ``"strided"``."""
+    size = x.element_size()
+    vec = 16 // size
+    aligned = (x.shape[2] % vec == 0 and x.stride(2) == 1
+               and x.data_ptr() % 16 == 0
+               and all(st * size % 16 == 0
+                       for n, st in zip(x.shape[:2], x.stride()[:2]) if n > 1))
+    return "vec" if aligned else "strided"
+
+
+# the "vec" route's int32 scratch, zero between launches, by device and
+# stream: launches on one stream run in order, so none sees another's
+# partial counts
+_scratch: dict = {}
+
+
+def _zeroed_scratch(device: torch.device, stream: int,
+                    ints: int) -> torch.Tensor:
+    """The vec route's scratch for launches on ``stream`` of ``device``,
+    at least ``ints`` int32 long.
+
+    One buffer is kept for each (device, raw stream handle) the process
+    has launched the vec route on, for the life of the process: a raw
+    handle does not say when its stream is gone, so no entry is dropped.
+    Each buffer grows to the largest launch on its stream (N * C counts
+    plus N tickets per group of channels). It is zeroed once, here; every
+    launch leaves it all zero again, and the next launch relies on that
+    (``tests/test_torch_cuda.py`` sums every buffer after its launches)."""
+    key = (device, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < ints:
+        buf = torch.zeros(ints, dtype=torch.int32, device=device)
+        _scratch[key] = buf
+    return buf
+
+
 def _launch(x: torch.Tensor, tau: float, mean: bool) -> torch.Tensor:
-    global launches
     if not x.is_cuda:
         raise ValueError(f"signature_counts takes a CPU or CUDA tensor, "
                          f"got one on {x.device}")
@@ -100,14 +151,39 @@ def _launch(x: torch.Tensor, tau: float, mean: bool) -> torch.Tensor:
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    return _dispatch(x, out, route(x), tau, mean)
+
+
+def _dispatch(x: torch.Tensor, out: torch.Tensor, which: str, tau: float,
+              mean: bool) -> torch.Tensor:
+    """Launch route ``which``'s kernel into ``out``; raise if it fails.
+    The port passes :func:`route`'s choice; the strided kernel also takes
+    the inputs of the ``"vec"`` route, so the two can be compared on the
+    same inputs, but not the other way round."""
+    global launches, launches_vec, launches_strided
+    if which == "vec" and route(x) != "vec":
+        raise ValueError("the vec signature kernel takes contiguous "
+                         "channels on 16-byte aligned rows only")
+    n, t, c = x.shape
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        scratch, ints = None, 0
+        if which == "vec":
+            # n * c counts and one ticket for each (sample, group of 32
+            # vectors of channels)
+            ints = n * c + n * -(-c * x.element_size() // 512)
+            scratch = _zeroed_scratch(x.device, stream, ints).data_ptr()
         err = lib.repro_signature_counts(
             x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], n, t, c,
-            *x.stride(), _f32(tau), int(mean), stream)
+            *x.stride(), _f32(tau), int(mean), int(which == "vec"), scratch,
+            ints, stream)
     if err != 0:
-        raise RuntimeError("signature kernel launch failed: "
+        raise RuntimeError(f"signature kernel ({which}) launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
     launches += 1
+    if which == "vec":
+        launches_vec += 1
+    else:
+        launches_strided += 1
     return out

@@ -73,6 +73,55 @@ def test_kernel_refuses_non_float32(card):
                                              dtype=dtype), 0.0)
 
 
+# the CNN path's shape, the LM-family paths' widths (xlstm-125m,
+# internlm2-1.8b, jamba), and ragged shapes: C not a multiple of 64 (vec
+# route), C not a multiple of 8 (strided), one row, rows past 2**16
+SIG_ROUTE_CASES = [((128, 1024, 64), torch.float32),
+                   ((1, 4096, 768), torch.bfloat16),
+                   ((1, 4096, 2048), torch.bfloat16),
+                   ((1, 4096, 4096), torch.bfloat16),
+                   ((2, 300, 1000), torch.bfloat16),
+                   ((2, 300, 1000), torch.float32),
+                   ((3, 257, 100), torch.bfloat16),
+                   ((5, 1, 16), torch.float32),
+                   ((1, 70001, 8), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", SIG_ROUTE_CASES)
+@pytest.mark.parametrize("tau", [0.0, 0.05])
+def test_signature_routes_equal_plain(card, shape, dtype, tau):
+    """Both kernel routes bit for bit equal to the plain version, counts
+    and means; the route counters move with their launches; the vec
+    route's scratch is zero again after its launches."""
+    x = _relu_like(shape, card).to(dtype)
+    x.view(-1)[3::11] = -0.0
+    which = sig.route(x)
+    assert which == ("strided" if shape[2] % (16 // x.element_size())
+                     else "vec")
+    for mean in (False, True):
+        want = sig.signature_counts_plain(x, tau, mean=mean)
+        before = (sig.launches_vec, sig.launches_strided)
+        got = sig.signature_counts(x, tau, mean=mean)
+        assert (sig.launches_vec, sig.launches_strided) == (
+            before[0] + (which == "vec"), before[1] + (which == "strided"))
+        strided = sig._dispatch(x, torch.empty_like(want), "strided", tau,
+                                mean)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(strided, want)
+    assert all(int(buf.abs().sum()) == 0 for buf in sig._scratch.values())
+
+
+def test_signature_vec_route_on_views(card):
+    """The vec route through padded rows and a base moved by 16 bytes;
+    a base moved by 2 bytes takes the strided route; both exact."""
+    base = _relu_like((2, 300, 1040), card).to(torch.bfloat16)
+    for view, which in ((base[..., 8:1032], "vec"),
+                        (base[..., 1:1025], "strided")):
+        assert sig.route(view) == which
+        assert torch.equal(sig.signature_counts(view, 0.05),
+                           sig.signature_counts_plain(view, 0.05))
+
+
 @pytest.mark.parametrize("shape", [(1, 4096, 2048), (2, 24, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bucketed_signature_equals_plain(card, shape, dtype):
@@ -282,16 +331,76 @@ def _scan_inputs(B, S, d_in, N, device, seed=0):
 
 @pytest.mark.parametrize("B,S,d_in,N", SCAN_CASES)
 def test_scan_kernel_equals_plain(card, B, S, d_in, N):
-    """Within the reference's 1e-5 (rtol and atol), y and h_last."""
+    """Within the reference's 1e-5 (rtol and atol), y and h_last, of the
+    plain version and of the plain version of the kernel's own
+    arithmetic."""
     inputs = _scan_inputs(B, S, d_in, N, card)
     assert not inputs[3].is_contiguous()
     before = ss.launches
     y, h = ops.selective_scan(*inputs)
     torch.cuda.synchronize()
     assert ss.launches == before + 1
-    y_want, h_want = ss.selective_scan_plain(*inputs)
+    for plain in (ss.selective_scan_plain, ss.selective_scan_split_plain):
+        y_want, h_want = plain(*inputs)
+        torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [2, 4, 8, 16])
+def test_scan_kernel_state_continuation_at_every_state_size(card, N):
+    """Three calls carrying the state (ragged lengths, channels past a
+    block of 128) equal one call over the whole and the plain version."""
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(2, 101, 300, N, card, seed=N)
+    y_full, h_full = ss.selective_scan_bsd(x, dt, A, Bc, Cc, h0)
+    ys, h = [], h0
+    for a, b in ((0, 13), (13, 64), (64, 101)):
+        y, h = ss.selective_scan_bsd(x[:, a:b], dt[:, a:b], A, Bc[:, a:b],
+                                     Cc[:, a:b], h)
+        ys.append(y)
+    torch.testing.assert_close(torch.cat(ys, 1), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h, h_full, rtol=1e-5, atol=1e-5)
+    y_want, h_want = ss.selective_scan_plain(x, dt, A, Bc, Cc, h0)
+    torch.testing.assert_close(y_full, y_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h_full, h_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,d_in,N,offset", [(2, 45, 130, 16, 0),
+                                               (1, 37, 131, 2, 0),
+                                               (2, 45, 96, 16, 1),
+                                               (2, 45, 96, 8, 2)])
+def test_scan_kernel_copies_one_float_at_a_time(card, B, S, d_in, N, offset):
+    """Where x and dt cannot be copied in 16-byte pieces (d_in % 4 != 0, or
+    contiguous x and dt that do not start on 16 bytes), the kernel copies
+    one float at a time; within 1e-5 of the plain version."""
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(B, S, d_in, N, card, seed=d_in)
+    if offset:
+        moved = []
+        for t in (x, dt):
+            m = torch.empty(t.numel() + offset, device=card)[offset:]
+            moved.append(m.view(t.shape).copy_(t))
+        assert moved[0].is_contiguous() and moved[0].data_ptr() % 16
+        x, dt = moved
+    y, h = ss.selective_scan_bsd(x, dt, A, Bc, Cc, h0)
+    y_want, h_want = ss.selective_scan_plain(x, dt, A, Bc, Cc, h0)
     torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,entries", [("selective_scan", 8),
+                                          ("signature", 6)])
+def test_scan_and_signature_builds_have_no_spills(card, name, entries):
+    """nvcc's -Xptxas -v report for the scan (N = 2, 4, 8, 16, each with
+    16-byte and one-float copies) and the signature kernels (the strided
+    route in two types, the vec route in two types by two comparisons): no
+    spills and no stack frame."""
+    from repro_torch.kernels import build
+    build.build([name])
+    log = build.log_path(name).read_text()
+    frames = [line for line in log.splitlines() if "stack frame" in line]
+    assert len(frames) == entries, log
+    assert all("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+               "loads" in line for line in frames), log
 
 
 def test_scan_kernel_state_continuation(card):

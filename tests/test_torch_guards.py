@@ -285,6 +285,138 @@ def test_sm90_route_refuses_inputs_it_cannot_address(monkeypatch):
     assert entries["sm90"].calls == [] and len(entries["fma"].calls) == 1
 
 
+def _meta_ntc(shape, dtype=torch.float32, width=None, offset=0):
+    """An (N, T, C) view on the meta device of rows ``width`` elements
+    wide (C by default), its base moved by ``offset`` elements."""
+    n, t, c = shape
+    x = torch.empty((n, t, (width or c) + offset), device="meta",
+                    dtype=dtype)
+    return x[..., offset:offset + c]
+
+
+@pytest.mark.parametrize("what,x,want", [
+    ("float32, contiguous channels", _meta_ntc((128, 1024, 64)), "vec"),
+    ("bfloat16, contiguous channels", _meta_ntc((1, 4096, 768),
+                                                torch.bfloat16), "vec"),
+    ("bfloat16 rows of 1000", _meta_ntc((2, 300, 1000), torch.bfloat16),
+     "vec"),
+    ("bfloat16, base moved by 16 bytes", _meta_ntc(
+        (2, 16, 64), torch.bfloat16, offset=8), "vec"),
+    ("bfloat16 rows padded to 72", _meta_ntc((2, 16, 64), torch.bfloat16,
+                                             width=72), "vec"),
+    ("float32, base moved by 4 bytes", _meta_ntc((2, 16, 64), offset=1),
+     "strided"),
+    ("bfloat16, base moved by 2 bytes", _meta_ntc(
+        (2, 16, 64), torch.bfloat16, offset=1), "strided"),
+    ("float32 rows of 66 (264 bytes)", _meta_ntc((2, 16, 64), width=66),
+     "strided"),
+    ("float32, C = 63", _meta_ntc((3, 1000, 63)), "strided"),
+    ("bfloat16, C = 100 (not a multiple of 8)", _meta_ntc(
+        (2, 24, 100), torch.bfloat16), "strided"),
+    ("float32, C = 6 in rows of 8", _meta_ntc((2, 16, 6), width=8),
+     "strided"),
+    ("float32, channel-major", _meta_ntc((2, 64, 16)).transpose(1, 2)
+     .contiguous().transpose(1, 2), "strided"),
+])
+def test_signature_route_is_fixed_by_dtype_strides_and_alignment(
+        monkeypatch, what, x, want):
+    """The route is chosen before the launch from dtype, strides and
+    alignment; each route's counter moves with its launches, the vec route
+    gets a zeroed scratch of N*C counts and one ticket per (sample, 32
+    vectors of channels), the strided route none, and no plain version
+    runs."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def repro_signature_counts(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(sig, "_library", lambda: Lib)
+    monkeypatch.setattr(sig, "_scratch", {})
+    monkeypatch.setattr(sig, "signature_counts_plain", _no_plain)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7}))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
+    assert sig.route(x) == want
+    before = (sig.launches, sig.launches_vec, sig.launches_strided)
+    out = torch.empty((x.shape[0], x.shape[2]), device="meta")
+    assert sig._dispatch(x, out, sig.route(x), 0.05, False) is out
+    (args,) = calls
+    n, _, c = x.shape
+    vec_ints = n * c + n * -(-c * x.element_size() // 512)
+    assert args[11:14] == ((1, 0, vec_ints) if want == "vec"
+                           else (0, None, 0))
+    assert args[6:9] == x.stride() and args[-1] == 7
+    assert (sig.launches, sig.launches_vec, sig.launches_strided) == (
+        before[0] + 1, before[1] + (want == "vec"),
+        before[2] + (want == "strided"))
+
+
+class _NullContext:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_signature_vec_route_refuses_what_it_cannot_load(monkeypatch):
+    """Only the strided kernel may be asked for explicitly on inputs of the
+    other route; the vec kernel asked for unaligned or channel-strided
+    inputs raises before its entry is called."""
+    called = []
+    monkeypatch.setattr(sig, "_library", lambda: called.append(1))
+    for x in (_meta_ntc((2, 16, 64), offset=1), _meta_ntc((3, 10, 63)),
+              _meta_ntc((2, 64, 16)).transpose(1, 2)):
+        with pytest.raises(ValueError, match="vec"):
+            sig._dispatch(x, torch.empty((2, 16), device="meta"), "vec",
+                          0.0, False)
+    assert called == []
+
+
+def test_failed_signature_launch_raises_without_fallback(monkeypatch):
+    """An error code from the entry raises, naming the route; no plain
+    version is tried and no counter moves."""
+    class Lib:
+        @staticmethod
+        def repro_signature_counts(*args):
+            return 3
+
+        @staticmethod
+        def repro_cuda_error_string(code):
+            return b"fake failure %d" % code
+
+    monkeypatch.setattr(sig, "_library", lambda: Lib)
+    monkeypatch.setattr(sig, "_scratch", {})
+    monkeypatch.setattr(sig, "signature_counts_plain", _no_plain)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
+    x = _meta_ntc((2, 16, 64))
+    before = (sig.launches, sig.launches_vec, sig.launches_strided)
+    with pytest.raises(RuntimeError, match=r"\(vec\).*fake failure 3"):
+        sig._dispatch(x, torch.empty((2, 64), device="meta"), "vec", 0.0,
+                      False)
+    assert (sig.launches, sig.launches_vec, sig.launches_strided) == before
+
+
+def test_signature_scratch_is_kept_per_device_and_stream(monkeypatch):
+    """The vec route's zeroed scratch is made once for each (device,
+    stream) and grows when a launch needs more; another stream gets its
+    own."""
+    monkeypatch.setattr(sig, "_scratch", {})
+    dev = torch.device("meta")
+    a = sig._zeroed_scratch(dev, 1, 100)
+    assert a.dtype == torch.int32 and a.numel() == 100
+    assert sig._zeroed_scratch(dev, 1, 60) is a
+    b = sig._zeroed_scratch(dev, 1, 200)
+    assert b is not a and b.numel() == 200
+    assert sig._zeroed_scratch(dev, 2, 10) is not b
+    assert sig._zeroed_scratch(dev, 1, 200) is b
+
+
 def _scan_inputs(device, N=4, dtype=torch.float32, requires_grad=False,
                  B=2, S=16, d_in=8):
     shapes = [(B, S, d_in), (B, S, d_in), (d_in, N), (B, S, N), (B, S, N),

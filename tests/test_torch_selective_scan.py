@@ -1,7 +1,9 @@
 """The port's selective scan against the JAX reference.
 
 ``selective_scan_plain`` (what a CPU tensor takes, and what the CUDA kernel
-is held against on the card) is compared with
+is held against on the card) and ``selective_scan_split_plain`` (the CUDA
+kernel's own arithmetic: powers of 2, y summed in two halves of the
+states) are compared with
 ``repro.kernels.selective_scan.selective_scan_bsd`` run in interpret mode,
 and the model's own chunked ``selective_scan_ref`` (the path local
 training runs under autograd) with ``repro.models.mamba.selective_scan_ref``,
@@ -55,6 +57,22 @@ def _inputs(B, S, d_in, N, seed=0):
     return x, dt, A, Bc, Cc, h0
 
 
+def _wide_inputs(B, S, d_in, N, seed=0):
+    """dt up to 8 and A down to -8, so that |dt*A| reaches 64: about twice
+    the largest that ``chip_smoke.py``'s draw at the hybrid path's shape
+    (softplus of N(0, 1) times exp of N(0, 1)/2, 8 x 512 x 8192 x 16)
+    reaches, 32-36 in numpy draws of that distribution; the model's own
+    dt (softplus around log(expm1(0.01))) and A (-1..-16) stay far
+    below."""
+    x, _, _, Bc, Cc, h0 = _inputs(B, S, d_in, N, seed)
+    rng = np.random.default_rng(seed + 1)
+    dt = rng.uniform(0.0, 8.0, (B, S, d_in)).astype(np.float32)
+    A = -rng.uniform(0.5, 8.0, (d_in, N)).astype(np.float32)
+    dt[0, :, 0] = 8.0
+    A[0, 0] = -8.0
+    return x, dt, A, Bc, Cc, h0
+
+
 def _torch(arrays, requires_grad=False):
     return tuple(torch.from_numpy(a.copy()).requires_grad_(requires_grad)
                  for a in arrays)
@@ -72,6 +90,31 @@ def test_plain_matches_interpret_kernel(B, S, d_in, N, chunk):
     # the model-facing wrapper takes the plain version for CPU tensors
     y_ops, h_ops = ops.selective_scan(*_torch(arrays))
     assert torch.equal(y_ops, y) and torch.equal(h_ops, h)
+
+
+# the reference's cases, a ragged S (not a multiple of the CUDA kernel's
+# 8-step tile nor of the chunk) and the widest |dt*A|
+SPLIT_CASES = [(c, _inputs) for c in CASES] + [
+    ((2, 301, 24, 16, 64), _inputs), ((2, 45, 16, 16, 16), _wide_inputs),
+    ((1, 40, 8, 2, 16), _wide_inputs)]
+
+
+@pytest.mark.parametrize("case,draw", SPLIT_CASES,
+                         ids=[f"{c}-{d.__name__}" for c, d in SPLIT_CASES])
+def test_split_plain_matches_interpret_kernel(case, draw):
+    """The CUDA kernel's arithmetic within the reference's 1e-5 (rtol and
+    atol) of the interpret-mode Pallas kernel and of the plain version."""
+    B, S, d_in, N, chunk = case
+    arrays = draw(B, S, d_in, N, seed=5)
+    y_want, h_want = j_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                            interpret=True)
+    y, h = ss.selective_scan_split_plain(*_torch(arrays))
+    assert y.shape == (B, S, d_in) and h.shape == (B, d_in, N)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_want), **TOL)
+    y_plain, h_plain = ss.selective_scan_plain(*_torch(arrays))
+    torch.testing.assert_close(y, y_plain, **TOL)
+    torch.testing.assert_close(h, h_plain, **TOL)
 
 
 def test_plain_state_continuation():

@@ -89,3 +89,26 @@ def test_plain_path_launches_no_kernel():
     tsig.signature_td(x[0], tau=0.05)
     tops.signature_per_channel(x.reshape(2, 8, 8, 8))
     assert tsig.launches == before
+
+
+# the LM-family paths' widths (xlstm-125m, internlm2-1.8b, jamba), which
+# take the kernel's vec route on the card, and ragged widths (C % 64 != 0
+# on the vec route, C % 8 != 0 on the strided one), at a few rows
+BF16_CASES = [(64, 768), (48, 2048), (40, 4096), (33, 1000), (17, 100)]
+
+
+@pytest.mark.parametrize("T,C", BF16_CASES)
+@pytest.mark.parametrize("tau", [0.0, 0.05])
+def test_bfloat16_counts_match_jax_interpret(T, C, tau):
+    """bfloat16 activations: the port's plain version on the bfloat16
+    tensor equals the reference's interpret-mode kernel on its exact
+    float32 values, counts and fractions."""
+    rng = np.random.default_rng(T * 7 + C)
+    x = torch.from_numpy(rng.normal(0.0, 0.1, (T, C)).astype(np.float32))
+    x.view(-1)[::9] = 0.05
+    x.view(-1)[1::13] = -0.0
+    xb = x.to(torch.bfloat16)
+    for mean in (False, True):
+        ref = jax_signature_td(jnp.asarray(xb.float().numpy()), tau=tau,
+                               mean=mean, interpret=True)
+        _equal(ref, tsig.signature_td(xb, tau=tau, mean=mean))
