@@ -43,7 +43,17 @@ Phases, each printing one JSON line:
    just before and read just after (every signature launch on the vec
    route); and the card's forward pass held against the port's CPU
    forward on a small input;
-5. the LM path: the same loop over four internlm2-1.8b clients at full
+5. the CNN cohort path: the same world and loop with ``cohort_size=4`` and
+   ``cohort_window=2.0``, so that round starts in one window are trained,
+   validated and signed together on ``fl.cohort.CohortBackend`` (the
+   im2col products over the stacked clients, one signature launch per
+   client, every one on the vec route), after a warm-up window, with the
+   launch counts set to 0 just before and read just after; then one
+   window's aggregates and seeds trained again by ``train_local``, its
+   models validated by ``evaluate`` and signed by ``signature``, and held
+   against the window's results: trained leaves within the reference's
+   5e-3, the same correct counts, signatures within 1/1024 per channel;
+6. the LM path: the same loop over four internlm2-1.8b clients at full
    width (depth cut to 4 of 24 layers, token streams drawn from a
    2,048-token sub-vocabulary), driven through ``LMBackend``, with the
    launch counts set to 0 just before and read just after (every flash
@@ -51,14 +61,14 @@ Phases, each printing one JSON line:
    on this path and the next two); and the
    kernel forward of the final global model held against its
    plain-attention forward on the card; then one profiled backend round;
-6. the hybrid path: the same loop over three jamba-v0.1-52b clients at
+7. the hybrid path: the same loop over three jamba-v0.1-52b clients at
    full width, depth cut to one Mamba and one attention layer with dense
    feed-forward layers (the MoE layers are not ported), with the launch
    counts set to 0 just before and read just after; the kernel forward
    (selective scan and flash attention) held against the plain forward
    (the model's chunked scan and dense attention) on the card; then one
    profiled backend round;
-7. the xLSTM path: the same loop over three xlstm-125m clients at full
+8. the xLSTM path: the same loop over three xlstm-125m clients at full
    width and depth ([mLSTM x3, sLSTM] x3, 134,421,576 parameters), the
    launch counts set to 0 just before and read just after; the kernel
    forward (chunkwise mLSTM and sLSTM kernels) held against the plain
@@ -895,21 +905,13 @@ def reference_check(cnn, cfg, dev, params) -> dict:
             "signature_max_abs_err": sig_err}
 
 
-def phase_main_path(kern, dev) -> int:
-    import numpy as np
-    import torch
+def cnn_world():
+    """VGG16 at full width and the CNN paths' four clients: synthetic
+    CIFAR-10 at 32x32, 8:1:1, Dirichlet beta = 1.0."""
     from repro_torch.configs.cnn import vgg_for
-    from repro_torch.core.aggregate import tree_leaves
-    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
-    from repro_torch.core.verify import verify_full_dag
     from repro_torch.data.partition import partition_dirichlet
     from repro_torch.data.synthetic import make_image_dataset, split_811
-    from repro_torch.fl.backend import CNNBackend
-    from repro_torch.models import cnn
 
-    sig = kern["sig"]
-    others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
-    cfg = vgg_for("cifar10", tiny=False)
     ds = make_image_dataset("cifar10", 2400, 10, 32, 3, 0.55)
     splits = split_811(ds)
     parts = partition_dirichlet(splits["train"], 4, beta=1.0, seed=0)
@@ -918,6 +920,21 @@ def phase_main_path(kern, dev) -> int:
         s = split_811(p, seed=1)
         client_data.append({"train": s["train"], "val": s["val"],
                             "test": s["test"]})
+    return vgg_for("cifar10", tiny=False), client_data, splits["test"]
+
+
+def phase_main_path(kern, dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.fl.backend import CNNBackend
+    from repro_torch.models import cnn
+
+    sig = kern["sig"]
+    others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
+    cfg, client_data, test = cnn_world()
     backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
     check(backend.device.type == "cuda", "backend is not on the card")
     # warm-up outside the counted run: cuDNN plans, allocator pools
@@ -949,7 +966,7 @@ def phase_main_path(kern, dev) -> int:
     backend.evaluate = counted("evaluate", backend.evaluate)
     backend.signature = counted("signature", backend.signature, signatures)
     sig.signature_counts_plain = counted("plain", inner_plain)
-    coord = DagAflCoordinator(backend, client_data, splits["test"],
+    coord = DagAflCoordinator(backend, client_data, test,
                               DagAflConfig(n_clients=4, max_rounds=2,
                                            local_epochs=1))
     torch.cuda.synchronize()
@@ -1004,6 +1021,335 @@ def phase_main_path(kern, dev) -> int:
          client_mean_accuracy=result.extra["client_mean_accuracy"],
          calls=calls, seconds=seconds, signature_launches=launches,
          signature_routes=routes, verify_full_dag=why, **ref)
+    return {"signature": launches, "signature_routes": routes,
+            "s_per_round": wall / rounds}
+
+
+def cohort_parity(backend, window) -> dict:
+    """One window of the counted run done again by the sequential calls on
+    the card: its aggregates and seeds through ``train_local`` (trained
+    leaves within the reference's 5e-3 of the window's), and its trained
+    models through ``evaluate`` (the same correct counts) and ``signature``
+    (within 1/1024 per channel)."""
+    import numpy as np
+    from repro_torch.core.aggregate import tree_leaves, tree_map
+
+    agg, datasets, seeds, epochs = window["train_in"]
+    trained = window["trained"]
+    train_err = 0.0
+    for k, (ds, seed) in enumerate(zip(datasets, seeds)):
+        solo, _ = backend.train_local(tree_map(lambda l: l[k], agg), ds,
+                                      seed=seed, epochs=epochs)
+        train_err = max(train_err, max(
+            (a - b[k]).abs().max().item()
+            for a, b in zip(tree_leaves(solo), tree_leaves(trained))))
+    check(train_err <= 5e-3, f"cohort_path: trained leaves differ from "
+          f"train_local's by {train_err} (> 5e-3)")
+    val_sets, accs = window["evaluated"]
+    counts = []
+    for k, (ds, acc) in enumerate(zip(val_sets, accs)):
+        n = min(len(ds), 512)
+        want = backend.evaluate(tree_map(lambda l: l[k], trained), ds)
+        counts.append([round(acc * n), round(want * n), n])
+        check(counts[-1][0] == counts[-1][1], f"cohort_path: client {k} "
+              f"correct counts {counts[-1]} differ from evaluate's")
+    sig_sets, sigs = window["signed"]
+    sig_err, channels = 0.0, 0
+    for k, (ds, got) in enumerate(zip(sig_sets, sigs)):
+        want = backend.signature(tree_map(lambda l: l[k], trained), ds)
+        sig_err = max(sig_err, float(np.abs(got - want).max()))
+        channels += int(np.sum(got != want))
+    check(sig_err <= 1 / 1024, f"cohort_path: signatures differ from "
+          f"signature's by {sig_err} (> 1/1024)")
+    return {"clients": len(seeds), "train_max_abs_err": train_err,
+            "correct_counts": counts, "signature_max_abs_err": sig_err,
+            "signature_channels_differing": channels}
+
+
+def im2col_losses(stacked, x, y):
+    """The reference's form of the cohort's training forward
+    (``_conv_as_matmul`` in its ``fl/cohort.py``): each client's
+    convolutions as im2col and one batched product a layer, taps in
+    (kh, kw, cin) order; x (K, B, H, W, C) -> (K,) mean losses.  Timed
+    beside the engine's grouped convolutions."""
+    import torch
+    import torch.nn.functional as F
+    k, b = x.shape[:2]
+    for stack_params in stacked["convs"]:
+        for p in stack_params:
+            kh, kw, _, cout = p["w"].shape[1:]
+            h, w = x.shape[2:4]
+            xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+            patches = torch.stack([xp[:, :, i:i + h, j:j + w]
+                                   for i in range(kh) for j in range(kw)],
+                                  dim=4)
+            y_conv = torch.bmm(patches.reshape(k, b * h * w, -1),
+                               p["w"].reshape(k, -1, cout))
+            x = torch.relu(y_conv.reshape(k, b, h, w, cout)
+                           + p["b"][:, None, None, None])
+        x = F.max_pool2d(x.flatten(0, 1).permute(0, 3, 1, 2), 2)
+        x = x.permute(0, 2, 3, 1).unflatten(0, (k, b))
+    x = x.reshape(k, b, -1)
+    for p in stacked["fcs"][:-1]:
+        x = torch.relu(torch.baddbmm(p["b"][:, None], x, p["w"]))
+    p = stacked["fcs"][-1]
+    logits = torch.baddbmm(p["b"][:, None], x, p["w"])
+    ll = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - ll).mean(-1)
+
+
+def train_step_forms(engine, cfg, stacked, x, y, reps: int = 5) -> dict:
+    """One training step (forward and backward of the summed losses) of K
+    stacked clients on batches x (K, B, ...), timed with CUDA events in
+    three forms, in turns: the engine's grouped convolutions, the
+    reference's im2col products, and K sequential steps of
+    ``cnn_loss``; and each form's gradients against the engine's."""
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_map
+    from repro_torch.models import cnn
+
+    def sequential(st, x, y):
+        return torch.stack([cnn.cnn_loss(
+            tree_map(lambda l: l[k], st), {"images": x[k], "labels": y[k]},
+            cfg)[0] for k in range(x.shape[0])])
+
+    def grouped(st, x, y):
+        rows = torch.ones(x.shape[1], device=x.device)
+        return engine.programs.sum_loss(st, x, y, rows, rows.sum())
+
+    forms = {"grouped": grouped, "im2col": im2col_losses,
+             "sequential": sequential}
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      stacked)
+    leaves = tree_leaves(params)
+
+    def step(fn):
+        for t in leaves:
+            t.grad = None
+        fn(params, x, y).sum().backward()
+
+    grads = {}
+    for name, fn in forms.items():
+        step(fn)
+        step(fn)
+        grads[name] = [t.grad.clone() for t in leaves]
+    times = {name: [] for name in forms}
+    for name in ("grouped", "im2col", "sequential", "sequential", "im2col",
+                 "grouped"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            step(forms[name])
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / reps)
+    return {"clients": x.shape[0], "batch": x.shape[1],
+            "ms": {name: sum(t) / len(t) for name, t in times.items()},
+            "grad_max_abs_diff": {
+                name: max((a - b).abs().max().item()
+                          for a, b in zip(grads[name], grads["grouped"]))
+                for name in ("im2col", "sequential")}}
+
+
+def phase_cohort_path(kern, dev, main_s_per_round: float) -> dict:
+    """The CNN path's world and loop on the cohort engine
+    (``cohort_size=4``, ``cohort_window=2.0``), timed by call; then one
+    window held against the sequential calls (``cohort_parity``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_stack
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.fl.backend import CNNBackend
+    from repro_torch.fl.cohort import CohortBackend
+
+    sig = kern["sig"]
+    others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
+    cfg, client_data, test = cnn_world()
+    backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
+    check(backend.device.type == "cuda", "cohort_path: backend is not on "
+          "the card")
+    engine = CohortBackend(backend)
+    # warm-up windows outside the counted run, one of each size a window
+    # can take (each size has its own grouped convolutions): cuDNN's
+    # kernels, allocator pools, the engine's cached validation sets
+    trains = [cd["train"] for cd in client_data]
+    vals = [cd["val"] for cd in client_data]
+    # one genesis draw as the run makes it, timed: host work in "rest"
+    t0 = time.perf_counter()
+    warm = [backend.init(torch.Generator().manual_seed(0))]
+    torch.cuda.synchronize()
+    genesis_s = time.perf_counter() - t0
+    warm += [backend.init(torch.Generator().manual_seed(s))
+             for s in range(1, 4)]
+    for k in (2, 3, 4):
+        trained, _ = engine.train_cohort(warm[:k], trains[:k],
+                                         list(range(k)), epochs=1)
+    warm = trained
+    engine.evaluate_cohort(warm, vals)
+    engine.signature_cohort(warm, trains)
+    engine.evaluate_shared(warm[0], vals)
+    engine.evaluate_many(warm, test)
+    del warm
+
+    # Each call ends in a host copy, so a host clock around it covers its
+    # device work; a call made inside another (evaluate_many's M = 1 path
+    # calls evaluate) is counted but not timed twice.
+    engine_calls = ("train_cohort_stacked", "evaluate_cohort_stacked",
+                    "signature_cohort_stacked", "evaluate_many",
+                    "evaluate_shared")
+    backend_calls = ("train_local", "evaluate", "signature")
+    calls = {name: 0 for name in engine_calls + backend_calls + ("plain",)}
+    seconds = {name: 0.0 for name in engine_calls + backend_calls}
+    depth, last_s = [0], {}
+    window, signatures, accs, windows, steps = {}, [], [], [], []
+
+    def counted(name, fn, keep=None):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            calls[name] += 1
+            last_s[name] = time.perf_counter() - t
+            if name in seconds and depth[0] == 0:
+                seconds[name] += last_s[name]
+            if keep is not None:
+                keep(args, out)
+            return out
+        return wrapper
+
+    def keep_train(args, out):
+        # each client's real steps; the window pads them to its longest
+        steps.append({"steps": [max(len(ds) // backend.batch_size, 1)
+                                for ds in args[1]],
+                      "seconds": last_s["train_cohort_stacked"]})
+        window.setdefault("train_in", args[:3] + (1,))
+        window.setdefault("trained", out[0])
+
+    def keep_engine(key, found):
+        def keep(args, out):
+            found.extend(out)
+            window.setdefault(key, (args[1], out))
+        return keep
+
+    inner_plain = sig.signature_counts_plain
+    engine.train_cohort_stacked = counted(
+        "train_cohort_stacked", engine.train_cohort_stacked, keep_train)
+    engine.evaluate_cohort_stacked = counted(
+        "evaluate_cohort_stacked", engine.evaluate_cohort_stacked,
+        keep_engine("evaluated", accs))
+    engine.signature_cohort_stacked = counted(
+        "signature_cohort_stacked", engine.signature_cohort_stacked,
+        keep_engine("signed", signatures))
+    engine.evaluate_many = counted("evaluate_many", engine.evaluate_many,
+                                   lambda a, out: accs.extend(out))
+    engine.evaluate_shared = counted("evaluate_shared",
+                                     engine.evaluate_shared,
+                                     lambda a, out: accs.extend(out))
+    backend.train_local = counted("train_local", backend.train_local)
+    backend.evaluate = counted("evaluate", backend.evaluate,
+                               lambda a, out: accs.append(out))
+    backend.signature = counted("signature", backend.signature,
+                                lambda a, out: signatures.append(out))
+    sig.signature_counts_plain = counted("plain", inner_plain)
+    coord = DagAflCoordinator(
+        backend, client_data, test,
+        DagAflConfig(n_clients=4, max_rounds=2, local_epochs=1,
+                     cohort_size=4, cohort_window=2.0),
+        cohort_engine=engine)
+    check(coord.cohort is engine, "cohort_path: the coordinator took no "
+          "cohort engine")
+    flush = coord._window.flush_fn
+
+    def counted_flush(batch):
+        windows.append(len(batch))
+        flush(batch)
+
+    coord._window.flush_fn = counted_flush
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in [sig] + others:                     # counts start here
+        mod.launches = 0
+    sig.launches_vec = sig.launches_strided = 0
+    t0 = time.perf_counter()
+    result = coord.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sig.launches                        # and are read here
+    routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
+    other_launches = [mod.launches for mod in others]
+    sig.signature_counts_plain = inner_plain
+    seconds["rest"] = wall - sum(seconds.values())
+    # the parity check below calls the wrapped methods again
+    run_calls, run_seconds = dict(calls), dict(seconds)
+    peak = torch.cuda.max_memory_allocated()
+
+    rounds = result.rounds
+    batched = sum(n for n in windows if n > 1)
+    accs += [result.final_accuracy, result.best_accuracy,
+             result.extra["tip_mean_accuracy"],
+             result.extra["client_mean_accuracy"]]
+    accs += [a for _, a in result.history]
+    ok, why = verify_full_dag(coord.ledger)
+    models = [coord.store.get(tx.model_ref)
+              for tx in coord.ledger.transactions()]
+    check(rounds == 8, f"cohort_path: expected 8 rounds, got {rounds}")
+    check(result.extra["chain_len"] == 1 + rounds,
+          f"cohort_path: chain_len {result.extra['chain_len']} != 1 + "
+          f"{rounds}")
+    check(result.extra["verify_failures"] == 0,
+          "cohort_path: path verification failed")
+    check(ok, f"cohort_path: verify_full_dag: {why}")
+    check(result.extra["cohorts_dispatched"] >= 1 and "train_in" in window,
+          f"cohort_path: {result.extra['cohorts_dispatched']} windows "
+          f"dispatched to the engine (window sizes {windows})")
+    # one launch per round: a client of a window, or a window of one
+    check(launches == rounds == batched + run_calls["signature"],
+          f"cohort_path: signature kernel launched {launches} times for "
+          f"{rounds} rounds ({batched} in windows, {run_calls['signature']} "
+          f"alone)")
+    check(routes == {"vec": launches, "strided": 0},
+          f"cohort_path: signature launches by route {routes}: every one "
+          f"of the {launches} must take the vec kernel")
+    check(run_calls["plain"] == 0, "cohort_path: ran the plain signature")
+    check(not any(other_launches), f"cohort_path: launched flash, scan or "
+          f"xLSTM kernels {other_launches}")
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+          f"cohort_path: accuracies {accs}")
+    check(all(p.is_cuda for m in models for p in tree_leaves(m)),
+          "cohort_path: a model left the card")
+    check(len(signatures) == rounds
+          and all(np.shape(s) == (64,) and np.all((s >= 0) & (s <= 1))
+                  for s in signatures),
+          "cohort_path: signatures are not 64 fractions")
+    parity = cohort_parity(backend, window)
+    # the training step's forms, at the window's full width of 4 clients
+    batch = engine.assembler.take(trains, [1, 2, 3, 4], 1)
+    forms = train_step_forms(
+        engine, cfg, tree_stack([backend.init(torch.Generator().manual_seed(s))
+                                 for s in range(4)]),
+        batch.xb[:, 0], batch.yb[:, 0])
+    emit(phase="cohort_path", model=cfg.name, image=[32, 32, 3],
+         n_params=sum(p.numel() for p in tree_leaves(models[0])),
+         clients=4, cohort_size=4, cohort_window=2.0, rounds=rounds,
+         chain_len=result.extra["chain_len"],
+         cohorts_dispatched=result.extra["cohorts_dispatched"],
+         windows=windows, rounds_in_windows=batched, window_steps=steps,
+         wall_s=wall, genesis_s=genesis_s,
+         s_per_round=wall / rounds, peak_bytes=peak,
+         main_path_s_per_round=main_s_per_round,
+         ratio_to_main_path=wall / rounds / main_s_per_round,
+         final_accuracy=result.final_accuracy,
+         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
+         client_mean_accuracy=result.extra["client_mean_accuracy"],
+         calls=run_calls, seconds=run_seconds, signature_launches=launches,
+         signature_routes=routes, verify_full_dag=why, parity=parity,
+         train_step=forms)
     return {"signature": launches, "signature_routes": routes}
 
 
@@ -1394,6 +1740,7 @@ def main() -> None:
     slstm_record = phase_slstm(sl, ops, dev)
     kern = {"sig": sig, "fa": fa, "ss": ss, "ml": ml, "sl": sl}
     cnn = phase_main_path(kern, dev)
+    cohort = phase_cohort_path(kern, dev, cnn["s_per_round"])
     lm = phase_lm_loop(kern, dev, phase="lm_path", cfg=lm_config(),
                        clients=4, local_steps=8,
                        expected_params=630_736_896)
@@ -1414,13 +1761,16 @@ def main() -> None:
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
     for key, record in records.items():
-        by_path = {"cnn": cnn["signature"]} if key == "signature" else {}
+        by_path = ({"cnn": cnn["signature"],
+                    "cnn_cohort": cohort["signature"]}
+                   if key == "signature" else {})
         by_path.update({name: p["launches"][key] for name, p in paths.items()
                         if p["launches"][key]})
         record["launches_by_path"] = by_path
         record["launches"] = sum(by_path.values())
     sig_record["launches_by_route"] = {
         "cnn": cnn["signature_routes"],
+        "cnn_cohort": cohort["signature_routes"],
         **{name: p["signature_routes"] for name, p in paths.items()}}
     flash_record["launches_by_route"] = {
         name: p["flash_routes"] for name, p in paths.items()

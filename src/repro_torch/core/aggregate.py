@@ -12,9 +12,12 @@ Port of ``repro.core.aggregate``.  ``tree_mean`` reproduces the reference's
 bits on the CPU: the leaves are summed left to right in float32 and the
 sum is multiplied by the float32 reciprocal of N, which is what XLA makes
 of the reference's ``sum / n``.  :func:`f32_mean` applies the same rule
-to a tensor's mean, as XLA compiles the reference's ``jnp.mean``.  The
-stacked and ``psum`` forms belong to the cohort engine and are not ported
-yet.
+to a tensor's mean, as XLA compiles the reference's ``jnp.mean``.
+
+The stacked forms serve the cohort engine: K models kept as one tree whose
+leaves carry a leading client axis (:func:`tree_stack`), aggregated over
+that axis in one reduction.  Only the single-device forms are ported; the
+reference's ``psum`` forms over a device mesh are not, and a ``mesh`` raises.
 """
 from __future__ import annotations
 
@@ -88,6 +91,80 @@ def tree_weighted(models: Sequence, weights: Sequence[float]):
         return acc
 
     return tree_map(combine, *models)
+
+
+def round_up_multiple(x: int, n: int) -> int:
+    """Smallest multiple of ``n`` that is >= ``x``."""
+    return -(-x // n) * n
+
+
+def pad_leading(arr: torch.Tensor, target: int) -> torch.Tensor:
+    """Zero-pad the leading axis of ``arr`` out to ``target`` rows."""
+    if arr.shape[0] == target:
+        return arr
+    pad = arr.new_zeros((target - arr.shape[0],) + tuple(arr.shape[1:]))
+    return torch.cat([arr, pad])
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= ``x`` (>= 1)."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def tree_stack(models: Sequence):
+    """Stack K congruent trees into one with a leading K axis per leaf."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *models)
+
+
+def tree_unstack(stacked) -> list:
+    """Inverse of :func:`tree_stack`: the K trees, as views of its rows."""
+    n = tree_leaves(stacked)[0].shape[0]
+    return [tree_map(lambda leaf, i=i: leaf[i], stacked) for i in range(n)]
+
+
+def _single_device(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "stacked aggregation over a device mesh is not ported to the "
+            "PyTorch package (only mesh=None)")
+
+
+def stacked_mean(stacked, mesh=None):
+    """Eq. 6 over a stacked tree: the mean over the leading client axis,
+    as the reference's jitted ``jnp.mean`` (:func:`f32_mean`).  Non-float
+    leaves take row 0."""
+    _single_device(mesh)
+    return tree_map(lambda leaf: f32_mean(leaf, dim=0)
+                    if leaf.is_floating_point() else leaf[0], stacked)
+
+
+def stacked_weighted(stacked, weights, mesh=None):
+    """Weighted aggregation over a stacked tree's leading axis M.
+
+    ``weights`` of shape (M,) gives one aggregate tree; shape (K, M) gives a
+    stacked tree of K aggregates, one einsum per leaf: row k holds client
+    k's weights over the M stacked models (the cohort window's Eq. 6).  Rows
+    are normalised as the reference does, ``w / max(sum(w), 1e-12)`` by a
+    true division.  Non-float leaves take row 0 (broadcast to K rows)."""
+    _single_device(mesh)
+    w = torch.as_tensor(np.asarray(weights, np.float32))
+    w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-12)
+    batched = w.dim() == 2
+
+    def combine(leaf):
+        if not leaf.is_floating_point():
+            if batched:
+                return leaf[0].expand((w.shape[0],) + leaf.shape[1:])
+            return leaf[0]
+        wd = w.to(leaf.device)
+        if batched:
+            return torch.einsum("km,m...->k...", wd, leaf.float())
+        return torch.einsum("m,m...->...", wd, leaf.float())
+
+    return tree_map(combine, stacked)
 
 
 def tree_interpolate(a, b, alpha: float):

@@ -10,12 +10,25 @@ asynchronous loop:
 The publisher only bootstraps (genesis), audits (hash verification) and
 monitors convergence — it never trains, matching the paper.
 
-Port of ``repro.core.coordinator``, sequential path: every client round is
-its own sequence of backend calls (the reference's ``cohort_size=1``).  The
-cohort engine, fault scenarios, live serving and meshes are not ported yet;
+Port of ``repro.core.coordinator``.  ``cohort_size=1`` (default) runs every
+client round as its own sequence of backend calls, the reference path.
+``cohort_size=K`` drains the event heap in *cohort windows*: round starts
+that fall within ``cohort_window`` simulated seconds of the window opener
+are dispatched together on the cohort engine
+(:class:`repro_torch.fl.cohort.CohortBackend`), whose batched programs
+train, validate and sign the window's clients as one.  Each result is still
+published at its own simulated completion time (clamped to the window's
+flush time in the degenerate case of a round shorter than the window), so
+simulated-time semantics are unchanged; a batched round's tip selection
+may observe the DAG up to ``cohort_window`` simulated seconds away from
+its own start.  Backends without a registered cohort suite stay
+sequential.
+
+Fault scenarios, live serving and device meshes are not ported yet:
 setting any of them raises ``NotImplementedError`` rather than being
-ignored.  ``run(init_model=None)`` takes the genesis model itself where the
-reference takes a JAX PRNG key.
+ignored (``mesh`` takes None or ``"auto"``, one card).
+``run(init_model=None)`` takes the genesis model itself where the reference
+takes a JAX PRNG key.
 """
 from __future__ import annotations
 
@@ -25,16 +38,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import tree_mean, tree_size_bytes
+from repro_torch.core.aggregate import (stacked_weighted, tree_mean,
+                                        tree_size_bytes, tree_stack,
+                                        tree_unstack)
 from repro_torch.core.dag import (BoundedDAGLedger, DAGLedger, ModelStore,
                                   TxMetadata)
 from repro_torch.core.signature import SimilarityContract
-from repro_torch.core.simulator import (ClientProfile, ConvergenceTracker,
-                                        CostModel, EventLoop, RunResult,
-                                        make_profiles)
+from repro_torch.core.simulator import (ClientProfile, CohortWindow,
+                                        ConvergenceTracker, CostModel,
+                                        EventLoop, RunResult, make_profiles)
 from repro_torch.core.tip_selection import (TipSelectionConfig,
                                             TipSelectionRequest, TipSelector)
 from repro_torch.core.verify import extract_path, verify_path
+from repro_torch.fl.cohort import build_cohort_engine, single_device
 
 
 @dataclass
@@ -57,21 +73,33 @@ class DagAflConfig:
     # boundary, so the (smaller) simulated audit cost shifts timings.
     # 0 keeps the append-only reference ledger.
     ledger_checkpoint_every: float = 0.0
-    # not ported yet: each raises NotImplementedError when set
+    # batched execution: dispatch up to this many concurrent client rounds
+    # on the cohort engine (1 = sequential reference path)
     cohort_size: int = 1
+    # round starts within this many simulated seconds share a cohort window;
+    # keep it below the typical round duration: a publish whose completion
+    # time falls before the window flushes is clamped to the flush time
+    cohort_window: float = 1.0
+    # None or "auto": the cohort engine on the backend's one card (the
+    # reference's meshes are not ported; any other value raises)
     mesh: object = "auto"
+    # overlapped host pipeline: assemble each window's batches on a
+    # background thread while the card computes (False = inline assembly,
+    # bit-identical results)
+    overlap: bool = True
+    # not ported yet: each raises NotImplementedError when set
     scenario: object = None
     serve_every: float = 0.0
     serving: object = None
 
 
-_UNPORTED = {"cohort_size": 1, "mesh": "auto", "scenario": None,
-             "serve_every": 0.0, "serving": None}
+_UNPORTED = {"scenario": None, "serve_every": 0.0, "serving": None}
 
 
 class _ClientTipEvaluator:
     """:class:`repro_torch.core.tip_selection.TipEvaluator` for one client,
-    served from the coordinator's accuracy cache."""
+    bridging the coordinator's accuracy cache and the cohort engine's
+    batched validation."""
 
     def __init__(self, coord: "DagAflCoordinator", client: int):
         self.coord = coord
@@ -81,20 +109,24 @@ class _ClientTipEvaluator:
         return self.coord._evaluate_tip(self.client, tx_id)
 
     def warm(self, tx_ids) -> None:
-        """Nothing to batch on the sequential path."""
+        if self.coord.cohort is not None and tx_ids:
+            self.coord._evaluate_tips_batch(self.client, tx_ids)
 
 
 class DagAflCoordinator:
     def __init__(self, backend, client_data: List[Dict], global_test,
                  cfg: DagAflConfig, cost: Optional[CostModel] = None,
-                 profiles: Optional[List[ClientProfile]] = None):
+                 profiles: Optional[List[ClientProfile]] = None,
+                 cohort_engine=None):
         """client_data[k]: {"train": ..., "val": ..., "test": ...} per client
-        (backend-specific containers)."""
+        (backend-specific containers).  ``cohort_engine`` lets callers reuse
+        one :class:`repro_torch.fl.cohort.CohortBackend` across runs."""
         for name, default in _UNPORTED.items():
             if getattr(cfg, name) != default:
                 raise NotImplementedError(
                     f"DagAflConfig.{name}={getattr(cfg, name)!r}: not ported "
                     f"to the PyTorch package yet (only {default!r})")
+        single_device(cfg.mesh)
         self.backend = backend
         self.client_data = client_data
         self.global_test = global_test
@@ -126,6 +158,20 @@ class DagAflCoordinator:
         self._verify_failures = 0
         self._rounds_done = 0
         self._t_last_round = 0.0
+        self._cohorts_dispatched = 0
+        self._val_sets = [client_data[c]["val"] for c in range(cfg.n_clients)]
+        self.cohort = None
+        self._window: Optional[CohortWindow] = None
+        if cfg.cohort_size > 1:
+            # the registry decides: backends without a batched suite get no
+            # engine and stay sequential
+            self.cohort = cohort_engine or build_cohort_engine(
+                backend, cohort_size=cfg.cohort_size, mesh=cfg.mesh,
+                overlap=cfg.overlap)
+            if self.cohort is not None:
+                self._window = CohortWindow(
+                    self.loop, cfg.cohort_size, cfg.cohort_window,
+                    self._flush_cohort, lambda: self.tracker.done)
 
     # -- helpers -------------------------------------------------------------
 
@@ -150,6 +196,20 @@ class DagAflCoordinator:
             self._evals_total += 1
         return self._acc_cache[key]
 
+    def _evaluate_tips_batch(self, client: int, tx_ids) -> None:
+        """Validate every uncached candidate in one engine call; the per-tip
+        ``_evaluate_tip`` then serves from the warmed cache."""
+        missing = [t for t in tx_ids if (client, t) not in self._acc_cache]
+        if not missing:
+            return
+        models = [self.store.get(self.ledger.get_tx(t).model_ref)
+                  for t in missing]
+        accs = self.cohort.evaluate_many(models,
+                                         self.client_data[client]["val"])
+        for t, acc in zip(missing, accs):
+            self._acc_cache[(client, t)] = acc
+            self._evals_total += 1
+
     def _publish(self, client: int, model, accuracy: float, sig, epoch: int,
                  parents) -> str:
         pending = self._deferred_evict.pop(client, None)
@@ -167,12 +227,21 @@ class DagAflCoordinator:
         self.contract.commit_round(epoch)
         return tx.tx_id
 
+    def _eval_global_on_vals(self, gm) -> List[float]:
+        if self.cohort is not None:
+            return self.cohort.evaluate_shared(gm, self._val_sets)
+        return [self.backend.evaluate(gm, self.client_data[c]["val"])
+                for c in range(self.cfg.n_clients)]
+
     def _start_round(self, delay: float, client: int) -> None:
-        self.loop.schedule(delay, lambda: self._client_round(client))
+        if self._window is not None:
+            self.loop.schedule(delay, lambda: self._enqueue_round(client))
+        else:
+            self.loop.schedule(delay, lambda: self._client_round(client))
 
     def _complete_round(self, client: int, model, acc: float, sig,
                         epoch: int, parents) -> None:
-        """Publish at the round's simulated completion time."""
+        """Publish at the round's simulated completion time (both paths)."""
         self._publish(client, model, acc, sig, epoch, parents)
         self._client_rounds[client] += 1
         self._client_val[client] = acc
@@ -184,8 +253,7 @@ class DagAflCoordinator:
         # models would ace their own non-IID shards and stop too early
         if self._rounds_done % self.cfg.n_clients == 0:
             gm = self.global_model()
-            accs = [self.backend.evaluate(gm, self.client_data[c]["val"])
-                    for c in range(self.cfg.n_clients)]
+            accs = self._eval_global_on_vals(gm)
             self.tracker.update(self.loop.now, float(np.mean(accs)))
         if (not self.tracker.done
                 and self._client_rounds[client] < self.cfg.max_rounds):
@@ -195,7 +263,8 @@ class DagAflCoordinator:
 
     def _select_and_cost(self, client: int):
         """Tip selection, P2P fetch accounting and the path audit for one
-        round; returns (model refs to aggregate, parents, t_select+t_fetch)."""
+        round; returns (model refs to aggregate, parents, t_select+t_fetch).
+        Shared verbatim by the sequential and cohort paths."""
         cfgc, cost, prof = self.cfg, self.cost, self.profiles[client]
         epoch = self._client_rounds[client]
 
@@ -227,29 +296,105 @@ class DagAflCoordinator:
         return (cost.eval_time(prof, 1) + cost.signature * prof.speed
                 + cost.transfer_time(prof, cost.metadata_bytes))
 
-    def _client_round(self, client: int) -> None:
-        """One round: tip selection and the simulated-cost draws (seed,
-        then train-time jitter, as the reference draws them), then
-        aggregate, train, validate, sign, and schedule the publish at the
-        round's own simulated completion time."""
-        if self.tracker.done:
-            return
-        t_start = self.loop.now
+    def _front_half(self, client: int, t_start: float) -> Dict:
+        """Tip selection and the round's simulated-cost draws, as one
+        record.  RNG order (seed, then train-time jitter) is the
+        reference's."""
         refs, parents, epoch, t_front = self._select_and_cost(client)
         seed = int(self.rng.integers(2 ** 31))
         t_train = self.cost.train_time(self.profiles[client],
                                        self.cfg.local_epochs, self.rng)
-        agg = tree_mean([self.store.get(r) for r in refs])
+        return {"client": client, "t_start": t_start, "refs": refs,
+                "parents": parents, "epoch": epoch, "t_front": t_front,
+                "t_train": t_train, "seed": seed}
+
+    def _dispatch_one(self, rd: Dict) -> None:
+        """Back half of ONE round on the backend's own calls: aggregate,
+        train, validate, sign, and schedule the publish at the round's own
+        simulated completion time.  Used by the sequential path and by
+        cohort windows of one."""
+        client = rd["client"]
+        agg = tree_mean([self.store.get(r) for r in rd["refs"]])
         model, _ = self.backend.train_local(
-            agg, self.client_data[client]["train"], seed=seed,
+            agg, self.client_data[client]["train"], seed=rd["seed"],
             epochs=self.cfg.local_epochs)
         acc = self.backend.evaluate(model, self.client_data[client]["val"])
         sig = self.backend.signature(model, self.client_data[client]["train"])
-        total = t_front + t_train + self._t_post(self.profiles[client])
+        total = rd["t_front"] + rd["t_train"] + self._t_post(
+            self.profiles[client])
         self.loop.schedule(
-            t_start + total - self.loop.now,
-            lambda: self._complete_round(client, model, acc, sig, epoch + 1,
-                                         parents))
+            rd["t_start"] + total - self.loop.now,
+            lambda: self._complete_round(client, model, acc, sig,
+                                         rd["epoch"] + 1, rd["parents"]))
+
+    # -- sequential client round ---------------------------------------------
+
+    def _client_round(self, client: int) -> None:
+        if self.tracker.done:
+            return
+        self._dispatch_one(self._front_half(client, self.loop.now))
+
+    # -- cohort-window client rounds ------------------------------------------
+
+    def _enqueue_round(self, client: int) -> None:
+        if not self.tracker.done:
+            self._window.add(client)
+
+    def _flush_cohort(self, batch) -> None:
+        """Dispatch one window: ``batch`` is [(client, start_time)] from
+        :class:`CohortWindow`.  Tip selection stays per client (its
+        candidate validation is batched underneath), then training,
+        validation and signatures run on the cohort engine and every result
+        publishes at its own simulated completion time."""
+        cfgc = self.cfg
+        rounds = [self._front_half(client, t_start)
+                  for client, t_start in batch]
+
+        if len(rounds) == 1:
+            # a window of one: the backend's own calls, no stacking
+            self._dispatch_one(rounds[0])
+            return
+
+        # the window's membership and seeds are now fixed, so its batch
+        # assembly can start on the assembler's thread and overlap the
+        # stacking and the Eq. 6 reduction below
+        train_sets = [self.client_data[rd["client"]]["train"] for rd in rounds]
+        seeds = [rd["seed"] for rd in rounds]
+        self.cohort.prefetch_window(train_sets, seeds,
+                                    epochs=cfgc.local_epochs)
+
+        # Eq. 6 for the whole cohort as ONE stacked reduction: stack the
+        # union of selected models once, then a (K, M) weight matrix row per
+        # client (uniform over its own selection, zero elsewhere)
+        uniq = list(dict.fromkeys(r for rd in rounds for r in rd["refs"]))
+        ref_pos = {r: i for i, r in enumerate(uniq)}
+        weights = np.zeros((len(rounds), len(uniq)), np.float32)
+        for k, rd in enumerate(rounds):
+            for r in rd["refs"]:
+                weights[k, ref_pos[r]] = 1.0
+        stacked_tips = tree_stack([self.store.get(r) for r in uniq])
+        agg_stacked = stacked_weighted(stacked_tips, weights)
+        del stacked_tips
+
+        val_sets = [self.client_data[rd["client"]]["val"] for rd in rounds]
+        new_stacked, _ = self.cohort.train_cohort_stacked(
+            agg_stacked, train_sets, seeds, epochs=cfgc.local_epochs)
+        del agg_stacked
+        val_accs = self.cohort.evaluate_cohort_stacked(new_stacked, val_sets)
+        sigs = self.cohort.signature_cohort_stacked(new_stacked, train_sets)
+        new_models = tree_unstack(new_stacked)
+        self._cohorts_dispatched += 1
+
+        # publish each round at ITS OWN simulated completion time
+        for rd, model, acc, sig in zip(rounds, new_models, val_accs, sigs):
+            total = (rd["t_front"] + rd["t_train"]
+                     + self._t_post(self.profiles[rd["client"]]))
+
+            def finish(rd=rd, model=model, acc=acc, sig=sig):
+                self._complete_round(rd["client"], model, acc, sig,
+                                     rd["epoch"] + 1, rd["parents"])
+
+            self.loop.schedule(rd["t_start"] + total - self.loop.now, finish)
 
     # -- run -------------------------------------------------------------------
 
@@ -284,6 +429,8 @@ class DagAflCoordinator:
             # staggered joins: asynchrony from the first event on
             self._start_round(float(self.rng.uniform(0, 2.0)), c)
         self.loop.run(stop=lambda: self.tracker.done)
+        if self._window is not None:
+            self._window.pending.clear()  # tracker stopped us mid-window
 
         # paper Table II reports AVERAGE accuracy across participants:
         # evaluate each client's latest model on the global test set
@@ -298,8 +445,12 @@ class DagAflCoordinator:
             if ref is None or ref not in self.store:
                 continue
             latest_models.append(self.store.get(ref))
-        client_accs = [self.backend.evaluate(m, self.global_test)
-                       for m in latest_models]
+        if self.cohort is not None and latest_models:
+            client_accs = self.cohort.evaluate_many(latest_models,
+                                                    self.global_test)
+        else:
+            client_accs = [self.backend.evaluate(m, self.global_test)
+                           for m in latest_models]
         gm = self.global_model()
         tip_mean_acc = self.backend.evaluate(gm, self.global_test)
         client_mean = float(np.mean(client_accs)) if client_accs else 0.0
@@ -324,4 +475,5 @@ class DagAflCoordinator:
                 "chain_len": len(self.ledger),
                 "verify_failures": self._verify_failures,
                 "store_bytes_transferred": self.store.bytes_transferred,
+                "cohorts_dispatched": self._cohorts_dispatched,
             })

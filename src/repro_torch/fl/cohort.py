@@ -1,0 +1,525 @@
+"""Cohort execution engine: the K clients of a window as one batched program.
+
+Port of ``repro.fl.cohort`` on one device, CNN suite.  The simulator's event
+heap decides *when* each client's round runs in simulated time; this module
+decides *how* the card executes the work.  Instead of K serial
+``train_local`` / ``evaluate`` / ``signature`` calls, a
+:class:`CohortBackend` keeps the K clients' parameter trees stacked along a
+leading client axis (``tree_stack``) and runs local training as one batched
+program over them, and validation and signatures as one call each that
+runs the K forwards back to back.
+
+The batched programs come per backend family from a suite
+(:class:`CohortPrograms`); :class:`CNNCohortPrograms` is the paper's VGG
+path.  Its training runs each conv layer of the K clients as one grouped
+convolution (``groups=K``) and each dense layer as one batched product,
+the counterpart of the reference's ``vmap`` of a ``scan``.  The
+reference's im2col products (``_conv_as_matmul``), its form for a
+``vmap`` that XLA:CPU lowers well, are slower on the card than cuDNN's
+grouped convolutions (``chip_smoke.py`` times both).  The sum of the
+K clients' mean losses is backpropagated once, so each client's gradient
+is exactly its own loss's.  Validation and signatures keep the conv-form
+forward (``models.cnn``) per client, the counterpart of ``lax.map``; the
+signatures' per-sample rows come from the Eq. 3 signature kernel
+(``ops.signature_per_channel``), one launch per client.
+``register_cohort_programs`` extends the registry; a backend without a
+suite runs sequentially (``build_cohort_engine`` returns None).
+
+Ragged shards are handled by padding and masking, as in the reference:
+
+  * training: every client's step sequence is padded to the window's
+    longest; a padded step computes a gradient on zero padding, and the
+    client's parameters and momentum rows are restored after the update,
+    so padding never leaks into the trained weights;
+  * validation and signatures: sample axes are padded to the window's
+    largest shard and the accuracy and Eq. 3 means are masked.
+
+The reference pads the client axis to powers of two, sample axes to
+multiples of ``eval_pad_quantum`` and the step axis to a monotone target,
+to bound XLA's compiled programs.  The port compiles nothing and pads to
+the window's own sizes; masked rows add exact zeros, so the results are
+the padded reference's.
+
+Means over a window are true float32 divisions, as the reference's
+cohort programs compute them (``num / max(den, 1)``), not the multiply by
+a float32 reciprocal that its jitted ``jnp.mean`` (and the sequential
+path, ``core.aggregate.f32_mean``) uses: the two differ in the last bit on
+many counts, and these means reach the Eq. 7 digest and tip selection.
+
+Meshes are not ported: ``mesh`` is None or ``"auto"`` (one card).  There is
+no kernel policy: the tensors' device decides, as everywhere in the port.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Type
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.aggregate import (pad_leading, tree_leaves, tree_map,
+                                        tree_stack, tree_unstack)
+from repro_torch.data.pipeline import WindowAssembler
+from repro_torch.fl.backend import CNNBackend
+from repro_torch.kernels import ops
+from repro_torch.optim.optimizers import apply_updates
+
+
+def single_device(mesh) -> None:
+    """Raise unless ``mesh`` asks for one device (None or ``"auto"``)."""
+    if mesh is not None and not (isinstance(mesh, str) and mesh == "auto"):
+        raise NotImplementedError(
+            f"mesh={mesh!r}: cohort meshes are not ported to the PyTorch "
+            f"package (only None or 'auto', one card)")
+
+
+def _client(tree, k: int):
+    """Client ``k``'s tree: views of row ``k`` of every stacked leaf."""
+    return tree_map(lambda leaf: leaf[k], tree)
+
+
+def _tree_select(done: Sequence[int], leaves: Sequence[torch.Tensor],
+                 old: Sequence[torch.Tensor]) -> None:
+    """Identity step for the masked clients: rows ``done`` of the stacked
+    ``leaves``, just updated in place, are put back to ``old`` (their
+    copies from before the step, client by client).  The reference's
+    ``where(keep, new, old)`` over whole trees, by rows."""
+    rows = iter(old)
+    for k in done:
+        for leaf in leaves:
+            leaf[k].copy_(next(rows))
+
+
+def _grouped_conv(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """K clients' SAME-padding stride-1 convolutions as one grouped
+    convolution: x (B, K*cin, H, W), client k's channels in group k;
+    w (K, kh, kw, cin, cout) HWIO; b (K, cout) -> (B, K*cout, H, W).  The
+    same contraction as K convolutions, in another summation order."""
+    k, kh, kw, cin, cout = w.shape
+    weight = w.permute(0, 4, 3, 1, 2).reshape(k * cout, cin, kh, kw)
+    return F.conv2d(x, weight, b.reshape(-1), padding="same", groups=k)
+
+
+def _masked_mean(rows: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
+    """Mean of the rows whose mask is 1, by a true division (the
+    reference's ``sum(z * w, 0) / max(sum(w), 1)``)."""
+    w = ms[:, None]
+    return (rows * w).sum(dim=0) / w.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# per-backend cohort program suites
+# ---------------------------------------------------------------------------
+
+
+class CohortPrograms:
+    """Batched train/eval/signature program suite for one backend family.
+
+    :class:`CohortBackend` supplies the execution discipline (stacking,
+    padding, masking, the optimizer loop) and delegates everything
+    backend-specific to this interface.  A suite owns:
+
+    on the device:
+      * ``sum_loss(stacked, x, y, w, denom)``  (K,) training losses of K
+        stacked models, each on its own batch x (K, B, ...): row-weighted
+        loss sums over ``denom``, so that all-ones ``w`` and ``denom =
+        loss_denom(w, y)`` give each client's mean loss (the reference's
+        sum form, which its data-mesh engine sums across devices)
+      * ``loss_denom(w, y)``  the count in loss units for row weights ``w``
+      * ``eval_terms(params, xs, ys, ms)``  (num, den) masked-accuracy terms
+        of one model on one shard; ``masked_eval`` = num / max(den, 1)
+      * ``eval_shared_terms(params, x, y, mask)``  (num (K,), den (K,))
+        terms for ONE model on K stacked shards
+      * ``sample_signature(params, xs)``  per-sample Eq. 3 signature rows,
+        so the engine can take a padding-masked mean
+
+    on the host (batch assembly, matching the sequential RNG streams):
+      * ``client_batches(ds, seed, epochs)``  numpy (xb (T, ...), yb (T, ...))
+      * ``eval_single(ds, limit, kind)``  numpy (x (n, ...), y, n) for one
+        shard; ``kind`` is "eval" or "sig"
+      * ``summarize_losses(losses, steps, epochs)``  the sequential path's
+        per-client loss contract
+      * ``evaluate_one(params, ds, limit)``  sequential single-model eval
+        (the small-M path of ``evaluate_many``)
+    """
+
+    backend_cls: Type = None
+    # up to this many candidate models, evaluate_many runs the sequential
+    # per-model program (and its mean); more take the masked mean
+    eval_many_min_batch: int = 1
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.cfg = backend.cfg
+
+    @property
+    def default_epochs(self) -> int:
+        raise NotImplementedError
+
+    def sum_loss(self, stacked, x, y, w, denom):
+        raise NotImplementedError
+
+    def loss_denom(self, w, y):
+        raise NotImplementedError
+
+    def eval_terms(self, params, xs, ys, ms):
+        raise NotImplementedError
+
+    def eval_shared_terms(self, params, x, y, mask):
+        raise NotImplementedError
+
+    def masked_eval(self, params, xs, ys, ms):
+        """Masked accuracy on one shard: the sum-form terms, then a true
+        division."""
+        num, den = self.eval_terms(params, xs, ys, ms)
+        return num / den.clamp_min(1.0)
+
+    def eval_shared(self, params, x, y, mask):
+        """ONE model on K stacked shards, via the sum-form terms."""
+        num, den = self.eval_shared_terms(params, x, y, mask)
+        return num / den.clamp_min(1.0)
+
+    def sample_signature(self, params, xs):
+        raise NotImplementedError
+
+    def client_batches(self, ds, seed: int, epochs: int):
+        raise NotImplementedError
+
+    def eval_single(self, ds, limit: int, kind: str):
+        raise NotImplementedError
+
+    def summarize_losses(self, losses: np.ndarray, steps: Sequence[int],
+                         epochs: int) -> List[float]:
+        raise NotImplementedError
+
+    def evaluate_one(self, params, ds, limit: int) -> float:
+        raise NotImplementedError
+
+
+class CNNCohortPrograms(CohortPrograms):
+    """VGG-family programs (the paper's experimental setup).
+
+    Training runs the K stacked clients' forward as one program of grouped
+    convolutions; validation and signatures keep the conv-form forward per
+    client.
+    """
+
+    backend_cls = CNNBackend
+
+    @property
+    def default_epochs(self) -> int:
+        return self.backend.local_epochs
+
+    def _stacked_forward(self, stacked, x):
+        """``cnn_forward`` of K stacked models as one program: x (K, B, H,
+        W, C) -> logits (K, B, n_classes).  The K clients' feature maps
+        ride side by side in the channels of one (B, K*C, H, W)
+        channels-last tensor, so each conv layer is one grouped
+        convolution (:func:`_grouped_conv`) and each pooling one call; the
+        last map is split back per client and flattened in NHWC order, and
+        the dense layers are batched products."""
+        k, b, hh, ww, c = x.shape
+        x = x.permute(1, 2, 3, 0, 4).reshape(b, hh, ww, k * c)
+        x = x.permute(0, 3, 1, 2)            # NCHW view, channels-last
+        for stack_params in stacked["convs"]:
+            for p in stack_params:
+                x = torch.relu(_grouped_conv(x, p["w"], p["b"]))
+            x = F.max_pool2d(x, 2)
+        _, kc, hh, ww = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, hh, ww, k, kc // k)
+        x = x.permute(3, 0, 1, 2, 4).reshape(k, b, -1)
+        for p in stacked["fcs"][:-1]:
+            x = torch.relu(torch.baddbmm(p["b"][:, None], x, p["w"]))
+        p = stacked["fcs"][-1]
+        return torch.baddbmm(p["b"][:, None], x, p["w"])
+
+    def sum_loss(self, stacked, x, y, w, denom):
+        """(K,) row-weighted cross-entropy sums over ``denom``, each client
+        on its own batch."""
+        logits = self._stacked_forward(stacked, x)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+        return ((logz - ll) * w).sum(dim=-1) / denom
+
+    def loss_denom(self, w, y):
+        return w.sum()
+
+    def eval_terms(self, params, xs, ys, ms):
+        """Masked #correct terms on one shard, conv-form forward."""
+        from repro_torch.models import cnn as cnn_mod
+        logits, _ = cnn_mod.cnn_forward(params, xs, self.cfg)
+        correct = (logits.argmax(-1) == ys).float()
+        return (correct * ms).sum(), ms.sum()
+
+    def eval_shared_terms(self, params, x, y, mask):
+        """ONE model on K padded shards (the publisher's monitor): the K
+        shards fold into the batch dimension of one conv-form forward."""
+        from repro_torch.models import cnn as cnn_mod
+        k, n = y.shape
+        logits, _ = cnn_mod.cnn_forward(params, x.flatten(0, 1), self.cfg)
+        correct = (logits.argmax(-1).reshape(k, n) == y).float() * mask
+        return correct.sum(dim=1), mask.sum(dim=1)
+
+    def sample_signature(self, params, x):
+        """Per-sample Eq. 3 zero fractions (N, channels), conv-form, with an
+        early exit: only the convs up to ``signature_layer`` run.  The rows
+        come from the signature kernel, one launch."""
+        cfg = self.cfg
+        x = x.permute(0, 3, 1, 2)            # NCHW view, channels-last
+        conv_idx = 0
+        for stack_params in params["convs"]:
+            for p in stack_params:
+                x = F.conv2d(x, p["w"].permute(3, 2, 0, 1), padding="same")
+                x = F.relu(x + p["b"][:, None, None])
+                if conv_idx == cfg.signature_layer:
+                    return ops.signature_per_channel(x.permute(0, 2, 3, 1),
+                                                     tau=0.0)
+                conv_idx += 1
+            x = F.max_pool2d(x, 2)
+        raise ValueError(f"signature_layer {cfg.signature_layer} out of "
+                         f"range for {cfg.name}")
+
+    def client_batches(self, ds, seed: int, epochs: int):
+        """``CNNBackend.train_local``'s exact batches: the same numpy RNG
+        stream per seed."""
+        rng = np.random.default_rng(seed)
+        xs, ys = zip(*(self.backend._batches(ds, rng) for _ in range(epochs)))
+        return np.concatenate(xs), np.concatenate(ys)
+
+    def eval_single(self, ds, limit: int, kind: str):
+        n = min(len(ds), limit)
+        return ds.x[:n], ds.y[:n], n
+
+    def summarize_losses(self, losses, steps, epochs) -> List[float]:
+        """Sequential contract: mean loss over the client's LAST epoch."""
+        per_epoch = [s // epochs for s in steps]
+        return [float(np.mean(losses[i, s - per_epoch[i]:s]))
+                for i, s in enumerate(steps)]
+
+    def evaluate_one(self, params, ds, limit: int) -> float:
+        return self.backend.evaluate(params, ds, limit)
+
+
+_PROGRAM_REGISTRY: List[Type[CohortPrograms]] = []
+
+
+def register_cohort_programs(programs_cls: Type[CohortPrograms]) -> None:
+    """Register a program suite; later registrations win on overlap."""
+    if not isinstance(getattr(programs_cls, "backend_cls", None), type):
+        raise TypeError(
+            f"{programs_cls.__name__}.backend_cls must name the backend "
+            "class the suite batches for")
+    _PROGRAM_REGISTRY.insert(0, programs_cls)
+
+
+register_cohort_programs(CNNCohortPrograms)
+
+
+def _programs_for(backend) -> Optional[Type[CohortPrograms]]:
+    for cls in _PROGRAM_REGISTRY:
+        if isinstance(backend, cls.backend_cls):
+            return cls
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+class CohortBackend:
+    """Batched train/eval/signature over a stacked K-client tree, on the
+    backend's device.  The backend-specific programs come from the
+    :class:`CohortPrograms` registry."""
+
+    def __init__(self, backend, eval_cache_entries: int = 64,
+                 overlap: bool = True):
+        programs_cls = _programs_for(backend)
+        if programs_cls is None:
+            raise TypeError(
+                f"no CohortPrograms registered for {type(backend).__name__}; "
+                f"known: {[c.backend_cls.__name__ for c in _PROGRAM_REGISTRY]}")
+        self.programs = programs_cls(backend)
+        self.backend = backend
+        self.device = backend.device
+        self.cfg = backend.cfg
+        self.opt = backend.opt
+        # LRU over eval/signature shards on the device: a long-running
+        # simulator sweeps many shards; the cap bounds the memory they hold
+        self._eval_data_cache: "OrderedDict" = OrderedDict()
+        self.eval_cache_entries = max(int(eval_cache_entries), 1)
+        # host-side window assembly: prefetched on a background thread, or
+        # inline when overlap is off
+        self.assembler = WindowAssembler(self.programs, self.device,
+                                         overlap=overlap)
+
+    @staticmethod
+    def supports(backend) -> bool:
+        return _programs_for(backend) is not None
+
+    # -- batched programs ---------------------------------------------------
+
+    def _train(self, stacked, win):
+        """Local SGD of the K stacked clients over the window's batches
+        ``win.xb`` (K, T, B, ...): one batched step per tick.  A client
+        whose steps have run out (``t >= win.steps[k]``) still computes on
+        its zero padding, and its parameter and momentum rows are put back
+        after the update, so masked steps keep the old state exactly (the
+        optimizer advances its momentum in place).  A uniform window takes
+        no masked step.  Returns the trained tree and (K, T) losses, 0 on
+        masked steps."""
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                          stacked)
+        opt_state = self.opt.init(params)
+        state = tree_leaves(params) + tree_leaves(opt_state.get("mu", []))
+        rows = torch.ones(win.yb.shape[2], device=win.yb.device)
+        denom = self.programs.loss_denom(rows, win.yb[0, 0])
+        losses = []
+        for t in range(win.xb.shape[1]):
+            loss = self.programs.sum_loss(params, win.xb[:, t], win.yb[:, t],
+                                          rows, denom)
+            loss.sum().backward()
+            done = [k for k, s in enumerate(win.steps) if t >= s]
+            with torch.no_grad():
+                old = [leaf[k].clone() for k in done for leaf in state]
+                grads = tree_map(lambda p: p.grad, params)
+                updates, opt_state = self.opt.update(grads, opt_state, params)
+                apply_updates(params, updates)
+                _tree_select(done, state, old)
+            for p in tree_leaves(params):
+                p.grad = None
+            losses.append(loss.detach())
+        losses = torch.stack(losses, dim=1).cpu().numpy()
+        losses[win.mask.numpy() == 0] = 0.0
+        return tree_map(lambda p: p.detach(), params), losses
+
+    def _eval_arrays(self, datasets: Sequence, limit: int,
+                     kind: str = "eval"):
+        """(x, y, mask) on the device for a tuple of shards, each padded to
+        the call's largest.  Per-dataset LRU cache of the unpadded shards:
+        the monitor's full val-set sweep and a window's subset reuse the
+        same buffers, and the cache stays bounded at
+        ``eval_cache_entries``."""
+        singles = []
+        for ds in datasets:
+            key = (id(ds), limit, kind)
+            hit = self._eval_data_cache.get(key)
+            if hit is None:
+                x1, y1, n = self.programs.eval_single(ds, limit, kind)
+                # hold ds so the id() key stays unique for our lifetime
+                hit = (ds, torch.from_numpy(np.ascontiguousarray(x1))
+                       .to(self.device),
+                       torch.from_numpy(np.ascontiguousarray(y1))
+                       .to(self.device), n)
+                self._eval_data_cache[key] = hit
+            else:
+                self._eval_data_cache.move_to_end(key)
+            singles.append(hit)
+        # evict AFTER the batch, clamped to the call's own width, so that
+        # one wide sweep cannot evict its own entries mid-call
+        cap = max(self.eval_cache_entries, len(datasets))
+        while len(self._eval_data_cache) > cap:
+            self._eval_data_cache.popitem(last=False)
+        target = max(s[3] for s in singles)
+        x = torch.stack([pad_leading(s[1], target) for s in singles])
+        y = torch.stack([pad_leading(s[2], target) for s in singles])
+        rows = torch.arange(target, device=self.device)
+        mask = torch.stack([(rows < s[3]).float() for s in singles])
+        return x, y, mask
+
+    # -- public API ----------------------------------------------------------
+
+    def prefetch_window(self, datasets: Sequence, seeds: Sequence[int],
+                        epochs: Optional[int] = None) -> None:
+        """Start assembling the given window's training batch on the
+        assembler's background thread (sampling, stacking, padding, the
+        copy to the card), so it overlaps whatever the card is running.
+        The matching ``train_cohort_stacked`` collects it; a mismatched or
+        absent prefetch assembles inline, with identical results."""
+        self.assembler.prefetch(datasets, seeds,
+                                epochs or self.programs.default_epochs)
+
+    def train_cohort_stacked(self, stacked_params, datasets, seeds,
+                             epochs: Optional[int] = None):
+        """Train K clients as one program from ``stacked_params`` (left
+        untouched); returns (stacked params, losses).  ``losses[k]`` matches
+        the sequential path's contract (``summarize_losses``)."""
+        epochs = epochs or self.programs.default_epochs
+        k = tree_leaves(stacked_params)[0].shape[0]
+        if k != len(datasets):
+            raise ValueError(f"{k} stacked models for {len(datasets)} shards")
+        win = self.assembler.take(datasets, seeds, epochs)
+        new_params, losses = self._train(stacked_params, win)
+        return new_params, self.programs.summarize_losses(losses, win.steps,
+                                                          epochs)
+
+    def train_cohort(self, params_list, datasets, seeds,
+                     epochs: Optional[int] = None):
+        stacked, losses = self.train_cohort_stacked(
+            tree_stack(params_list), datasets, seeds, epochs)
+        return tree_unstack(stacked), losses
+
+    @torch.inference_mode()
+    def evaluate_cohort_stacked(self, stacked_params, datasets,
+                                limit: int = 512) -> List[float]:
+        """K models, each on its own (ragged) shard, one after another."""
+        x, y, mask = self._eval_arrays(datasets, limit)
+        accs = [self.programs.masked_eval(_client(stacked_params, k),
+                                          x[k], y[k], mask[k])
+                for k in range(len(datasets))]
+        return torch.stack(accs).cpu().tolist()
+
+    def evaluate_cohort(self, params_list, datasets,
+                        limit: int = 512) -> List[float]:
+        return self.evaluate_cohort_stacked(tree_stack(params_list), datasets,
+                                            limit)
+
+    @torch.inference_mode()
+    def evaluate_shared(self, params, datasets, limit: int = 512
+                        ) -> List[float]:
+        """One model on K shards in one forward (the publisher's monitor)."""
+        x, y, mask = self._eval_arrays(datasets, limit)
+        return self.programs.eval_shared(params, x, y, mask).cpu().tolist()
+
+    @torch.inference_mode()
+    def evaluate_many(self, params_list, ds, limit: int = 512) -> List[float]:
+        """M candidate models on one validation shard (tip selection).  Up
+        to ``eval_many_min_batch`` models take the backend's own program
+        and its mean; more take the masked mean, as in the reference."""
+        if len(params_list) <= self.programs.eval_many_min_batch:
+            return [self.programs.evaluate_one(p, ds, limit)
+                    for p in params_list]
+        x, y, mask = self._eval_arrays([ds], limit)
+        accs = [self.programs.masked_eval(p, x[0], y[0], mask[0])
+                for p in params_list]
+        return torch.stack(accs).cpu().tolist()
+
+    @torch.inference_mode()
+    def signature_cohort_stacked(self, stacked_params, datasets,
+                                 limit: int = 128) -> np.ndarray:
+        """(K, dims) Eq. 3 signatures: per client, the per-sample rows (one
+        kernel launch) and their masked mean."""
+        x, _, mask = self._eval_arrays(datasets, limit, kind="sig")
+        sigs = [_masked_mean(self.programs.sample_signature(
+                    _client(stacked_params, k), x[k]), mask[k])
+                for k in range(len(datasets))]
+        return torch.stack(sigs).cpu().numpy()
+
+    def signature_cohort(self, params_list, datasets,
+                         limit: int = 128) -> np.ndarray:
+        return self.signature_cohort_stacked(tree_stack(params_list),
+                                             datasets, limit)
+
+
+def build_cohort_engine(backend, *, cohort_size: int, mesh="auto",
+                        overlap: bool = True) -> Optional[CohortBackend]:
+    """The engine for any registered backend family on one device, or
+    ``None`` when cohort execution is off (``cohort_size <= 1``) or the
+    backend has no registered program suite: callers then run the
+    sequential path."""
+    single_device(mesh)
+    if cohort_size <= 1 or not CohortBackend.supports(backend):
+        return None
+    return CohortBackend(backend, overlap=overlap)

@@ -675,3 +675,112 @@ def test_xlstm_backend_evaluates_batch_43(card):
     differ = float((k_logits.argmax(-1) != p_logits.argmax(-1)).float()
                    .mean())
     assert abs(acc - plain_acc) <= differ + 1e-6
+
+
+def _cohort_world(sizes=(40, 200, 90), seed=11):
+    """VGG_TINY's ragged shards for the cohort engine (different batch
+    counts per client, so the window has masked steps)."""
+    from repro_torch.data.synthetic import Dataset, split_811
+    train = split_811(make_benchmark_dataset("mnist", 900))["train"]
+    rng = np.random.default_rng(seed)
+    shards = []
+    for s in sizes:
+        idx = rng.choice(len(train), size=s, replace=False)
+        shards.append(Dataset(train.x[idx], train.y[idx]))
+    return shards
+
+
+def test_cohort_train_equals_sequential_on_card(card):
+    """The cohort's batched products against ``train_local``'s
+    convolutions on the card, within the reference's 5e-3, on ragged
+    shards; and the engine's validation against ``evaluate``."""
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.cohort import CohortBackend
+    backend = CNNBackend(vgg_for("mnist"), local_epochs=2, batch_size=32,
+                         device=card)
+    shards = _cohort_world()
+    params = [backend.init(torch.Generator().manual_seed(i))
+              for i in range(3)]
+    seeds = [7, 8, 9]
+    engine = CohortBackend(backend)
+    coh, losses = engine.train_cohort(params, shards, seeds)
+    for k, (p, ds, s) in enumerate(zip(params, shards, seeds)):
+        solo, loss = backend.train_local(p, ds, seed=s)
+        for a, b in zip(tree_leaves(solo), tree_leaves(coh[k])):
+            assert b.is_cuda
+            assert torch.allclose(a, b, rtol=0, atol=5e-3), f"client {k}"
+        assert abs(losses[k] - loss) < 5e-2
+    accs = engine.evaluate_cohort(coh, shards)
+    for acc, model, ds in zip(accs, coh, shards):
+        assert abs(acc - backend.evaluate(model, ds)) <= 1e-6
+
+
+def test_cohort_signatures_launch_once_per_client_on_vec(card):
+    """One signature launch per client of the window, every one on the vec
+    route, no plain call; rows equal to the sequential path's."""
+    from repro_torch.fl.cohort import CohortBackend
+    from repro_torch.data.synthetic import make_image_dataset
+    backend = CNNBackend(vgg_for("cifar10", tiny=False), device=card)
+    ds = make_image_dataset("cifar10", 400, 10, 32, 3, 0.55)
+    shards = [ds, type(ds)(ds.x[:300], ds.y[:300]),
+              type(ds)(ds.x[:90], ds.y[:90])]
+    params = [backend.init(torch.Generator().manual_seed(i))
+              for i in range(3)]
+    engine = CohortBackend(backend)
+    before = (sig.launches, sig.launches_vec, sig.launches_strided)
+    plain = sig.signature_counts_plain
+    sig.signature_counts_plain = None          # any plain call fails
+    try:
+        got = engine.signature_cohort(params, shards)
+    finally:
+        sig.signature_counts_plain = plain
+    after = (sig.launches, sig.launches_vec, sig.launches_strided)
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 0]
+    for k, (p, d) in enumerate(zip(params, shards)):
+        want = backend.signature(p, d)
+        assert got[k].shape == want.shape == (64,)
+        np.testing.assert_allclose(got[k], want, rtol=1e-6, atol=0)
+
+
+def test_cohort_signature_launch_failure_raises(card, monkeypatch):
+    """A failed kernel launch inside the window's signatures raises; no
+    plain version takes over."""
+    from repro_torch.fl.cohort import CohortBackend
+
+    class Failing:
+        def repro_signature_counts(self, *args):
+            return 700
+
+        def repro_cuda_error_string(self, err):
+            return b"injected failure"
+
+    backend = CNNBackend(vgg_for("mnist"), device=card)
+    shards = _cohort_world()
+    params = [backend.init(torch.Generator().manual_seed(i))
+              for i in range(3)]
+    engine = CohortBackend(backend)
+    monkeypatch.setattr(sig, "_library", lambda: Failing())
+    before = sig.launches
+    with pytest.raises(RuntimeError, match="injected failure"):
+        engine.signature_cohort(params, shards)
+    assert sig.launches == before
+
+
+def test_prefetched_window_equals_inline_on_card(card):
+    """A window assembled on the worker thread and copied on the
+    assembler's stream equals one assembled inline, bit for bit, and is
+    ready on the consumer's stream."""
+    from repro_torch.fl.cohort import CohortBackend
+    backend = CNNBackend(vgg_for("mnist"), local_epochs=2, batch_size=32,
+                         device=card)
+    shards = _cohort_world()
+    early = CohortBackend(backend, overlap=True).assembler
+    inline = CohortBackend(backend, overlap=False).assembler
+    early.prefetch(shards, [3, 4, 5], 2)
+    got = early.take(shards, [3, 4, 5], 2)
+    want = inline.take(shards, [3, 4, 5], 2)
+    assert got.ready is not None and got.xb.is_cuda
+    assert got.steps == want.steps and not got.uniform
+    for name in ("xb", "yb", "mask"):
+        assert torch.equal(getattr(got, name), getattr(want, name))
+    early.close()

@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.cnn import VGG_TINY  # noqa: E402
 from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator  # noqa: E402
 from repro_torch.fl.backend import CNNBackend, LMBackend  # noqa: E402
+from repro_torch.fl.cohort import build_cohort_engine  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mlstm  # noqa: E402
@@ -50,7 +51,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert {"attention.py", "transformer.py", "layers.py",
             "flash_attention.py", "internlm2_1_8b.py", "mamba.py",
             "selective_scan.py", "jamba_v01_52b.py", "xlstm.py",
-            "mlstm.py", "slstm.py", "xlstm_125m.py"} <= names
+            "mlstm.py", "slstm.py", "xlstm_125m.py", "cohort.py",
+            "pipeline.py"} <= names
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         f"{name}.cu" for name in build.SOURCES}
@@ -774,7 +776,7 @@ def test_nvcc_missing_raises(monkeypatch):
         build._nvcc()
 
 
-@pytest.mark.parametrize("name,value", [("cohort_size", 4), ("mesh", None),
+@pytest.mark.parametrize("name,value", [("mesh", "2x2"),
                                         ("scenario", "poison"),
                                         ("serve_every", 5.0),
                                         ("serving", object())])
@@ -783,6 +785,25 @@ def test_unported_options_raise(name, value):
     setattr(cfg, name, value)
     with pytest.raises(NotImplementedError, match=name):
         DagAflCoordinator(object(), [{}, {}], None, cfg)
+
+
+@pytest.mark.parametrize("mesh,ok", [(None, True), ("auto", True),
+                                     ("4x2", False), (("auto", 2), False),
+                                     ("8", False), ("AUTO", False)])
+def test_mesh_takes_one_card_only(mesh, ok):
+    """The cohort engine runs on one card: ``mesh`` is None or "auto", as
+    the reference's one-device meshes; its meshes are not ported."""
+    cfg = DagAflConfig(n_clients=2, mesh=mesh, cohort_size=2)
+    data = [{"train": None, "val": None}] * 2
+    backend = CNNBackend(VGG_TINY, device="cpu")
+    if ok:
+        assert DagAflCoordinator(backend, data, None, cfg).cohort is not None
+        assert build_cohort_engine(backend, cohort_size=2, mesh=mesh)
+    else:
+        with pytest.raises(NotImplementedError, match="mesh"):
+            DagAflCoordinator(backend, data, None, cfg)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            build_cohort_engine(backend, cohort_size=2, mesh=mesh)
 
 
 def test_build_dir_is_ignored_by_git():
