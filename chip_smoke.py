@@ -45,15 +45,30 @@ Phases, each printing one JSON line:
    forward on a small input;
 5. the CNN cohort path: the same world and loop with ``cohort_size=4`` and
    ``cohort_window=2.0``, so that round starts in one window are trained,
-   validated and signed together on ``fl.cohort.CohortBackend`` (the
-   im2col products over the stacked clients, one signature launch per
-   client, every one on the vec route), after a warm-up window, with the
+   validated and signed together on ``fl.cohort.CohortBackend`` (grouped
+   convolutions over the stacked clients, one signature launch per
+   client, every one on the vec route), after warm-up windows, with the
    launch counts set to 0 just before and read just after; then one
    window's aggregates and seeds trained again by ``train_local``, its
    models validated by ``evaluate`` and signed by ``signature``, and held
    against the window's results: trained leaves within the reference's
    5e-3, the same correct counts, signatures within 1/1024 per channel;
-6. the LM path: the same loop over four internlm2-1.8b clients at full
+6. the baselines: the paper's competitors (``fl.baselines.ALGORITHMS``,
+   all ten) over the same four clients for 2 rounds from one genesis,
+   then fedavg, fedasync, fedat, csafl, DAG-FL and DAG-AFL again on the
+   cohort engine, each run counted on its own (wall and card-side call
+   seconds, client rounds, simulated time, accuracy, peak memory); the
+   expected round counts, at least one window per cohort run, the DAG
+   runs' ledgers verified and every signature launch on the vec route;
+7. the scenarios: DAG-AFL on the cohort engine for 3 rounds, honest and
+   under each of ``fl.scenarios.SCENARIOS`` (poison, lazy, dp, straggler,
+   dropout), and poison on fedavg and fedasync beside their honest runs:
+   each scenario's event counter nonzero, tampered metadata caught exactly
+   by ``detect_tampered`` and flagged by the incremental audit, the DAG
+   quarantine metrics and the accuracy change; then the update transform
+   on VGG16's own leaves (a window of 4 equal to the single calls bit for
+   bit, the unaffected row kept, the DP noise's moments within 1%);
+8. the LM path: the same loop over four internlm2-1.8b clients at full
    width (depth cut to 4 of 24 layers, token streams drawn from a
    2,048-token sub-vocabulary), driven through ``LMBackend``, with the
    launch counts set to 0 just before and read just after (every flash
@@ -61,14 +76,14 @@ Phases, each printing one JSON line:
    on this path and the next two); and the
    kernel forward of the final global model held against its
    plain-attention forward on the card; then one profiled backend round;
-7. the hybrid path: the same loop over three jamba-v0.1-52b clients at
+9. the hybrid path: the same loop over three jamba-v0.1-52b clients at
    full width, depth cut to one Mamba and one attention layer with dense
    feed-forward layers (the MoE layers are not ported), with the launch
    counts set to 0 just before and read just after; the kernel forward
    (selective scan and flash attention) held against the plain forward
    (the model's chunked scan and dense attention) on the card; then one
    profiled backend round;
-8. the xLSTM path: the same loop over three xlstm-125m clients at full
+10. the xLSTM path: the same loop over three xlstm-125m clients at full
    width and depth ([mLSTM x3, sLSTM] x3, 134,421,576 parameters), the
    launch counts set to 0 just before and read just after; the kernel
    forward (chunkwise mLSTM and sLSTM kernels) held against the plain
@@ -907,7 +922,8 @@ def reference_check(cnn, cfg, dev, params) -> dict:
 
 def cnn_world():
     """VGG16 at full width and the CNN paths' four clients: synthetic
-    CIFAR-10 at 32x32, 8:1:1, Dirichlet beta = 1.0."""
+    CIFAR-10 at 32x32, 8:1:1, Dirichlet beta = 1.0.  Returns the config,
+    the clients' shards, the test set and the pooled train set."""
     from repro_torch.configs.cnn import vgg_for
     from repro_torch.data.partition import partition_dirichlet
     from repro_torch.data.synthetic import make_image_dataset, split_811
@@ -920,7 +936,8 @@ def cnn_world():
         s = split_811(p, seed=1)
         client_data.append({"train": s["train"], "val": s["val"],
                             "test": s["test"]})
-    return vgg_for("cifar10", tiny=False), client_data, splits["test"]
+    return (vgg_for("cifar10", tiny=False), client_data, splits["test"],
+            splits["train"])
 
 
 def phase_main_path(kern, dev) -> dict:
@@ -934,7 +951,7 @@ def phase_main_path(kern, dev) -> dict:
 
     sig = kern["sig"]
     others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
-    cfg, client_data, test = cnn_world()
+    cfg, client_data, test, _ = cnn_world()
     backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
     check(backend.device.type == "cuda", "backend is not on the card")
     # warm-up outside the counted run: cuDNN plans, allocator pools
@@ -1167,7 +1184,7 @@ def phase_cohort_path(kern, dev, main_s_per_round: float) -> dict:
 
     sig = kern["sig"]
     others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
-    cfg, client_data, test = cnn_world()
+    cfg, client_data, test, _ = cnn_world()
     backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
     check(backend.device.type == "cuda", "cohort_path: backend is not on "
           "the card")
@@ -1351,6 +1368,463 @@ def phase_cohort_path(kern, dev, main_s_per_round: float) -> dict:
          signature_routes=routes, verify_full_dag=why, parity=parity,
          train_step=forms)
     return {"signature": launches, "signature_routes": routes}
+
+
+# the calls the FL phases time: the backend's and the cohort engine's
+BACKEND_CALLS = ("train_local", "evaluate", "signature")
+ENGINE_CALLS = ("train_cohort_stacked", "evaluate_cohort_stacked",
+                "signature_cohort_stacked", "evaluate_many",
+                "evaluate_shared", "perturb_cohort_stacked")
+# the baselines' (rounds, local trainings) at 4 clients and max_rounds 2:
+# fedat and csafl count tier arrivals (3 tiers x 2 rounds); fedasync counts
+# arrivals, and the 3 rounds in flight when the 8th arrives still arrive;
+# the DAG runs count publishes; centralized trains on the pooled set
+BASELINE_ROUNDS = {"centralized": (2, 2), "independent": (2, 8),
+                   "fedavg": (2, 8), "fedasync": (11, 11), "fedat": (6, 8),
+                   "csafl": (6, 8), "fedhisyn": (2, 8), "scalesfl": (2, 8),
+                   "dagfl": (8, 8), "dagafl": (8, 8)}
+COHORT_BASELINES = ("fedavg", "fedasync", "fedat", "csafl", "dagfl",
+                    "dagafl")
+SCENARIO_ORDER = ("poison", "lazy", "dp", "straggler", "dropout")
+# each scenario's primary event counter (benchmarks/robustness.py's
+# EVENT_KEYS): the phase requires it nonzero
+EVENT_KEYS = {"poison": "updates_scaled", "lazy": "updates_lazy",
+              "dp": "updates_noised", "straggler": "straggler_draws",
+              "dropout": "publishes_dropped"}
+
+
+class CallMeter:
+    """Counts and host seconds of the backend's and the cohort engine's
+    calls over one run, the client rounds trained (``train_local`` calls
+    and the rows of ``train_cohort_stacked``), the signatures taken (the
+    same for ``signature`` and ``signature_cohort_stacked``), the windows
+    given to the engine, the coordinators the run built, and whether every
+    model evaluated lay on the card.  Each call ends in a host copy, so a
+    host clock around it covers its device work; the transform returns
+    tensors, so the meter synchronizes after it.  A call made inside
+    another is counted, not timed twice."""
+
+    def __init__(self, backend, sig):
+        import torch
+        from repro_torch.core.aggregate import tree_leaves
+        from repro_torch.core.coordinator import DagAflCoordinator
+        from repro_torch.fl.cohort import CohortBackend
+
+        self.saved, self.depth = [], 0
+        self.reset()
+
+        def on_card(*trees):
+            self.models_checked += 1
+            if not all(t.is_cuda for tree in trees
+                       for t in tree_leaves(tree)):
+                self.off_card += 1
+
+        def rows_trained(args, out):
+            self.client_rounds += len(args[2])
+            self.windows.append(len(args[2]))
+
+        hooks = {
+            "train_local": lambda a, o: setattr(
+                self, "client_rounds", self.client_rounds + 1),
+            "evaluate": lambda a, o: on_card(a[0]),
+            "signature": lambda a, o: setattr(
+                self, "signature_calls", self.signature_calls + 1),
+            "train_cohort_stacked": rows_trained,
+            "evaluate_shared": lambda a, o: on_card(a[1]),
+            "signature_cohort_stacked": lambda a, o: setattr(
+                self, "signature_calls", self.signature_calls + len(a[2])),
+            "perturb_cohort_stacked": lambda a, o: torch.cuda.synchronize(),
+        }
+        for name in BACKEND_CALLS:
+            self._wrap(backend, name, hooks.get(name))
+        for name in ENGINE_CALLS:
+            self._wrap(CohortBackend, name, hooks.get(name))
+        self._wrap(sig, "signature_counts_plain", None, "plain")
+        self._wrap(DagAflCoordinator, "run",
+                   lambda a, o: self.coords.append(a[0]), "coordinator_run")
+
+    def reset(self) -> None:
+        self.calls = {n: 0 for n in BACKEND_CALLS + ENGINE_CALLS
+                      + ("plain", "coordinator_run")}
+        self.seconds = {n: 0.0 for n in BACKEND_CALLS + ENGINE_CALLS}
+        self.client_rounds = self.signature_calls = 0
+        self.models_checked = self.off_card = 0
+        self.windows, self.coords = [], []
+
+    def _wrap(self, owner, name, hook, key=None) -> None:
+        inner = getattr(owner, name)
+        key = key or name
+
+        timed = key in self.seconds
+
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            self.depth += timed
+            try:
+                out = inner(*args, **kwargs)
+            finally:
+                self.depth -= timed
+            if hook is not None:
+                hook(args, out)
+            self.calls[key] += 1
+            if timed and self.depth == 0:
+                self.seconds[key] += time.perf_counter() - t
+            return out
+
+        self.saved.append((owner, name, inner))
+        setattr(owner, name, wrapper)
+
+    def close(self) -> None:
+        for owner, name, inner in reversed(self.saved):
+            setattr(owner, name, inner)
+
+
+def fl_run(meter, kern, label, fn, *args, **kwargs) -> tuple:
+    """One run of ``fn`` (a baseline or the coordinator), with every
+    kernel's launch count and the meter set to 0 just before it and read
+    just after: (result, record).  Earlier runs' garbage (the coordinators'
+    stores reference themselves) is collected first; ``live_bytes`` is
+    what stays allocated then (the genesis, a kept reference run), and
+    ``peak_bytes`` that plus this run's own peak."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+
+    sig = kern["sig"]
+    others = [kern[k] for k in ("fa", "ss", "ml", "sl")]
+    meter.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    for mod in [sig] + others:                     # counts start here
+        mod.launches = 0
+    sig.launches_vec = sig.launches_strided = 0
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sig.launches                        # and are read here
+    routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
+    other_launches = [mod.launches for mod in others]
+    seconds = dict(meter.seconds)
+    seconds["rest"] = wall - sum(seconds.values())
+    accs = [result.final_accuracy, result.best_accuracy]
+    accs += [a for _, a in result.history]
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+          f"{label}: accuracies {accs}")
+    check(meter.models_checked > 0 and meter.off_card == 0,
+          f"{label}: {meter.off_card} of {meter.models_checked} models "
+          f"evaluated off the card")
+    check(meter.calls["plain"] == 0, f"{label}: ran the plain signature")
+    check(not any(other_launches), f"{label}: launched flash, scan or "
+          f"xLSTM kernels {other_launches}")
+    record = {"run": label, "rounds": result.rounds,
+              "client_rounds": meter.client_rounds, "wall_s": wall,
+              "s_per_client_round": wall / max(meter.client_rounds, 1),
+              "sim_time": result.sim_time,
+              "final_accuracy": result.final_accuracy,
+              "best_accuracy": result.best_accuracy,
+              "live_bytes": live,
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "calls": dict(meter.calls), "seconds": seconds,
+              "windows": list(meter.windows),
+              "cohorts_dispatched": result.extra.get(
+                  "cohorts_dispatched", sum(n > 1 for n in meter.windows)),
+              "signature_launches": launches, "signature_routes": routes}
+    if meter.coords:
+        coord = meter.coords[-1]
+        check(len(meter.coords) == 1, f"{label}: {len(meter.coords)} "
+              f"coordinator runs")
+        check(all(p.is_cuda for tx in coord.ledger.transactions()
+                  for p in tree_leaves(coord.store.get(tx.model_ref))),
+              f"{label}: a model left the card")
+        # one launch per signature: a client of a window, or a round alone
+        check(launches == meter.signature_calls,
+              f"{label}: signature kernel launched {launches} times for "
+              f"{meter.signature_calls} signatures")
+        check(routes == {"vec": launches, "strided": 0},
+              f"{label}: signature launches by route {routes}: every one "
+              f"of the {launches} must take the vec kernel")
+        record["chain_len"] = result.extra["chain_len"]
+    else:
+        check(launches == 0, f"{label}: {launches} signature launches "
+              f"outside a DAG run")
+    return result, record
+
+
+def dag_checks(label, coord, result, tampered=()) -> str:
+    """The DAG runs' ledger checks: chain_len == 1 + rounds; without
+    tampering no failed path audit and ``verify_full_dag`` ok, with it
+    ``verify_full_dag`` failing."""
+    from repro_torch.core.verify import verify_full_dag
+    ok, why = verify_full_dag(coord.ledger)
+    check(result.extra["chain_len"] == 1 + result.rounds,
+          f"{label}: chain_len {result.extra['chain_len']} != 1 + "
+          f"{result.rounds}")
+    if tampered:
+        check(not ok, f"{label}: verify_full_dag passed a ledger with "
+              f"{len(tampered)} tampered txs")
+    else:
+        check(result.extra["verify_failures"] == 0,
+              f"{label}: path verification failed")
+        check(ok, f"{label}: verify_full_dag: {why}")
+    return why
+
+
+def phase_baselines_path(kern, dev) -> dict:
+    """The paper's competitors at full VGG16 width: all ten ``ALGORITHMS``
+    (4 clients, 2 rounds, convergence by patience off, one genesis drawn
+    once and given to every run), then the six the reference batches again
+    on the cohort engine (``cohort_size=4``, ``cohort_window=2.0``)."""
+    import torch
+    from repro_torch.core.simulator import CostModel
+    from repro_torch.fl import ALGORITHMS, FLConfig
+    from repro_torch.fl.backend import CNNBackend
+
+    t_phase = time.perf_counter()
+    sig = kern["sig"]
+    cfg, client_data, test, pooled = cnn_world()
+    backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
+    check(backend.device.type == "cuda", "baselines_path: backend is not "
+          "on the card")
+    genesis = backend.init(torch.Generator().manual_seed(0))
+    meter = CallMeter(backend, sig)
+    records, launches, vec, strided = [], 0, 0, 0
+    try:
+        for cohort in (1, 4):
+            names = sorted(ALGORITHMS) if cohort == 1 else COHORT_BASELINES
+            for name in names:
+                label = f"{name}" + ("" if cohort == 1 else "@cohort4")
+                fl = FLConfig(n_clients=4, max_rounds=2, local_epochs=1,
+                              target_accuracy=None, patience=10 ** 6,
+                              cohort_size=cohort, cohort_window=2.0)
+                kw = ({"pooled_train": pooled} if name == "centralized"
+                      else {})
+                result, record = fl_run(
+                    meter, kern, label, ALGORITHMS[name], backend,
+                    client_data, test, fl, CostModel(), None,
+                    init_model=genesis, **kw)
+                rounds, trainings = BASELINE_ROUNDS[name]
+                check(result.rounds == rounds, f"{label}: {result.rounds} "
+                      f"rounds, expected {rounds}")
+                check(record["client_rounds"] == trainings,
+                      f"{label}: {record['client_rounds']} local trainings, "
+                      f"expected {trainings}")
+                if cohort > 1:
+                    check(record["cohorts_dispatched"] >= 1,
+                          f"{label}: no window dispatched to the engine "
+                          f"(windows {record['windows']})")
+                if meter.coords:
+                    record["verify_full_dag"] = dag_checks(
+                        label, meter.coords[-1], result)
+                launches += record["signature_launches"]
+                vec += record["signature_routes"]["vec"]
+                strided += record["signature_routes"]["strided"]
+                records.append(record)
+    finally:
+        meter.close()
+    check(launches > 0, "baselines_path: the DAG runs launched no signature")
+    emit(phase="baselines_path", model=cfg.name, image=[32, 32, 3],
+         clients=4, max_rounds=2, phase_s=time.perf_counter() - t_phase,
+         runs=records)
+    return {"signature": launches,
+            "signature_routes": {"vec": vec, "strided": strided}}
+
+
+def honest_client_mean(backend, coord, test, exclude) -> float:
+    """Mean global-test accuracy of the latest published models of the
+    clients outside ``exclude`` (``benchmarks/robustness.py``'s
+    ``_honest_client_mean``): what an honest participant ends up with."""
+    import numpy as np
+    models = []
+    for c in range(coord.cfg.n_clients):
+        tx = coord.ledger.latest_of(c)
+        if c in exclude or tx is None or not coord.ledger.has_tx(tx):
+            continue
+        ref = coord.ledger.get_tx(tx).model_ref
+        if ref in coord.store:
+            models.append(coord.store.get(ref))
+    if not models:
+        return 0.0
+    if coord.cohort is not None:
+        accs = coord.cohort.evaluate_many(models, test)
+    else:
+        accs = [backend.evaluate(m, test) for m in models]
+    return float(np.mean(accs))
+
+
+def transform_check(genesis, trained, sigma: float) -> dict:
+    """The scenario transform on VGG16's own leaves on the card: a window
+    of 4 (poisoned, free-rider, noised, unaffected) against the four
+    single calls bit for bit, the unaffected row's bits kept, and the DP
+    noise's mean and standard deviation over one model's draws."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_map, tree_stack
+    from repro_torch.fl.cohort import (perturb_cohort_stacked_trees,
+                                       perturb_update)
+
+    k = len(trained)
+    plan = {"seed": 0, "clients": np.arange(k, dtype=np.int64),
+            "seqs": np.arange(k, dtype=np.int64) + 2,
+            "gammas": np.array([-4.0, 0.0, 1.0, 1.0], np.float32),
+            "sigmas": np.array([0.0, 0.0, sigma, 0.0], np.float32),
+            "affected": np.array([True, True, True, False])}
+    aggs, news = tree_stack([genesis] * k), tree_stack(trained)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window = perturb_cohort_stacked_trees(aggs, news, plan)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    differing = 0
+    for r in range(3):
+        single = perturb_update(genesis, trained[r], plan, r)
+        differing += sum(int((a != b[r]).sum()) for a, b in zip(
+            tree_leaves(single), tree_leaves(window)))
+    kept = all(torch.equal(a, b[3]) for a, b in zip(
+        tree_leaves(trained[3]), tree_leaves(window)))
+    check(differing == 0, f"scenarios_path: the window's rows differ from "
+          f"the single calls in {differing} elements")
+    check(kept, "scenarios_path: the unaffected row lost its bits")
+    check(all(t.is_cuda for t in tree_leaves(window)),
+          "scenarios_path: the transform left the card")
+    zeros = tree_map(torch.zeros_like, genesis)
+    noise = perturb_update(zeros, zeros, {
+        "seed": 0, "clients": np.array([1]), "seqs": np.array([0]),
+        "gammas": np.array([1.0], np.float32),
+        "sigmas": np.array([sigma], np.float32),
+        "affected": np.array([True])}, 0)
+    draws = torch.cat([t.flatten().double() for t in tree_leaves(noise)])
+    mean, std = draws.mean().item(), draws.std().item()
+    check(abs(mean) <= 0.01 * sigma and abs(std - sigma) <= 0.01 * sigma,
+          f"scenarios_path: DP noise mean {mean}, std {std} for sigma "
+          f"{sigma} over {draws.numel()} draws")
+    return {"window_clients": k, "window_s": window_s,
+            "stacked_vs_single_differing": differing,
+            "unaffected_row_kept": kept, "noise_draws": draws.numel(),
+            "noise_mean": mean, "noise_std": std, "sigma": sigma}
+
+
+def phase_scenarios_path(kern, dev) -> dict:
+    """The fault-injection scenarios at full VGG16 width on the cohort
+    engine (``cohort_size=4``, ``cohort_window=2.0``, 3 rounds): an honest
+    DAG-AFL run, DAG-AFL under each scenario, and poison on fedavg and
+    fedasync beside their honest runs; each scenario's event counter, the
+    Eq. 7 audit of every ledger, the quarantine metrics and the accuracy
+    change; then the transform itself on VGG16's leaves."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.simulator import CostModel
+    from repro_torch.core.verify import IncrementalVerifier, detect_tampered
+    from repro_torch.fl import (ALGORITHMS, SCENARIOS, FLConfig, Scenario,
+                                dag_attack_metrics)
+    from repro_torch.fl.backend import CNNBackend
+
+    t_phase = time.perf_counter()
+    sig = kern["sig"]
+    cfg, client_data, test, _ = cnn_world()
+    backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
+    check(backend.device.type == "cuda", "scenarios_path: backend is not "
+          "on the card")
+    genesis = backend.init(torch.Generator().manual_seed(0))
+    geo = dict(n_clients=4, max_rounds=3, local_epochs=1,
+               target_accuracy=None, patience=10 ** 6, cohort_size=4,
+               cohort_window=2.0)
+    meter = CallMeter(backend, sig)
+    records, launches, vec, strided = [], 0, 0, 0
+
+    def dagafl(label, scenario):
+        coord = DagAflCoordinator(backend, client_data, test,
+                                  DagAflConfig(scenario=scenario, **geo),
+                                  CostModel())
+        result, record = fl_run(meter, kern, label, coord.run, genesis)
+        tampered = [] if scenario is None else scenario.tampered
+        record["verify_full_dag"] = dag_checks(label, coord, result,
+                                               tampered)
+        check(record["cohorts_dispatched"] >= 1,
+              f"{label}: no window dispatched to the engine")
+        detected = detect_tampered(coord.ledger)
+        audit_ok, _ = IncrementalVerifier(coord.ledger).audit()
+        check(sorted(detected) == sorted(tampered),
+              f"{label}: detected {len(detected)} tampered txs, "
+              f"{len(tampered)} were tampered")
+        check(audit_ok == (not tampered), f"{label}: the incremental audit "
+              f"{'passed' if audit_ok else 'flagged'} with {len(tampered)} "
+              f"tampered txs")
+        record.update(tamper_detections=len(detected),
+                      txs_tampered=len(tampered),
+                      incremental_audit_flagged=not audit_ok)
+        return coord, result, record
+
+    def baseline(label, name, scenario):
+        return fl_run(meter, kern, label, ALGORITHMS[name], backend,
+                      client_data, test, FLConfig(scenario=scenario, **geo),
+                      CostModel(), None, init_model=genesis)
+
+    try:
+        honest_coord, _, record = dagafl("dagafl:honest", None)
+        records.append(record)
+        honest = {name: baseline(f"{name}:honest", name, None)
+                  for name in ("fedavg", "fedasync")}
+        records += [rec for _, rec in honest.values()]
+        for name in SCENARIO_ORDER:
+            sc = Scenario(dataclasses.replace(SCENARIOS[name], seed=0), 4)
+            coord, result, record = dagafl(f"dagafl:{name}", sc)
+            counts = sc.counts()
+            check(counts[EVENT_KEYS[name]] > 0, f"dagafl:{name}: "
+                  f"{EVENT_KEYS[name]} is 0 ({counts})")
+            check(result.extra["scenario_counts"] == counts,
+                  f"dagafl:{name}: the result's counts differ from the "
+                  f"injector's")
+            honest_acc = honest_client_mean(backend, honest_coord, test,
+                                            sc.malicious)
+            attacked_acc = honest_client_mean(backend, coord, test,
+                                              sc.malicious)
+            record.update(scenario=name, counts=counts,
+                          dag=dag_attack_metrics(coord.ledger, sc),
+                          honest_accuracy=honest_acc,
+                          attacked_accuracy=attacked_acc,
+                          accuracy_delta=honest_acc - attacked_acc)
+            records.append(record)
+            del coord, result          # not live in the next run's peak
+            if name != "poison":
+                continue
+            for algo in ("fedavg", "fedasync"):
+                sc_b = Scenario(dataclasses.replace(SCENARIOS[name], seed=0),
+                                4)
+                result, record = baseline(f"{algo}:poison", algo, sc_b)
+                check(sc_b.counts()["updates_scaled"] > 0,
+                      f"{algo}:poison: no update was scaled")
+                check(record["cohorts_dispatched"] >= 1,
+                      f"{algo}:poison: no window dispatched to the engine")
+                honest_acc = honest[algo][0].final_accuracy
+                record.update(scenario=name, counts=sc_b.counts(),
+                              honest_accuracy=honest_acc,
+                              attacked_accuracy=result.final_accuracy,
+                              accuracy_delta=(honest_acc
+                                              - result.final_accuracy))
+                records.append(record)
+    finally:
+        meter.close()
+    for record in records:
+        launches += record["signature_launches"]
+        vec += record["signature_routes"]["vec"]
+        strided += record["signature_routes"]["strided"]
+    trained = [honest_coord.store.get(honest_coord.ledger.get_tx(
+        honest_coord.ledger.latest_of(c)).model_ref) for c in range(4)]
+    transform = transform_check(genesis, trained, SCENARIOS["dp"].dp_sigma)
+    emit(phase="scenarios_path", model=cfg.name, image=[32, 32, 3],
+         clients=4, max_rounds=3, cohort_size=4, cohort_window=2.0,
+         phase_s=time.perf_counter() - t_phase, runs=records,
+         transform=transform)
+    return {"signature": launches,
+            "signature_routes": {"vec": vec, "strided": strided}}
 
 
 def lm_reference_check(tfm, cfg, backend, params, stream,
@@ -1741,6 +2215,8 @@ def main() -> None:
     kern = {"sig": sig, "fa": fa, "ss": ss, "ml": ml, "sl": sl}
     cnn = phase_main_path(kern, dev)
     cohort = phase_cohort_path(kern, dev, cnn["s_per_round"])
+    baselines = phase_baselines_path(kern, dev)
+    scenarios = phase_scenarios_path(kern, dev)
     lm = phase_lm_loop(kern, dev, phase="lm_path", cfg=lm_config(),
                        clients=4, local_steps=8,
                        expected_params=630_736_896)
@@ -1762,7 +2238,9 @@ def main() -> None:
                "slstm": slstm_record}
     for key, record in records.items():
         by_path = ({"cnn": cnn["signature"],
-                    "cnn_cohort": cohort["signature"]}
+                    "cnn_cohort": cohort["signature"],
+                    "cnn_baselines": baselines["signature"],
+                    "cnn_scenarios": scenarios["signature"]}
                    if key == "signature" else {})
         by_path.update({name: p["launches"][key] for name, p in paths.items()
                         if p["launches"][key]})
@@ -1771,13 +2249,17 @@ def main() -> None:
     sig_record["launches_by_route"] = {
         "cnn": cnn["signature_routes"],
         "cnn_cohort": cohort["signature_routes"],
+        "cnn_baselines": baselines["signature_routes"],
+        "cnn_scenarios": scenarios["signature_routes"],
         **{name: p["signature_routes"] for name, p in paths.items()}}
     flash_record["launches_by_route"] = {
         name: p["flash_routes"] for name, p in paths.items()
         if p["launches"]["flash"]}
     for width in sig_record["widths"]:
-        width["launches"] = sig_record["launches_by_path"].get(
-            width["path"], 0)
+        # every CNN path signs at the CNN width
+        width["launches"] = sum(
+            n for name, n in sig_record["launches_by_path"].items()
+            if name == width["path"] or name.startswith(width["path"] + "_"))
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -167,11 +167,37 @@ def stacked_weighted(stacked, weights, mesh=None):
     return tree_map(combine, stacked)
 
 
+def fma_f32(c, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``c * x + p`` in float32 with one rounding, as the fused multiply-add
+    XLA makes of the reference's jitted ``c * x + p``.  The product of two
+    float32 values is exact in float64; the float64 sum is rounded to odd
+    (its exact error found by TwoSum) so that the one rounding to float32
+    is the fused one's.  ``c`` is a float32 scalar or tensor broadcasting
+    against ``x``."""
+    prod = torch.as_tensor(c, dtype=torch.float32,
+                           device=x.device).double() * x.double()
+    p = p.double()
+    s = prod + p
+    bb = s - prod
+    err = (prod - (s - bb)) + (p - bb)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(inexact_even, torch.nextafter(s, toward), s).float()
+
+
 def tree_interpolate(a, b, alpha: float):
-    """FedAsync-style mixing: (1-alpha)*a + alpha*b."""
-    return tree_map(
-        lambda x, y: ((1 - alpha) * x.float() + alpha * y.float())
-        if x.is_floating_point() else x, a, b)
+    """FedAsync-style mixing: (1-alpha)*a + alpha*b, as the reference's
+    jitted program computes it: alpha in float32, ``1 - alpha`` in float32,
+    and the first product fused into the sum (:func:`fma_f32`)."""
+    alpha32 = np.float32(alpha)
+    keep = float(np.float32(1) - alpha32)
+
+    def mix(x, y):
+        if not x.is_floating_point():
+            return x
+        return fma_f32(keep, x.float(), float(alpha32) * y.float())
+
+    return tree_map(mix, a, b)
 
 
 def tree_size_bytes(model) -> int:

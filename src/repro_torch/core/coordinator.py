@@ -24,9 +24,13 @@ may observe the DAG up to ``cohort_window`` simulated seconds away from
 its own start.  Backends without a registered cohort suite stay
 sequential.
 
-Fault scenarios, live serving and device meshes are not ported yet:
-setting any of them raises ``NotImplementedError`` rather than being
-ignored (``mesh`` takes None or ``"auto"``, one card).
+Fault scenarios (``repro_torch.fl.scenarios``) attack the loop as in the
+reference: poisoned shards at construction, the update transform before
+validation and the signature, straggler durations, dropped publishes and
+tampered metadata; a scenario with all rates zero is bit-identical to
+``scenario=None``.  Live serving and device meshes are not ported yet:
+setting either raises ``NotImplementedError`` rather than being ignored
+(``mesh`` takes None or ``"auto"``, one card).
 ``run(init_model=None)`` takes the genesis model itself where the reference
 takes a JAX PRNG key.
 """
@@ -50,7 +54,9 @@ from repro_torch.core.simulator import (ClientProfile, CohortWindow,
 from repro_torch.core.tip_selection import (TipSelectionConfig,
                                             TipSelectionRequest, TipSelector)
 from repro_torch.core.verify import extract_path, verify_path
-from repro_torch.fl.cohort import build_cohort_engine, single_device
+from repro_torch.fl.cohort import (build_cohort_engine, perturb_update,
+                                   single_device)
+from repro_torch.fl.scenarios import as_scenario
 
 
 @dataclass
@@ -87,13 +93,17 @@ class DagAflConfig:
     # background thread while the card computes (False = inline assembly,
     # bit-identical results)
     overlap: bool = True
-    # not ported yet: each raises NotImplementedError when set
+    # fault injection: None (honest run), a repro_torch.fl.scenarios.
+    # ScenarioConfig, a registry name ("poison", "lazy", ...) or a prebuilt
+    # Scenario instance (pass the instance to read its event counters after
+    # the run).  A scenario with all rates zero is bit-identical to None.
     scenario: object = None
+    # not ported yet: each raises NotImplementedError when set
     serve_every: float = 0.0
     serving: object = None
 
 
-_UNPORTED = {"scenario": None, "serve_every": 0.0, "serving": None}
+_UNPORTED = {"serve_every": 0.0, "serving": None}
 
 
 class _ClientTipEvaluator:
@@ -128,6 +138,10 @@ class DagAflCoordinator:
                     f"to the PyTorch package yet (only {default!r})")
         single_device(cfg.mesh)
         self.backend = backend
+        self.scenario = as_scenario(cfg.scenario, cfg.n_clients)
+        if self.scenario is not None:
+            # poisoned shards exist before anything reads the data
+            client_data = self.scenario.poison_data(client_data)
         self.client_data = client_data
         self.global_test = global_test
         self.cfg = cfg
@@ -242,7 +256,19 @@ class DagAflCoordinator:
     def _complete_round(self, client: int, model, acc: float, sig,
                         epoch: int, parents) -> None:
         """Publish at the round's simulated completion time (both paths)."""
-        self._publish(client, model, acc, sig, epoch, parents)
+        if self.scenario is not None and self.scenario.drops_publish(client):
+            # wireless dropout: the publish aborts mid-round (no tx, no
+            # signature post); the attempt still counts against max_rounds
+            # and the client retries with a fresh round
+            self._client_rounds[client] += 1
+            self._t_last_round = self.loop.now
+            if (not self.tracker.done
+                    and self._client_rounds[client] < self.cfg.max_rounds):
+                self._start_round(0.0, client)
+            return
+        tx_id = self._publish(client, model, acc, sig, epoch, parents)
+        if self.scenario is not None:
+            self.scenario.maybe_tamper(self.ledger, tx_id)
         self._client_rounds[client] += 1
         self._client_val[client] = acc
         self._rounds_done += 1
@@ -304,6 +330,10 @@ class DagAflCoordinator:
         seed = int(self.rng.integers(2 ** 31))
         t_train = self.cost.train_time(self.profiles[client],
                                        self.cfg.local_epochs, self.rng)
+        if self.scenario is not None:
+            # heavy-tailed straggler slowdown (x1.0 exactly for the others,
+            # so the honest trajectory keeps its bits)
+            t_train *= self.scenario.duration_multiplier(client)
         return {"client": client, "t_start": t_start, "refs": refs,
                 "parents": parents, "epoch": epoch, "t_front": t_front,
                 "t_train": t_train, "seed": seed}
@@ -318,6 +348,8 @@ class DagAflCoordinator:
         model, _ = self.backend.train_local(
             agg, self.client_data[client]["train"], seed=rd["seed"],
             epochs=self.cfg.local_epochs)
+        if self.scenario is not None:
+            model = self._scenario_update_one(client, agg, model)
         acc = self.backend.evaluate(model, self.client_data[client]["val"])
         sig = self.backend.signature(model, self.client_data[client]["train"])
         total = rd["t_front"] + rd["t_train"] + self._t_post(
@@ -326,6 +358,49 @@ class DagAflCoordinator:
             rd["t_start"] + total - self.loop.now,
             lambda: self._complete_round(client, model, acc, sig,
                                          rd["epoch"] + 1, rd["parents"]))
+
+    # -- fault injection (fl/scenarios.py) ------------------------------------
+
+    def _scenario_update_one(self, client: int, agg, model):
+        """Scenario update transform for ONE trained model (sequential path
+        and windows of one), before validation and the signature, so the
+        published artefacts describe the attacked model."""
+        plan = self.scenario.update_plan([client])
+        if plan is not None and plan["affected"][0]:
+            model = perturb_update(agg, model, plan, 0)
+        return self._scenario_stale(client, model)
+
+    def _scenario_stale(self, client: int, model):
+        """lazy_mode='stale' free-riders republish their previous model
+        (a swap on the host; the first publish has nothing to replay)."""
+        sc = self.scenario
+        if not sc.wants_stale(client):
+            return model
+        prev = self.ledger.latest_of(client)
+        if prev is not None and self.ledger.has_tx(prev):
+            ref = self.ledger.get_tx(prev).model_ref
+            if ref in self.store:
+                sc.updates_lazy += 1
+                return self.store.get(ref)
+        return model
+
+    def _scenario_update_cohort(self, rounds, agg_stacked, new_stacked):
+        """Scenario update transforms for a whole window, on the cohort
+        engine; unaffected rows keep their exact bits
+        (``CohortBackend.perturb_cohort_stacked``)."""
+        sc = self.scenario
+        clients = [rd["client"] for rd in rounds]
+        plan = sc.update_plan(clients)
+        if plan is not None:
+            new_stacked = self.cohort.perturb_cohort_stacked(
+                agg_stacked, new_stacked, plan)
+        stale = [k for k, c in enumerate(clients) if sc.wants_stale(c)]
+        if stale:
+            models = tree_unstack(new_stacked)
+            for k in stale:
+                models[k] = self._scenario_stale(clients[k], models[k])
+            new_stacked = tree_stack(models)
+        return new_stacked
 
     # -- sequential client round ---------------------------------------------
 
@@ -379,6 +454,9 @@ class DagAflCoordinator:
         val_sets = [self.client_data[rd["client"]]["val"] for rd in rounds]
         new_stacked, _ = self.cohort.train_cohort_stacked(
             agg_stacked, train_sets, seeds, epochs=cfgc.local_epochs)
+        if self.scenario is not None:
+            new_stacked = self._scenario_update_cohort(rounds, agg_stacked,
+                                                       new_stacked)
         del agg_stacked
         val_accs = self.cohort.evaluate_cohort_stacked(new_stacked, val_sets)
         sigs = self.cohort.signature_cohort_stacked(new_stacked, train_sets)
@@ -458,6 +536,10 @@ class DagAflCoordinator:
         # current tips (the paper's 'global model'); per-client average in
         # extra for reference
         final_acc = max(tip_mean_acc, client_mean)
+        extra_scenario = {}
+        if self.scenario is not None:
+            extra_scenario = {"scenario": self.scenario.cfg.name,
+                              "scenario_counts": self.scenario.counts()}
         return RunResult(
             name="DAG-AFL",
             final_accuracy=final_acc,
@@ -476,4 +558,5 @@ class DagAflCoordinator:
                 "verify_failures": self._verify_failures,
                 "store_bytes_transferred": self.store.bytes_transferred,
                 "cohorts_dispatched": self._cohorts_dispatched,
+                **extra_scenario,
             })

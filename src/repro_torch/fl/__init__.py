@@ -1,1 +1,24 @@
-"""Client training backends (port of ``repro.fl``)."""
+"""Client training backends, the cohort engine, the baselines and the
+fault scenarios (port of ``repro.fl``; serving is not ported yet)."""
+from repro_torch.fl.backend import CNNBackend, LMBackend
+from repro_torch.fl.baselines import (ALGORITHMS, FLConfig,
+                                      fedat_tier_weights, run_centralized,
+                                      run_csafl, run_dagafl, run_dagfl,
+                                      run_fedasync, run_fedat, run_fedavg,
+                                      run_fedhisyn, run_independent,
+                                      run_scalesfl)
+from repro_torch.fl.cohort import (CNNCohortPrograms, CohortBackend,
+                                   CohortPrograms, build_cohort_engine,
+                                   perturb_update, register_cohort_programs)
+from repro_torch.fl.scenarios import (SCENARIOS, Scenario, ScenarioConfig,
+                                      as_scenario, dag_attack_metrics)
+
+__all__ = ["CNNBackend", "LMBackend", "ALGORITHMS", "FLConfig",
+           "run_centralized", "run_independent", "run_fedavg", "run_fedasync",
+           "run_fedat", "run_csafl", "run_fedhisyn", "run_scalesfl",
+           "run_dagfl", "run_dagafl", "fedat_tier_weights",
+           "CohortBackend", "CohortPrograms", "CNNCohortPrograms",
+           "build_cohort_engine", "perturb_update",
+           "register_cohort_programs",
+           "SCENARIOS", "Scenario", "ScenarioConfig", "as_scenario",
+           "dag_attack_metrics"]

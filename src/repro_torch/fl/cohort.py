@@ -46,6 +46,14 @@ a float32 reciprocal that its jitted ``jnp.mean`` (and the sequential
 path, ``core.aggregate.f32_mean``) uses: the two differ in the last bit on
 many counts, and these means reach the Eq. 7 digest and tip selection.
 
+The scenarios' update transform (``perturb_update``,
+``perturb_cohort_stacked_trees``, ``CohortBackend.perturb_cohort_stacked``)
+lives here as in the reference: ``agg + gamma*(new - agg) + sigma*N(0,
+I)`` over a window's stacked leaves, with the reference's fused
+multiply-adds (``core.aggregate.fma_f32``) and DP noise from
+``torch.Generator`` (the reference's ``jax.random`` bits cannot be drawn
+here, so the noise matches in distribution only).
+
 Meshes are not ported: ``mesh`` is None or ``"auto"`` (one card).  There is
 no kernel policy: the tensors' device decides, as everywhere in the port.
 """
@@ -58,8 +66,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregate import (pad_leading, tree_leaves, tree_map,
-                                        tree_stack, tree_unstack)
+from repro_torch.core.aggregate import (fma_f32, pad_leading, tree_leaves,
+                                        tree_map, tree_stack, tree_unstack)
 from repro_torch.data.pipeline import WindowAssembler
 from repro_torch.fl.backend import CNNBackend
 from repro_torch.kernels import ops
@@ -89,6 +97,86 @@ def _tree_select(done: Sequence[int], leaves: Sequence[torch.Tensor],
     for k in done:
         for leaf in leaves:
             leaf[k].copy_(next(rows))
+
+
+# -- scenario update transforms (see fl/scenarios.py) -------------------------
+#
+#   new' = agg + gamma * (new - agg) + sigma * N(0, I)
+#
+# gamma = scale_gamma < 0 is scaled-gradient model poisoning, gamma = 0 is a
+# free-rider republishing the aggregate, sigma > 0 is DP noise.  gamma=1 /
+# sigma=0 is the identity only algebraically, so callers skip unaffected
+# dispatches entirely and the stacked form re-selects unaffected rows'
+# original bits.  The products are fused into their sums (``fma_f32``), as
+# XLA compiles the reference's jitted transform.  The reference's program
+# is fused by XLA, not a Pallas kernel: plain tensor operations port it.
+
+
+def _perturb_generators(seed: int, client: int, seq: int, n_leaves: int,
+                        device) -> tuple:
+    """The noise streams of one (scenario seed, client, per-client update
+    seq), the reference's ``_perturb_key``: one ``torch.Generator`` on
+    ``device`` and its key split leaf by leaf (as ``jax.random.split``):
+    one seed per leaf, in ``tree_leaves`` order, that the generator takes
+    before it draws that leaf's noise.  The same streams
+    for the single and the stacked form, so they agree bit for bit; the
+    draws are not ``jax.random``'s, so the noise matches the reference's
+    in distribution only."""
+    seeds = np.random.SeedSequence((int(seed), int(client), int(seq))
+                                   ).generate_state(n_leaves, np.uint64)
+    gen = torch.Generator(device=device)
+    return gen, [int(s) for s in seeds]
+
+
+def perturb_cohort_stacked_trees(agg_stacked, new_stacked, plan: dict):
+    """Whole-window transform over the stacked K-client trees: row k takes
+    ``plan``'s row k (gamma, sigma, noise stream), then a per-leaf select
+    restores the rows the plan marks unaffected to their exact bits (fault
+    injection must not perturb honest clients).  Integer leaves pass
+    through untouched."""
+    new_leaves = tree_leaves(new_stacked)
+    agg_leaves = tree_leaves(agg_stacked)
+    k = new_leaves[0].shape[0]
+    dev = new_leaves[0].device
+    gammas = torch.as_tensor(np.asarray(plan["gammas"], np.float32),
+                             device=dev)
+    sigmas = np.asarray(plan["sigmas"], np.float32)
+    keep = torch.as_tensor(np.asarray(plan["affected"], bool), device=dev)
+    noisy = [r for r in range(k) if sigmas[r] > 0]
+    streams = {r: _perturb_generators(plan["seed"], plan["clients"][r],
+                                      plan["seqs"][r], len(new_leaves), dev)
+               for r in noisy}
+    sig_rows = torch.as_tensor(sigmas, device=dev)
+    out = []
+    for i, (new, agg) in enumerate(zip(new_leaves, agg_leaves)):
+        if not new.is_floating_point():
+            out.append(new)
+            continue
+        rows = (k,) + (1,) * (new.dim() - 1)
+        v = fma_f32(gammas.view(rows), new - agg, agg)
+        if noisy:
+            noise = torch.zeros_like(v)
+            for r in noisy:
+                gen, seeds = streams[r]
+                noise[r].normal_(generator=gen.manual_seed(seeds[i]))
+            sig = sig_rows.view(rows)
+            v = torch.where(sig > 0, fma_f32(sig, noise, v), v)
+        out.append(torch.where(keep.view(rows), v, new))
+    leaves = iter(out)
+    return tree_map(lambda _: next(leaves), new_stacked)
+
+
+def perturb_update(agg, new, plan: dict, k: int):
+    """Apply row ``k`` of a :meth:`repro_torch.fl.scenarios.Scenario.
+    update_plan` to one trained model (the sequential path and windows of
+    one): the stacked form on a window of one."""
+    row = {key: np.asarray(plan[key])[k:k + 1]
+           for key in ("clients", "seqs", "gammas", "sigmas", "affected")}
+    one = perturb_cohort_stacked_trees(
+        tree_map(lambda leaf: leaf[None], agg),
+        tree_map(lambda leaf: leaf[None], new),
+        {"seed": plan["seed"], **row})
+    return tree_map(lambda leaf: leaf[0], one)
 
 
 def _grouped_conv(x: torch.Tensor, w: torch.Tensor,
@@ -511,6 +599,14 @@ class CohortBackend:
                          limit: int = 128) -> np.ndarray:
         return self.signature_cohort_stacked(tree_stack(params_list),
                                              datasets, limit)
+
+    @torch.no_grad()
+    def perturb_cohort_stacked(self, agg_stacked, new_stacked, plan: dict):
+        """Scenario fault injection for a whole window (see
+        fl/scenarios.py): ``new' = agg + gamma*(new-agg) + sigma*N`` over
+        the stacked trees; rows the plan marks unaffected keep their exact
+        bits."""
+        return perturb_cohort_stacked_trees(agg_stacked, new_stacked, plan)
 
 
 def build_cohort_engine(backend, *, cohort_size: int, mesh="auto",

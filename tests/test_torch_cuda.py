@@ -784,3 +784,91 @@ def test_prefetched_window_equals_inline_on_card(card):
     for name in ("xb", "yb", "mask"):
         assert torch.equal(getattr(got, name), getattr(want, name))
     early.close()
+
+
+def test_scenario_transform_on_card(card):
+    """The scenario update transform on the card: its noise generator lives
+    there, a window equals the single calls bit for bit, the unaffected
+    row and the integer leaves keep their bits."""
+    from repro_torch.core.aggregate import tree_leaves, tree_stack
+    from repro_torch.fl.cohort import (_perturb_generators,
+                                       perturb_cohort_stacked_trees,
+                                       perturb_update)
+    gen, seeds = _perturb_generators(0, 1, 2, 3, card)
+    assert gen.device.type == card.type and len(seeds) == 3
+    backend = CNNBackend(vgg_for("cifar10"), device=card)
+    models = [backend.init(torch.Generator().manual_seed(i))
+              for i in range(5)]
+    for m in models:
+        m["steps"] = torch.arange(4, device=card, dtype=torch.int32)
+    agg, news = models[0], models[1:]
+    plan = {"seed": 3, "clients": np.array([0, 1, 2, 3]),
+            "seqs": np.array([0, 1, 0, 5]),
+            "gammas": np.array([-4.0, 0.0, 1.0, 1.0], np.float32),
+            "sigmas": np.array([0.0, 0.01, 0.05, 0.0], np.float32),
+            "affected": np.array([True, True, True, False])}
+    window = perturb_cohort_stacked_trees(tree_stack([agg] * 4),
+                                          tree_stack(news), plan)
+    for k in range(3):
+        single = perturb_update(agg, news[k], plan, k)
+        for a, b in zip(tree_leaves(single), tree_leaves(window)):
+            assert a.device.type == card.type and torch.equal(a, b[k])
+    for a, b in zip(tree_leaves(news[3]), tree_leaves(window)):
+        assert torch.equal(a, b[3])
+    assert torch.equal(window["steps"],
+                       torch.arange(4, device=card).repeat(4, 1).int())
+    # the noise differs from the noiseless transform on the noised rows
+    quiet = dict(plan, sigmas=np.zeros(4, np.float32))
+    calm = perturb_cohort_stacked_trees(tree_stack([agg] * 4),
+                                        tree_stack(news), quiet)
+    assert not torch.equal(calm["fcs"][0]["w"][2], window["fcs"][0]["w"][2])
+    assert torch.equal(calm["fcs"][0]["w"][0], window["fcs"][0]["w"][0])
+
+
+@pytest.mark.parametrize("name,rounds", [("fedavg", 2), ("dagafl", 6)])
+def test_baseline_on_the_cohort_engine_on_card(card, monkeypatch, name,
+                                               rounds):
+    """fedavg and DAG-AFL at VGG_TINY on the card's cohort engine
+    (``cohort_size=3``): the expected rounds and windows, the models on
+    the card."""
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.data.partition import partition_dirichlet
+    from repro_torch.data.synthetic import split_811
+    from repro_torch.fl import ALGORITHMS, FLConfig
+    from repro_torch.fl.cohort import CohortBackend
+
+    splits = split_811(make_benchmark_dataset("mnist", 900))
+    data = []
+    for p in partition_dirichlet(splits["train"], 3, beta=0.5, seed=0):
+        s = split_811(p, seed=1)
+        data.append({"train": s["train"], "val": s["val"],
+                     "test": s["test"]})
+    backend = CNNBackend(vgg_for("mnist"), local_epochs=1, batch_size=32,
+                         device=card)
+    windows, evaluated = [], []
+    inner_train = CohortBackend.train_cohort_stacked
+    inner_eval = backend.evaluate
+
+    def train(self, stacked, datasets, *args, **kwargs):
+        windows.append(len(datasets))
+        return inner_train(self, stacked, datasets, *args, **kwargs)
+
+    def evaluate(model, *args, **kwargs):
+        evaluated.append(all(t.device.type == card.type
+                             for t in tree_leaves(model)))
+        return inner_eval(model, *args, **kwargs)
+
+    monkeypatch.setattr(CohortBackend, "train_cohort_stacked", train)
+    monkeypatch.setattr(backend, "evaluate", evaluate)
+    res = ALGORITHMS[name](backend, data, splits["test"],
+                           FLConfig(n_clients=3, max_rounds=2,
+                                    local_epochs=1, patience=10 ** 6,
+                                    cohort_size=3, cohort_window=2.0))
+    assert res.rounds == rounds
+    assert 0.0 <= res.final_accuracy <= 1.0
+    assert evaluated and all(evaluated)
+    if name == "fedavg":
+        assert windows == [3, 3]
+    else:
+        assert res.extra["chain_len"] == 7
+        assert res.extra["cohorts_dispatched"] == len(windows) >= 1

@@ -52,7 +52,7 @@ def test_port_imports_neither_jax_nor_reference_package():
             "flash_attention.py", "internlm2_1_8b.py", "mamba.py",
             "selective_scan.py", "jamba_v01_52b.py", "xlstm.py",
             "mlstm.py", "slstm.py", "xlstm_125m.py", "cohort.py",
-            "pipeline.py"} <= names
+            "pipeline.py", "baselines.py", "scenarios.py"} <= names
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         f"{name}.cu" for name in build.SOURCES}
@@ -777,7 +777,6 @@ def test_nvcc_missing_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [("mesh", "2x2"),
-                                        ("scenario", "poison"),
                                         ("serve_every", 5.0),
                                         ("serving", object())])
 def test_unported_options_raise(name, value):
@@ -785,6 +784,20 @@ def test_unported_options_raise(name, value):
     setattr(cfg, name, value)
     with pytest.raises(NotImplementedError, match=name):
         DagAflCoordinator(object(), [{}, {}], None, cfg)
+
+
+@pytest.mark.parametrize("scenario", ["poison", "lazy", "dp", "straggler",
+                                      "dropout"])
+def test_scenarios_are_ported(scenario):
+    """``scenario`` left the unported options: the coordinator builds its
+    injector (and still refuses serving beside it)."""
+    data = [{"train": None, "val": None}] * 4
+    coord = DagAflCoordinator(object(), data, None,
+                              DagAflConfig(n_clients=4, scenario=scenario))
+    assert coord.scenario.cfg.name == scenario
+    with pytest.raises(NotImplementedError, match="serve_every"):
+        DagAflCoordinator(object(), data, None, DagAflConfig(
+            n_clients=4, scenario=scenario, serve_every=5.0))
 
 
 @pytest.mark.parametrize("mesh,ok", [(None, True), ("auto", True),
