@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
    the signature kernel bit for bit on both its routes (vec and strided)
    at the CNN path's shape and at ragged shapes (float32), and at each
    LM-family path's width in bfloat16 and float32, also in its bucketed
-   form, then timed at each path's shape by both routes; flash attention
-   at the LM and hybrid paths' shapes (each from separate (B,S,H,hd)
+   form, and at the LM cohort legs' per-sample shapes with their rows,
+   then timed at each path's shape by both routes; flash attention at
+   the LM and hybrid paths' shapes and the hybrid cohort leg's batch of
+   4 (each from separate (B,S,H,hd)
    tensors and from views into one fused qkv), at every shape of the
    reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
    with a window and a soft-cap: every bfloat16 case on the Hopper kernel
@@ -25,8 +27,9 @@ Phases, each printing one JSON line:
    the selective scan kernel
    within the reference's 1e-5 of both its plain versions (the reference's
    arithmetic and its own) at the reference's SCAN_CASES, at the
-   hybrid path's shape (with B and C as the strided views the model splits
-   out of one projection), at a ragged length from a non-zero state, and
+   hybrid path's shape and the hybrid cohort leg's batch of 4 (with B and
+   C as the strided views the model splits out of one projection), at a
+   ragged length from a non-zero state, and
    across two calls that carry the state; the chunkwise mLSTM kernel
    within the reference's 1e-4 (h and the last C, n, m) at the reference's
    MLSTM_CASES, at the xLSTM path's bfloat16 shape (the gates as strided
@@ -88,7 +91,27 @@ Phases, each printing one JSON line:
    launch counts set to 0 just before and read just after; the kernel
    forward (chunkwise mLSTM and sLSTM kernels) held against the plain
    forward (the model's chunkwise form and step loop) on the card; then
-   one profiled backend round.
+   one profiled backend round;
+11. the LM cohort path: the same loop over the three LM families on the
+   cohort engine (``fl.cohort.LMCohortPrograms``, ``cohort_window=2.0``):
+   internlm2 with 3 clients in windows of up to 2 at batch 8, the hybrid
+   with 2 clients in windows of 2 at batch 4, xLSTM with 3 clients in
+   windows of up to 3 at batch 8 (LM_COHORT_LEGS), each timed by engine
+   call against its sequential path above, with the launch counts set to
+   0 just before and read just after (every launch counted against the
+   forwards the run made: one signature launch a round on the vec route,
+   flash on the sm90 route, no plain call); then one window redone by the
+   sequential calls: trained leaves within 5e-3 and within twice the
+   training's one-ulp floor (xLSTM with float32 products; bfloat16, its
+   floor and one step's gradients per layer reported), the argmax token
+   at every position of the validation forwards equal to ``evaluate``'s,
+   signatures within one flag of a row (1/(S*w)) per bucket;
+12. the train path: ``launch.train.train_single`` on internlm2 at the LM
+   path's width, 10 AdamW steps (clip 1.0, the signature in the metrics)
+   over a ``TokenPipeline`` of the sub-vocabulary, batch 8 x 512: a finite
+   loss whose last 3 steps' mean is below step 0's, one signature launch a
+   step on the vec route and no other kernel, a checkpoint round trip bit
+   for bit, and one eval step on the kernels.
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -123,8 +146,13 @@ SIG_WIDTHS = {"xlstm": (1, 8 * 512, 768), "lm": (1, 8 * 512, 2048),
               "hybrid": (1, 8 * 512, 4096)}
 # d % 64 != 0 (on the vec route), and d % 8 != 0 (on the strided route)
 LM_SIG_RAGGED = [(2, 300, 1000), (3, 257, 100)]
+# the LM cohort legs' per-sample rows: one launch over a client's (B, S, d)
+# final-norm output (per_sample_signature), bfloat16
+SIG_PER_SAMPLE = {"xlstm_cohort": (8, 512, 768), "lm_cohort": (8, 512, 2048),
+                  "hybrid_cohort": (4, 512, 4096)}
 FLASH_MAIN = (8, 16, 8, 512, 128)   # B, H, K, S, hd; causal, bfloat16
 FLASH_HYBRID = (8, 32, 8, 512, 128)  # the hybrid path's attention layer
+FLASH_HYBRID_COHORT = (4, 32, 8, 512, 128)   # the hybrid cohort leg's
 # tests/test_kernels.py FLASH_CASES: B, H, K, S, hd, causal, window, cap
 FLASH_CASES = [(2, 4, 2, 256, 64, True, -1, 0.0),
                (1, 4, 4, 300, 32, True, 48, 0.0),
@@ -148,6 +176,7 @@ SCAN_MAIN = (8, 512, 8192, 16)       # B, S, d_in, N
 SCAN_CASES = [(1, 64, 8, 4), (2, 100, 16, 8), (3, 37, 4, 2),
               (2, 45, 130, 16)]
 SCAN_RAGGED = (2, 301, 200, 16)
+SCAN_HYBRID_COHORT = (4, 512, 8192, 16)   # the hybrid cohort leg, batch 4
 SCAN_TOL = 1e-5                      # rtol and atol, the reference's
 SFU_EXP_PER_CLOCK_SM = 16            # H100: special-function unit rate
 H100_SMS, H100_BOOST_HZ = 132, 1.98e9
@@ -411,6 +440,26 @@ def phase_signature_lm(sig, ops, dev) -> list:
                 f"bucketed signature != plain at {shape} {dtype}")
             compared.append({"shape": list(shape), "dtype": str(dtype),
                              "routes": sorted(routes)})
+    # the cohort legs' per-sample rows: the counts over (B, S, d) on both
+    # routes, and the rows against the plain per-row signature (the
+    # reference's vmap of ``signature``), bit for bit
+    for leg, shape in SIG_PER_SAMPLE.items():
+        x = lm_activation(shape, g, torch.bfloat16)
+        want = sig.signature_counts_plain(x, 0.05)
+        routes = set()
+        for r, got in signature_routes(sig, x, 0.05):
+            torch.cuda.synchronize()
+            routes.add(r)
+            check(torch.equal(got, want), f"signature kernel ({r}) != plain "
+                  f"at {leg}'s {shape}")
+        got = ops.signature_per_sample(x, tau=0.05, n_sig=64)
+        want = torch.stack([activation_signature(row, n_sig=64, tau=0.05)
+                            for row in x])
+        check(torch.equal(got, want), f"per-sample signature rows != plain "
+              f"at {leg}'s {shape}")
+        compared.append({"shape": list(shape), "dtype": "torch.bfloat16",
+                         "path": leg, "per_sample_rows": True,
+                         "routes": sorted(routes)})
     widths = []
     for path, shape in SIG_WIDTHS.items():
         size = shape[0] * shape[1] * shape[2] * 2
@@ -476,10 +525,11 @@ def phase_flash(fa, ops, dev) -> dict:
             case["max_abs_err_tc"] = err
         compared.append(case)
 
-    # the paths' shapes: 512 (LM) and 1,024 (hybrid) work items of the
-    # persistent grid, as q, k, v of their own (as the models project
-    # them) and as views into one fused qkv
-    for path, shape in (("LM", FLASH_MAIN), ("hybrid", FLASH_HYBRID)):
+    # the paths' shapes: 512 (LM), 1,024 (hybrid) and 512 (hybrid cohort,
+    # batch 4) work items of the persistent grid, as q, k, v of their own
+    # (as the models project them) and as views into one fused qkv
+    for path, shape in (("LM", FLASH_MAIN), ("hybrid", FLASH_HYBRID),
+                        ("hybrid cohort", FLASH_HYBRID_COHORT)):
         B, H, K, S, hd = shape
         q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
                    .to(torch.bfloat16) for n in (H, K, K))
@@ -598,6 +648,8 @@ def phase_scan(ss, ops, dev) -> dict:
     cases = [(list(c), scan_inputs(c, g)) for c in SCAN_CASES]
     cases.append(("main path, strided B and C",
                   scan_inputs(SCAN_MAIN, g, proj_width=256)))
+    cases.append(("hybrid cohort, batch 4, strided B and C",
+                  scan_inputs(SCAN_HYBRID_COHORT, g, proj_width=256)))
     cases.append(("ragged, non-zero h0",
                   scan_inputs(SCAN_RAGGED, g, proj_width=5, h0_scale=1.0)))
     for what, inputs in cases:
@@ -2162,6 +2214,585 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     return record
 
 
+# LM cohort legs: (leg, config, clients, cohort_size, batch, parameters,
+# the compute type the window's training is held in); the sizes keep each
+# leg's peak under the card's 80 GB (PERF.md section 4).  The xLSTM
+# stack's backward amplifies rounding: in bfloat16 one step's gradients
+# differ by 20-50% between two product orders, and a one-ulp change of
+# the start moves the trained leaves further than training moves them,
+# so no rerun can check that window.  It is held against the sequential
+# calls with float32 products (floor 8x below the leaves' move), and the
+# bfloat16 difference, floor and gradients are reported beside it
+LM_COHORT_LEGS = (("lm_cohort", "lm", 3, 2, 8, 630_736_896, None),
+                  ("hybrid_cohort", "hybrid", 2, 2, 4, HYBRID_PARAMS, None),
+                  ("xlstm_cohort", "xlstm", 3, 3, 8, XLSTM_PARAMS,
+                   "float32"))
+LM_COHORT_TRAIN_TOL = 5e-3           # trained leaves, window vs train_local
+# ... and within this many times the training's own one-ulp floor (the
+# trained leaves' move when the start moves one float32 ulp, ``ulp_floor``)
+LM_COHORT_FLOOR_FACTOR = 2.0
+TRAIN_STEPS = 10                     # the train path's AdamW steps
+
+
+def lm_streams(clients: int):
+    """launch/train.py's streams over the LM paths' sub-vocabulary: one a
+    client, and the global test stream."""
+    from repro_torch.data.synthetic import make_lm_dataset
+    streams = [make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
+                               order=1.5 + 0.5 * c, seed=c)
+               for c in range(clients)]
+    return streams, make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
+                                    seed=999)
+
+
+def window_train_err(backend, agg, datasets, seeds, epochs, trained):
+    """A window's trained leaves against the same clients trained one by
+    one by ``backend.train_local``: the largest difference, the largest
+    change of any leaf in training, and the three leaves that differ most
+    (each with its own largest change)."""
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.train.checkpoint import _walk
+    err, change = {}, {}
+    for k, (ds, seed) in enumerate(zip(datasets, seeds)):
+        solo, _ = backend.train_local(tree_map(lambda l: l[k], agg), ds,
+                                      seed=seed, epochs=epochs)
+        for (path, a), (_, b), (_, s0) in zip(_walk(solo), _walk(trained),
+                                              _walk(agg)):
+            err[path] = max(err.get(path, 0.0),
+                            (a - b[k]).abs().max().item())
+            change[path] = max(change.get(path, 0.0),
+                               (b[k] - s0[k]).abs().max().item())
+        del solo
+    worst = sorted(err, key=err.get, reverse=True)[:3]
+    return {"max_abs_err": max(err.values()),
+            "max_change": max(change.values()),
+            "worst_leaves": [{"leaf": p, "max_abs_err": err[p],
+                              "max_change": change[p]} for p in worst]}
+
+
+def ulp_floor(backend, agg, ds, seed, epochs) -> float:
+    """How far ``train_local``'s trained leaves move when every leaf of its
+    start moves one float32 ulp: the training's own rounding floor."""
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_map
+    start = tree_map(lambda l: l[0], agg)
+    up = tree_map(lambda l: torch.nextafter(l, torch.full_like(l, 1e30)),
+                  start)
+    a, _ = backend.train_local(start, ds, seed=seed, epochs=epochs)
+    b, _ = backend.train_local(up, ds, seed=seed, epochs=epochs)
+    return max((x - y).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def grad_by_layer(backend, programs, agg, datasets, seeds) -> dict:
+    """One training step from the window's start on its first batches: the
+    window's gradients (``vmap`` of ``loss_fn``, the K losses summed)
+    against each client's own ``loss_fn`` gradient, as the largest
+    difference over the largest gradient, per layer in the forward's
+    order (a stage leaf's leading axis is its period)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.checkpoint import _walk
+    toks = [programs.client_batches(ds, seed, 1)[0][0]
+            for ds, seed in zip(datasets, seeds)]
+    x = torch.from_numpy(np.stack(toks)).to(backend.device)
+    y = x[:, :, 1:]
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(True), agg)
+    rows = torch.ones(x.shape[1], device=x.device)
+    programs.sum_loss(params, x, y, rows,
+                      programs.loss_denom(rows, y[0])).sum().backward()
+    diff, scale = {}, {}
+    for k, tk in enumerate(toks):
+        solo = tree_map(lambda p: p[k].detach().clone().requires_grad_(True),
+                        agg)
+        tfm.loss_fn(solo, backend._batch(tk), backend.cfg)[0].backward()
+        for (path, w), (_, one) in zip(_walk(params), _walk(solo)):
+            parts = path.split("/")
+            if parts[0] == "stages":        # (stage, period, block)
+                pairs = [((1, parts[1], i, parts[2]), a, b) for i, (a, b)
+                         in enumerate(zip(w.grad[k], one.grad))]
+            else:                           # embedding, final norm, head
+                rank = {"embed/embedding": 0, "embed/unembed": 3}
+                pairs = [((rank.get(path, 2), path), w.grad[k], one.grad)]
+            for key, a, b in pairs:
+                diff[key] = max(diff.get(key, 0.0),
+                                (a - b).abs().max().item())
+                scale[key] = max(scale.get(key, 0.0), b.abs().max().item())
+        del solo
+
+    def name(key):
+        return (f"stage{key[1][1:-1]}.period{key[2]}.{key[3]}"
+                if key[0] == 1 else key[1])
+    return {name(key): diff[key] / max(scale[key], 1e-30)
+            for key in sorted(diff)}
+
+
+def argmax_grids(fn, *args):
+    """``fn(*args)`` and the argmax token grid of every ``tfm.forward`` it
+    ran."""
+    from repro_torch.models import transformer as tfm
+    inner, grids = tfm.forward, []
+
+    def forward(*a, **kw):
+        logits, aux = inner(*a, **kw)
+        grids.append(logits.argmax(-1))
+        return logits, aux
+
+    tfm.forward = forward
+    try:
+        return fn(*args), grids
+    finally:
+        tfm.forward = inner
+
+
+def lm_cohort_parity(backend, engine, window, leg: str,
+                     reference_compute=None) -> dict:
+    """One window of the counted run done again by the sequential calls on
+    the card.  Training: its aggregates and seeds through ``train_local``,
+    trained leaves within LM_COHORT_TRAIN_TOL and within
+    LM_COHORT_FLOOR_FACTOR times the training's one-ulp floor
+    (``ulp_floor``), reported beside the largest change of a leaf; with
+    ``reference_compute``, both are redone with the products in that type
+    and held there, the config's own difference is reported, and so is
+    one step's gradient difference per layer in both types
+    (``grad_by_layer``).  Validation: the window's forwards redone give
+    its accuracies again and the same argmax token at every position as
+    ``evaluate``'s forward.  Signatures: within one flag of a row,
+    1/(S*w), per bucket, of ``signature``'s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.fl.cohort import CohortBackend
+
+    agg, datasets, seeds, epochs = window["train_in"]
+    trained = window["trained"]
+    own = window_train_err(backend, agg, datasets, seeds, epochs, trained)
+    own["compute_dtype"] = backend.cfg.compute_dtype
+    own["ulp_floor"] = ulp_floor(backend, agg, datasets[0], seeds[0],
+                                 epochs)
+    held = own
+    if reference_compute is not None:
+        ref = LMBackend(dataclasses.replace(backend.cfg,
+                                            compute_dtype=reference_compute),
+                        lr=3e-3, local_steps=epochs,
+                        batch_size=backend.batch_size,
+                        seq_len=backend.seq_len, device=backend.device)
+        ref_engine = CohortBackend(ref, overlap=False)
+        ref_trained, _ = ref_engine.train_cohort_stacked(agg, datasets,
+                                                         seeds, epochs)
+        held = window_train_err(ref, agg, datasets, seeds, epochs,
+                                ref_trained)
+        del ref_trained
+        held["compute_dtype"] = reference_compute
+        held["ulp_floor"] = ulp_floor(ref, agg, datasets[0], seeds[0],
+                                      epochs)
+        held["grad_by_layer"] = grad_by_layer(ref, ref_engine.programs, agg,
+                                              datasets, seeds)
+        own["grad_by_layer"] = grad_by_layer(backend, engine.programs, agg,
+                                             datasets, seeds)
+        torch.cuda.empty_cache()
+    held["tolerance"] = min(LM_COHORT_TRAIN_TOL,
+                            LM_COHORT_FLOOR_FACTOR * held["ulp_floor"])
+    check(held["max_abs_err"] <= held["tolerance"],
+          f"{leg}: trained leaves differ from train_local's by "
+          f"{held['max_abs_err']} (> {held['tolerance']}, "
+          f"{held['compute_dtype']} products; one-ulp floor "
+          f"{held['ulp_floor']}, the leaves moved up to "
+          f"{held['max_change']})")
+    val_sets, accs = window["evaluated"]
+    again, grids = argmax_grids(engine.evaluate_cohort_stacked, trained,
+                                val_sets)
+    check(again == list(accs), f"{leg}: the window's forwards redone give "
+          f"accuracies {again}, the run {list(accs)}")
+    n = backend.batch_size * backend.seq_len
+    differing = []
+    for k, ds in enumerate(val_sets):
+        acc, want = argmax_grids(backend.evaluate,
+                                 tree_map(lambda l: l[k], trained), ds)
+        differing.append(int((grids[k] != want[0]).sum()))
+        check(grids[k].shape == want[0].shape and differing[-1] == 0
+              and round(acc * n) == round(accs[k] * n),
+              f"{leg}: client {k}'s argmax tokens differ from evaluate's at "
+              f"{differing[-1]} positions (accuracy {accs[k]} against "
+              f"{acc})")
+    row_flag = 1.0 / (backend.seq_len * -(-backend.cfg.d_model // 64))
+    sig_sets, sigs = window["signed"]
+    sig_err, buckets = 0.0, 0
+    for k, (ds, got) in enumerate(zip(sig_sets, sigs)):
+        want = backend.signature(tree_map(lambda l: l[k], trained), ds)
+        sig_err = max(sig_err, float(np.abs(got - want).max()))
+        buckets += int(np.sum(got != want))
+    check(sig_err <= row_flag, f"{leg}: signatures differ from "
+          f"signature's by {sig_err} (> 1/(S*w) = {row_flag})")
+    return {"clients": len(seeds), "train": own, "train_held": held,
+            "argmax_positions": int(grids[0].numel()),
+            "argmax_positions_differing": differing,
+            "accuracies": list(accs),
+            "signature_max_abs_err": sig_err,
+            "signature_tolerance": row_flag,
+            "signature_buckets_differing": buckets}
+
+
+def lm_cohort_leg(kern, dev, *, leg, cfg, clients, cohort_size, batch,
+                  expected_params, seq_s_per_round,
+                  reference_compute=None) -> dict:
+    """The DAG-AFL loop over ``clients`` ``LMBackend`` clients on the cohort
+    engine (``LMCohortPrograms``): 2 rounds a client of 2 local steps, 512
+    positions, ``cohort_window=2.0``, timed by engine call, with every
+    kernel's launch count set to 0 just before the run and read just
+    after; then one window redone by the sequential calls
+    (``lm_cohort_parity``)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.fl.cohort import CohortBackend, LMCohortPrograms
+
+    sig, fa, ss, ml, sl = (kern[k] for k in ("sig", "fa", "ss", "ml",
+                                               "sl"))
+    mods = {"signature": sig, "flash": fa, "scan": ss, "mlstm": ml,
+            "slstm": sl}
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams, global_test = lm_streams(clients)
+    client_data = [{"train": s, "val": s, "test": s} for s in streams]
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
+                        seq_len=512)
+    check(backend.device.type == "cuda", f"{leg}: backend is not on the "
+          f"card")
+    engine = CohortBackend(backend)
+    check(isinstance(engine.programs, LMCohortPrograms), f"{leg}: the "
+          f"engine took {type(engine.programs).__name__}")
+    genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(genesis))
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{leg}: {n_params} parameters, expected {expected_params}")
+    # warm-up outside the counted run: one window of the run's width and
+    # one sequential step (a window of one trains sequentially), cuBLAS
+    # handles and allocator pools
+    warm, _ = engine.train_cohort([genesis] * cohort_size,
+                                  streams[:cohort_size], [0] * cohort_size,
+                                  epochs=1)
+    engine.evaluate_cohort(warm, streams[:cohort_size])
+    engine.signature_cohort(warm, streams[:cohort_size])
+    del warm
+    warm, _ = backend.train_local(genesis, streams[0], epochs=1)
+    backend.evaluate(warm, streams[0])
+    backend.signature(warm, streams[0])
+    del warm
+
+    engine_calls = ("train_cohort_stacked", "evaluate_cohort_stacked",
+                    "signature_cohort_stacked", "evaluate_many",
+                    "evaluate_shared")
+    backend_calls = ("train_local", "evaluate", "signature")
+    calls = {name: 0 for name in engine_calls + backend_calls}
+    seconds = {name: 0.0 for name in engine_calls + backend_calls}
+    plain = {name: 0 for name in mods}
+    depth, last_s = [0], {}
+    window, forwards, windows, steps = {}, [0], [], []
+    signatures, accs = [], []
+
+    def counted(name, fn, keep=None):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            calls[name] += 1
+            last_s[name] = time.perf_counter() - t
+            if depth[0] == 0:
+                seconds[name] += last_s[name]
+            if keep is not None:
+                keep(args, out)
+            return out
+        return wrapper
+
+    def keep_train(args, out):
+        steps.append({"clients": len(args[1]),
+                      "seconds": last_s["train_cohort_stacked"]})
+        window.setdefault("train_in", args[:3] + (2,))
+        window.setdefault("trained", out[0])
+
+    def keep_engine(key, found):
+        def keep(args, out):
+            found.extend(out)
+            forwards[0] += len(args[1])
+            window.setdefault(key, (args[1], out))
+        return keep
+
+    def keep_many(args, out):
+        accs.extend(out)
+        if len(args[0]) > engine.programs.eval_many_min_batch:
+            forwards[0] += len(args[0])
+
+    def keep_one(found):
+        def keep(args, out):
+            found.append(out)
+            forwards[0] += 1
+        return keep
+
+    def keep_shared(args, out):
+        accs.extend(out)
+        forwards[0] += 1                   # the K shards in one forward
+
+    def plain_counted(name, fn):
+        def wrapper(*args, **kwargs):
+            plain[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    inner = (fa.flash_attention_plain, sig.signature_counts_plain,
+             ss.selective_scan_plain, ml.mlstm_chunkwise_plain,
+             sl.slstm_scan_plain)
+    engine.train_cohort_stacked = counted(
+        "train_cohort_stacked", engine.train_cohort_stacked, keep_train)
+    engine.evaluate_cohort_stacked = counted(
+        "evaluate_cohort_stacked", engine.evaluate_cohort_stacked,
+        keep_engine("evaluated", accs))
+    engine.signature_cohort_stacked = counted(
+        "signature_cohort_stacked", engine.signature_cohort_stacked,
+        keep_engine("signed", signatures))
+    engine.evaluate_many = counted("evaluate_many", engine.evaluate_many,
+                                   keep_many)
+    engine.evaluate_shared = counted("evaluate_shared",
+                                     engine.evaluate_shared, keep_shared)
+    backend.train_local = counted("train_local", backend.train_local)
+    backend.evaluate = counted("evaluate", backend.evaluate, keep_one(accs))
+    backend.signature = counted("signature", backend.signature,
+                                keep_one(signatures))
+    fa.flash_attention_plain = plain_counted("flash", inner[0])
+    sig.signature_counts_plain = plain_counted("signature", inner[1])
+    ss.selective_scan_plain = plain_counted("scan", inner[2])
+    ml.mlstm_chunkwise_plain = plain_counted("mlstm", inner[3])
+    sl.slstm_scan_plain = plain_counted("slstm", inner[4])
+    coord = DagAflCoordinator(
+        backend, client_data, global_test,
+        DagAflConfig(n_clients=clients, max_rounds=2, local_epochs=2,
+                     cohort_size=cohort_size, cohort_window=2.0),
+        cohort_engine=engine)
+    check(coord.cohort is engine, f"{leg}: the coordinator took no cohort "
+          f"engine")
+    flush = coord._window.flush_fn
+
+    def counted_flush(batch_):
+        windows.append(len(batch_))
+        flush(batch_)
+
+    coord._window.flush_fn = counted_flush
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():                      # counts start here
+        mod.launches = 0
+    fa.launches_sm90 = fa.launches_fma = 0
+    sig.launches_vec = sig.launches_strided = 0
+    t0 = time.perf_counter()
+    result = coord.run(init_model=genesis)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in mods.items()}
+    flash_routes = {"sm90": fa.launches_sm90, "fma": fa.launches_fma}
+    sig_routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
+    (fa.flash_attention_plain, sig.signature_counts_plain,
+     ss.selective_scan_plain, ml.mlstm_chunkwise_plain,
+     sl.slstm_scan_plain) = inner                  # and are read here
+    seconds["rest"] = wall - sum(seconds.values())
+    run_calls, run_seconds, run_forwards = dict(calls), dict(seconds), \
+        forwards[0]
+    peak = torch.cuda.max_memory_allocated()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+    rounds = result.rounds
+    batched = sum(n for n in windows if n > 1)
+    accs += [result.final_accuracy, result.best_accuracy,
+             result.extra["tip_mean_accuracy"],
+             result.extra["client_mean_accuracy"]]
+    accs += [a for _, a in result.history]
+    ok, why = verify_full_dag(coord.ledger)
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    expected = {"signature": rounds,
+                "flash": kinds.count("attn") * run_forwards,
+                "scan": kinds.count("mamba") * run_forwards,
+                "mlstm": kinds.count("mlstm") * run_forwards,
+                "slstm": kinds.count("slstm") * run_forwards}
+    check(rounds == 2 * clients,
+          f"{leg}: expected {2 * clients} rounds, got {rounds}")
+    check(result.extra["chain_len"] == 1 + rounds,
+          f"{leg}: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(result.extra["verify_failures"] == 0, f"{leg}: path verification")
+    check(ok, f"{leg}: verify_full_dag: {why}")
+    check(max(windows, default=0) >= 2 and "train_in" in window
+          and result.extra["cohorts_dispatched"] >= 1,
+          f"{leg}: no window of 2 or more clients (windows {windows})")
+    # one signature launch a round: a client of a window, or one alone
+    check(launches == expected
+          and rounds == batched + run_calls["signature"],
+          f"{leg}: launches {launches}, expected {expected} for "
+          f"{run_forwards} eval and signature forwards, {rounds} rounds "
+          f"({batched} in windows)")
+    check(flash_routes == {"sm90": launches["flash"], "fma": 0},
+          f"{leg}: flash launches by route {flash_routes}: every one of the "
+          f"{launches['flash']} must take the sm90 kernel")
+    check(sig_routes == {"vec": launches["signature"], "strided": 0},
+          f"{leg}: signature launches by route {sig_routes}: every one of "
+          f"the {launches['signature']} must take the vec kernel")
+    check(not any(plain.values()), f"{leg}: the path ran a plain kernel "
+          f"version: {plain}")
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+          f"{leg}: accuracies {accs}")
+    check(all(np.shape(s) == (64,) and np.all((s >= 0) & (s <= 1))
+              for s in signatures) and len(signatures) == rounds,
+          f"{leg}: signatures are not {rounds} rows of 64 fractions")
+    check(all(p.is_cuda for p in tree_leaves(coord.global_model())),
+          f"{leg}: model left the card")
+    parity = lm_cohort_parity(backend, engine, window, leg,
+                              reference_compute)
+    record = dict(
+        phase="lm_cohort_path", leg=leg, model=cfg.name,
+        layers=kinds, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        data_vocab=LM_DATA_VOCAB, batch=batch, seq_len=512, local_steps=2,
+        n_params=n_params, clients=clients, cohort_size=cohort_size,
+        cohort_window=2.0, rounds=rounds,
+        chain_len=result.extra["chain_len"],
+        cohorts_dispatched=result.extra["cohorts_dispatched"],
+        windows=windows, rounds_in_windows=batched, window_steps=steps,
+        wall_s=wall, s_per_round=wall / rounds, peak_bytes=peak,
+        alloc_retries=retries, sequential_s_per_round=seq_s_per_round,
+        ratio_to_sequential=wall / rounds / seq_s_per_round,
+        final_accuracy=result.final_accuracy,
+        tip_mean_accuracy=result.extra["tip_mean_accuracy"],
+        calls=run_calls, seconds=run_seconds, forwards=run_forwards,
+        launches=launches, flash_routes=flash_routes,
+        signature_routes=sig_routes, verify_full_dag=why, parity=parity)
+    emit(**record)
+    del coord, engine, backend, genesis, window
+    return record
+
+
+def phase_lm_cohort_path(kern, dev, sequential: dict) -> dict:
+    """The three LM families on the cohort engine (LM_COHORT_LEGS), each
+    against its sequential path's seconds a round from this call."""
+    configs = {"lm": lm_config, "hybrid": hybrid_config,
+               "xlstm": xlstm_config}
+    return {leg: lm_cohort_leg(
+        kern, dev, leg=leg, cfg=configs[family](), clients=clients,
+        cohort_size=size, batch=batch, expected_params=n_params,
+        seq_s_per_round=sequential[family]["s_per_round"],
+        reference_compute=held)
+        for leg, family, clients, size, batch, n_params, held
+        in LM_COHORT_LEGS}
+
+
+def phase_train_path(kern, dev) -> dict:
+    """``launch/train.train_single`` on ``lm_config()``: TRAIN_STEPS AdamW
+    steps (clip 1.0, the signature in the metrics) over a TokenPipeline of
+    the LM paths' sub-vocabulary, batch 8 x 512, with every kernel's launch
+    count set to 0 just before and read just after; then a checkpoint
+    round trip and one eval step."""
+    import argparse
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.step import make_eval_step
+
+    sig = kern["sig"]
+    others = {k: kern[k] for k in ("fa", "ss", "ml", "sl")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(LM_DATA_VOCAB, 8, 512, seed=0)
+    data_s = time.perf_counter() - t0
+    args = argparse.Namespace(steps=TRAIN_STEPS, batch=8, seq=512, seed=0,
+                              device=str(dev), log_every=TRAIN_STEPS,
+                              checkpoint="")
+    history, plain = [], [0]
+    inner = sig.signature_counts_plain
+
+    def plain_counted(*a, **kw):
+        plain[0] += 1
+        return inner(*a, **kw)
+
+    sig.signature_counts_plain = plain_counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sig.launches = sig.launches_vec = sig.launches_strided = 0
+    for mod in others.values():                    # counts start here
+        mod.launches = 0
+    t0 = time.perf_counter()
+    params = launch.train_single(cfg, args, pipe=pipe, history=history)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"signature": sig.launches,
+                **{k: m.launches for k, m in others.items()}}
+    routes = {"vec": sig.launches_vec, "strided": sig.launches_strided}
+    sig.signature_counts_plain = inner             # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    step_s = [h["seconds"] for h in history]
+    check(len(history) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train_path: losses {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"train_path: the mean "
+          f"loss of the last 3 steps {np.mean(losses[-3:])} is not below "
+          f"step 0's {losses[0]}")
+    check(launches == {"signature": TRAIN_STEPS, "fa": 0, "ss": 0, "ml": 0,
+                       "sl": 0} and plain[0] == 0,
+          f"train_path: launches {launches} (plain {plain[0]}): one "
+          f"signature launch a step and nothing else")
+    check(routes == {"vec": TRAIN_STEPS, "strided": 0},
+          f"train_path: signature launches by route {routes}")
+    check(all(np.shape(h["signature"]) == (64,) for h in history),
+          "train_path: signature metric is not 64 fractions")
+    ckpt = ROOT / "build" / "chip_smoke_train.npz"
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt), params, step=TRAIN_STEPS)
+    restored, step = load_checkpoint(str(ckpt), params)
+    ckpt_s = time.perf_counter() - t0
+    same = step == TRAIN_STEPS and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(tree_leaves(restored), tree_leaves(params)))
+    ckpt_bytes = ckpt.stat().st_size
+    ckpt.unlink()
+    check(same, "train_path: the checkpoint round trip is not bit-equal")
+    del restored
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_dict(next(iter(pipe))).items()}
+    acc = float(make_eval_step(cfg, Runtime(use_kernels=True))(
+        params, batch)["accuracy"])
+    check(np.isfinite(acc) and 0.0 <= acc <= 1.0,
+          f"train_path: eval accuracy {acc}")
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    record = dict(
+        phase="train_path", model=cfg.name, optimizer="adamw",
+        clip_norm=1.0, batch=8, seq_len=512, data_vocab=LM_DATA_VOCAB,
+        steps=TRAIN_STEPS, losses=losses,
+        grad_norms=[h["grad_norm"] for h in history],
+        step_ms=[1e3 * s for s in step_s], ms_per_step=ms,
+        tokens_per_s=8 * 512 / (ms / 1e3), wall_s=wall, data_s=data_s,
+        peak_bytes=peak, launches=launches, signature_routes=routes,
+        checkpoint_bytes=ckpt_bytes, checkpoint_s=ckpt_s,
+        eval_accuracy=acc)
+    emit(**record)
+    del params
+    return record
+
+
 def lm_config():
     """internlm2-1.8b at full width, depth cut to 4 of 24 layers."""
     import dataclasses
@@ -2232,7 +2863,10 @@ def main() -> None:
     xl = phase_lm_loop(kern, dev, phase="xlstm_path", cfg=xlstm_config(),
                        clients=3, local_steps=2, expected_params=XLSTM_PARAMS,
                        reference_compute="float32")
-    paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl}
+    cohorts = phase_lm_cohort_path(kern, dev, {"lm": lm, "hybrid": hybrid,
+                                               "xlstm": xl})
+    train = phase_train_path(kern, dev)
+    paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -2244,6 +2878,8 @@ def main() -> None:
                    if key == "signature" else {})
         by_path.update({name: p["launches"][key] for name, p in paths.items()
                         if p["launches"][key]})
+        if key == "signature":
+            by_path["lm_train"] = train["launches"]["signature"]
         record["launches_by_path"] = by_path
         record["launches"] = sum(by_path.values())
     sig_record["launches_by_route"] = {
@@ -2251,7 +2887,8 @@ def main() -> None:
         "cnn_cohort": cohort["signature_routes"],
         "cnn_baselines": baselines["signature_routes"],
         "cnn_scenarios": scenarios["signature_routes"],
-        **{name: p["signature_routes"] for name, p in paths.items()}}
+        **{name: p["signature_routes"] for name, p in paths.items()},
+        "lm_train": train["signature_routes"]}
     flash_record["launches_by_route"] = {
         name: p["flash_routes"] for name, p in paths.items()
         if p["launches"]["flash"]}

@@ -1,12 +1,16 @@
-"""Cohort-window assembly: the cohort engine's host-side stage.
+"""Host-side data pipelines: token-batch sampling and cohort-window assembly.
 
-Port of ``repro.data.pipeline``'s ``WindowAssembler`` (the LM's
-``TokenPipeline`` is not ported yet).  While the card computes one cohort
-window, the NEXT window's batches are sampled, stacked, padded and copied
-to the card on a background thread.  RNG parity is by construction: every
-client's batches come from ``np.random.default_rng(seed)`` seeded per
-client (``programs.client_batches``), so the sampled images are identical
-whether assembly runs inline, early or on another thread.
+Port of ``repro.data.pipeline``.  :class:`TokenPipeline` is the LM
+streaming sampler (synthetic Markov streams, optional disjoint per-client
+sharding): the same windows as the reference's from the same seed.
+
+:class:`WindowAssembler` is the cohort engine's host-side stage.  While
+the card computes one cohort window, the NEXT window's batches are
+sampled, stacked, padded and copied to the card on a background thread.
+RNG parity is by construction: every client's batches come from
+``np.random.default_rng(seed)`` seeded per client
+(``programs.client_batches``), so the sampled images and tokens are
+identical whether assembly runs inline, early or on another thread.
 
 Padding follows the window, not a compile cache: the step axis is padded to
 the window's own longest client (the reference keeps a monotone target,
@@ -25,10 +29,52 @@ from __future__ import annotations
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.data.synthetic import make_lm_dataset
+
+
+class TokenPipeline:
+    """Infinite (batch, seq+1) sampler over a token stream with optional
+    per-client sharding (each client sees a disjoint slice).
+
+    Shard boundaries follow ``np.array_split``: the remainder tokens of
+    ``len(stream) % n_shards`` spread over the first shards, so every
+    token belongs to exactly one client."""
+
+    def __init__(self, vocab: int, batch: int, seq: int,
+                 n_tokens: int = 500_000, seed: int = 0,
+                 n_shards: int = 1, shard: int = 0):
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} out of range for "
+                             f"{n_shards} shards")
+        stream = make_lm_dataset(vocab=vocab, n_tokens=n_tokens, seed=seed)
+        self.stream = np.array_split(stream, n_shards)[shard]
+        # a (seq+1)-token window needs at least one valid start position
+        if len(self.stream) < seq + 1:
+            raise ValueError(
+                f"shard {shard} holds {len(self.stream)} tokens but "
+                f"seq={seq} windows need at least {seq + 1}; lower "
+                f"n_shards (={n_shards}) or raise n_tokens (={n_tokens})")
+        self.batch = batch
+        self.seq = seq
+        self.rng = np.random.default_rng(seed * 997 + shard)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        # starts range over every valid window, so the shard's final token
+        # is reachable (high is exclusive: max start = len - seq - 1)
+        while True:
+            starts = self.rng.integers(
+                0, len(self.stream) - self.seq, self.batch)
+            yield np.stack([self.stream[s:s + self.seq + 1] for s in starts])
+
+    def batch_dict(self, arr: np.ndarray):
+        return {"tokens": arr[:, :-1].astype(np.int32),
+                "labels": arr[:, 1:].astype(np.int32)}
+
 
 _SHARED_EXECUTOR: Optional[ThreadPoolExecutor] = None
 _SHARED_EXECUTOR_LOCK = threading.Lock()

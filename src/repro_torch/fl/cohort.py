@@ -1,7 +1,7 @@
 """Cohort execution engine: the K clients of a window as one batched program.
 
-Port of ``repro.fl.cohort`` on one device, CNN suite.  The simulator's event
-heap decides *when* each client's round runs in simulated time; this module
+Port of ``repro.fl.cohort`` on one device.  The simulator's event heap
+decides *when* each client's round runs in simulated time; this module
 decides *how* the card executes the work.  Instead of K serial
 ``train_local`` / ``evaluate`` / ``signature`` calls, a
 :class:`CohortBackend` keeps the K clients' parameter trees stacked along a
@@ -10,18 +10,29 @@ program over them, and validation and signatures as one call each that
 runs the K forwards back to back.
 
 The batched programs come per backend family from a suite
-(:class:`CohortPrograms`); :class:`CNNCohortPrograms` is the paper's VGG
-path.  Its training runs each conv layer of the K clients as one grouped
-convolution (``groups=K``) and each dense layer as one batched product,
-the counterpart of the reference's ``vmap`` of a ``scan``.  The
-reference's im2col products (``_conv_as_matmul``), its form for a
-``vmap`` that XLA:CPU lowers well, are slower on the card than cuDNN's
-grouped convolutions (``chip_smoke.py`` times both).  The sum of the
-K clients' mean losses is backpropagated once, so each client's gradient
-is exactly its own loss's.  Validation and signatures keep the conv-form
-forward (``models.cnn``) per client, the counterpart of ``lax.map``; the
-signatures' per-sample rows come from the Eq. 3 signature kernel
-(``ops.signature_per_channel``), one launch per client.
+(:class:`CohortPrograms`):
+
+  * :class:`CNNCohortPrograms`, the paper's VGG path.  Its training runs
+    each conv layer of the K clients as one grouped convolution
+    (``groups=K``) and each dense layer as one batched product, the
+    counterpart of the reference's ``vmap`` of a ``scan``.  The
+    reference's im2col products (``_conv_as_matmul``), its form for a
+    ``vmap`` that XLA:CPU lowers well, are slower on the card than
+    cuDNN's grouped convolutions (``chip_smoke.py`` times both).
+    Validation and signatures keep the conv-form forward (``models.cnn``)
+    per client, the counterpart of ``lax.map``; the signatures'
+    per-sample rows come from the Eq. 3 signature kernel
+    (``ops.signature_per_channel``), one launch per client.
+  * :class:`LMCohortPrograms`, the ``LMBackend`` path (the dense GQA
+    decoders, Jamba's hybrid, xLSTM).  Its training is
+    ``torch.func.vmap`` of the model's functional ``loss_fn`` over the
+    stacked tree (the reference's ``vmap``), on the plain attention and
+    the models' own scans under autograd; validation and signatures run
+    per client on the kernels, the signature rows from one kernel launch
+    over the client's final-norm output (``per_sample_signature``).
+
+Either way the sum of the K clients' losses is backpropagated once, so
+each client's gradient is exactly its own loss's.
 ``register_cohort_programs`` extends the registry; a backend without a
 suite runs sequentially (``build_cohort_engine`` returns None).
 
@@ -45,6 +56,13 @@ cohort programs compute them (``num / max(den, 1)``), not the multiply by
 a float32 reciprocal that its jitted ``jnp.mean`` (and the sequential
 path, ``core.aggregate.f32_mean``) uses: the two differ in the last bit on
 many counts, and these means reach the Eq. 7 digest and tip selection.
+An LM row's token accuracy is a mean over its unpadded positions inside
+the reference's jitted program, so it multiplies by the float32
+reciprocal.  Those accuracies and the LM signature rows are not exact
+sums in every order (the CNN's 0/1 counts and k/1024 fractions are), so
+the LM suite adds a window's rows as the reference's programs add them on
+the CPU, over the rows the reference pads a shard to
+(:func:`_lane_sum`, :func:`_fused_row_sum`).
 
 The scenarios' update transform (``perturb_update``,
 ``perturb_cohort_stacked_trees``, ``CohortBackend.perturb_cohort_stacked``)
@@ -66,11 +84,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregate import (fma_f32, pad_leading, tree_leaves,
-                                        tree_map, tree_stack, tree_unstack)
+from repro_torch.core.aggregate import (f32_mean, fma_f32, next_pow2,
+                                        pad_leading, round_up_multiple,
+                                        tree_leaves, tree_map, tree_stack,
+                                        tree_unstack)
 from repro_torch.data.pipeline import WindowAssembler
-from repro_torch.fl.backend import CNNBackend
+from repro_torch.fl.backend import CNNBackend, LMBackend
 from repro_torch.kernels import ops
+from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import apply_updates
 
 
@@ -197,6 +218,87 @@ def _masked_mean(rows: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     return (rows * w).sum(dim=0) / w.sum().clamp_min(1.0)
 
 
+def _ordered_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Float32 sum along ``dim``, adding the rows left to right."""
+    rows = z.movedim(dim, 0)
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
+    return acc
+
+
+_TREE_WINDOW = 32     # XLA:CPU's tree reduction splits longer sums
+
+
+def _reference_rows(n: int) -> int:
+    """The rows the reference engine pads a shard of ``n`` to
+    (``_round_chunk`` at its default quantum of 64): the padded rows are
+    zeros in its sums and change their order."""
+    return next_pow2(n) if n < 64 else round_up_multiple(n, 64)
+
+
+def _join_lanes(acc: torch.Tensor) -> torch.Tensor:
+    """A vectorized loop's lanes (L, ...), L a power of two, added in
+    halves."""
+    while acc.shape[0] > 1:
+        half = acc.shape[0] // 2
+        acc = acc[:half] + acc[half:]
+    return acc[0]
+
+
+def _window_sums(rows: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's tree reduction of more than 32 rows: padded in front with
+    half the zeros that fill whole windows of 32, the rows of each window
+    added left to right."""
+    first = _TREE_WINDOW - (-rows.shape[0] % _TREE_WINDOW) // 2
+    return torch.stack([_ordered_sum(p) for p in
+                        (rows[:first], *rows[first:].split(_TREE_WINDOW))])
+
+
+def _lane_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Float32 sum along ``dim`` of rows computed in the program
+    (accuracies), in the order of the reference's jitted LM programs on
+    XLA:CPU (jaxlib 0.9.0 on x86-64 with AVX-512), over the rows padded to
+    ``_reference_rows``: probed at every count from 1 to 130 and at ten
+    counts from 200 to 5,000; other jaxlib versions or CPUs are
+    unverified.
+
+    Up to 32 rows (a power of two), one vectorized loop: lane ``j`` of
+    ``min(n, 8)`` lanes adds rows ``j, j + lanes, ...``, and the lanes are
+    joined in halves.  Past 32 rows, window sums (``_window_sums``), split
+    again while there are more than 32, then added left to right: they
+    are the next fusion's input."""
+    rows = z.movedim(dim, 0)
+    rows = pad_leading(rows, _reference_rows(rows.shape[0]))
+    n = rows.shape[0]
+    if n > _TREE_WINDOW:
+        rows = _window_sums(rows)
+        while rows.shape[0] > _TREE_WINDOW:
+            rows = _window_sums(rows)
+        return _ordered_sum(rows)
+    return _join_lanes(_ordered_sum(rows.unflatten(0, (-1, min(n, 8)))))
+
+
+def _fused_row_sum(counts: torch.Tensor, scale: torch.Tensor
+                   ) -> torch.Tensor:
+    """``sum_i counts[i] * scale[i]`` over rows (n, d) of exact counts, in
+    the order of the reference's masked signature mean on XLA:CPU (probed
+    at every count from 1 to 69 and at five counts to 300): up to 32
+    padded rows, each product is fused into the sum, one fused
+    multiply-add (``fma_f32``) a row in 8 lanes joined in halves; past
+    32, the rounded products as ``_lane_sum`` adds them."""
+    n = _reference_rows(counts.shape[0])
+    if n > _TREE_WINDOW:
+        return _lane_sum(counts * scale[:, None])
+    rows = round_up_multiple(n, 8)
+    counts = pad_leading(counts, rows).unflatten(0, (-1, 8))
+    scale = pad_leading(scale, rows).unflatten(0, (-1, 8))[..., None]
+    acc = torch.zeros_like(counts[0])
+    for c, w in zip(counts, scale):
+        acc = fma_f32(w.expand_as(c), c, acc)
+    return _join_lanes(acc)
+
+
 # ---------------------------------------------------------------------------
 # per-backend cohort program suites
 # ---------------------------------------------------------------------------
@@ -222,6 +324,8 @@ class CohortPrograms:
         terms for ONE model on K stacked shards
       * ``sample_signature(params, xs)``  per-sample Eq. 3 signature rows,
         so the engine can take a padding-masked mean
+      * ``signature_mean(params, xs, ms)``  that mean (by default
+        ``_masked_mean`` of ``sample_signature``)
 
     on the host (batch assembly, matching the sequential RNG streams):
       * ``client_batches(ds, seed, epochs)``  numpy (xb (T, ...), yb (T, ...))
@@ -271,6 +375,9 @@ class CohortPrograms:
 
     def sample_signature(self, params, xs):
         raise NotImplementedError
+
+    def signature_mean(self, params, xs, ms):
+        return _masked_mean(self.sample_signature(params, xs), ms)
 
     def client_batches(self, ds, seed: int, epochs: int):
         raise NotImplementedError
@@ -390,6 +497,115 @@ class CNNCohortPrograms(CohortPrograms):
         return self.backend.evaluate(params, ds, limit)
 
 
+class LMCohortPrograms(CohortPrograms):
+    """``LMBackend`` programs: the dense GQA decoders, Jamba's hybrid and
+    xLSTM.
+
+    Training is ``torch.func.vmap`` of the model's functional ``loss_fn``
+    over the K stacked trees, each client on its own token batch, on the
+    plain attention and the models' own scans under autograd (the kernels
+    have no backward, as in the reference); the vmapped products run as
+    batched ones.  Validation and signatures run per client on the
+    kernels, as the reference's ``lax.map``.  Token batches are drawn on
+    the host with ``LMBackend``'s numpy RNG streams, so cohort and
+    sequential runs see the same tokens.  Signatures are the Eq. 3
+    threshold fractions of the final-norm output, per sample
+    (``tfm.per_sample_signature``), so the engine's mask keeps padded rows
+    out of the mean.
+    """
+
+    backend_cls = LMBackend
+    eval_many_min_batch = 3
+    # sequential LMBackend.evaluate/signature fix their sampling seeds
+    _EVAL_SEEDS = {"eval": 1, "sig": 2}
+
+    def __init__(self, backend):
+        super().__init__(backend)
+        # eval and signature forwards take the kernels; the rows' tau and
+        # width come from the backend's signature runtime
+        self.runtime = backend.eval_runtime
+        self.sig_runtime = backend.signature_runtime
+
+    @property
+    def default_epochs(self) -> int:
+        return self.backend.local_steps
+
+    def sum_loss(self, stacked, x, y, w, denom):
+        """(K,) row-weighted token cross-entropy over the token count
+        ``denom``: x (K, B, S+1) token rows, y (K, B, S) = x[..., 1:]."""
+        m = w[:, None].expand(y.shape[1:]).float()
+
+        def one(params, xk, yk):
+            batch = {"tokens": xk[:, :-1], "labels": yk, "mask": m}
+            return tfm.loss_fn(params, batch, self.cfg)[0]
+
+        return torch.func.vmap(one)(stacked, x, y) * m.sum() / denom
+
+    def loss_denom(self, w, y):
+        return w.sum() * y.shape[-1]
+
+    def _row_correct(self, params, xs, ys):
+        """(N, S) correctness grid of a token shard."""
+        logits, _ = tfm.forward(params, {"tokens": xs[:, :-1]}, self.cfg,
+                                self.runtime)
+        return (logits.argmax(-1) == ys).float()
+
+    def _row_accuracy(self, params, xs, ys):
+        """(N,) next-token accuracy of each row: a mean over its S
+        positions, by the float32 reciprocal."""
+        return f32_mean(self._row_correct(params, xs, ys), dim=-1)
+
+    def eval_terms(self, params, xs, ys, ms):
+        """Rows all carry ``seq_len`` real positions, so the masked mean of
+        row means is the sequential path's grand mean."""
+        per_row = self._row_accuracy(params, xs, ys)
+        return _lane_sum(per_row * ms), ms.sum()
+
+    def eval_shared_terms(self, params, x, y, mask):
+        """ONE model on K stacked token shards, folded into the batch of
+        one forward."""
+        k, n = x.shape[:2]
+        per_row = self._row_accuracy(params, x.flatten(0, 1),
+                                     y.flatten(0, 1)).reshape(k, n)
+        return _lane_sum(per_row * mask, dim=1), mask.sum(dim=1)
+
+    def _hidden(self, params, xs):
+        return tfm.forward_hidden(params, {"tokens": xs[:, :-1]}, self.cfg,
+                                  self.runtime)[0]
+
+    def sample_signature(self, params, xs):
+        """(N, signature_dims) Eq. 3 rows of the final-norm output."""
+        return tfm.per_sample_signature(self._hidden(params, xs),
+                                        self.sig_runtime)
+
+    def signature_mean(self, params, xs, ms):
+        """The masked mean of the rows, from their exact bucket counts (one
+        kernel launch) in the reference's fused order."""
+        rt = self.sig_runtime
+        sums, scale = ops.signature_buckets(
+            self._hidden(params, xs), tau=rt.signature_tau,
+            n_sig=rt.signature_dims)
+        return _fused_row_sum(sums, ms * scale) / ms.sum().clamp_min(1.0)
+
+    def client_batches(self, ds, seed: int, epochs: int):
+        """``LMBackend.train_local``'s stream: one ``_sample`` call drawing
+        (epochs, B, S+1) token windows."""
+        toks = self.backend._sample(ds, np.random.default_rng(seed), epochs)
+        return toks, toks[:, :, 1:]
+
+    def eval_single(self, ds, limit: int, kind: str):
+        toks = self.backend._sample(ds, np.random.default_rng(
+            self._EVAL_SEEDS[kind]), 1)[0]
+        return toks, toks[:, 1:], int(toks.shape[0])
+
+    def summarize_losses(self, losses, steps, epochs) -> List[float]:
+        """Sequential contract: mean loss over ALL the client's steps."""
+        return [float(np.mean(losses[i, :s])) for i, s in enumerate(steps)]
+
+    def evaluate_one(self, params, ds, limit: int) -> float:
+        return self.backend.evaluate(params, ds)
+
+
 _PROGRAM_REGISTRY: List[Type[CohortPrograms]] = []
 
 
@@ -403,6 +619,7 @@ def register_cohort_programs(programs_cls: Type[CohortPrograms]) -> None:
 
 
 register_cohort_programs(CNNCohortPrograms)
+register_cohort_programs(LMCohortPrograms)
 
 
 def _programs_for(backend) -> Optional[Type[CohortPrograms]]:
@@ -590,8 +807,8 @@ class CohortBackend:
         """(K, dims) Eq. 3 signatures: per client, the per-sample rows (one
         kernel launch) and their masked mean."""
         x, _, mask = self._eval_arrays(datasets, limit, kind="sig")
-        sigs = [_masked_mean(self.programs.sample_signature(
-                    _client(stacked_params, k), x[k]), mask[k])
+        sigs = [self.programs.signature_mean(_client(stacked_params, k),
+                                             x[k], mask[k])
                 for k in range(len(datasets))]
         return torch.stack(sigs).cpu().numpy()
 

@@ -47,24 +47,46 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return selective_scan_bsd(x, dt, A, Bc, Cc, h0)
 
 
+def _bucket_sums(counts: torch.Tensor, n_sig: int):
+    """Per-channel counts (..., d) -> (exact bucket sums (..., n_sig), the
+    bucket width w): zero-padded tail channels (``d % n_sig != 0``) add
+    zero counts."""
+    pad = (-counts.shape[-1]) % n_sig
+    if pad:
+        counts = F.pad(counts, (0, pad))
+    w = counts.shape[-1] // n_sig
+    return counts.unflatten(-1, (n_sig, w)).sum(dim=-1), w
+
+
 def signature(x: torch.Tensor, *, tau: float = 0.05,
               n_sig: int = 64) -> torch.Tensor:
     """Activation (..., d) -> bucketed Eq. 3 signature vector (n_sig,).
 
     The kernel counts flags per channel over ``x.reshape(-1, d)`` in one
-    ``(1, T, d)`` call; zero-padded tail channels (``d % n_sig != 0``) add
-    zero counts; exact bucket sums are scaled by the float32 reciprocal of
-    ``T * w``.  Bit-identical to ``models.layers.activation_signature``.
+    ``(1, T, d)`` call; exact bucket sums are scaled by the float32
+    reciprocal of ``T * w``.  Bit-identical to
+    ``models.layers.activation_signature``.
     """
-    d = x.shape[-1]
-    flat = x.reshape(-1, d)
-    t = flat.shape[0]
-    pad = (-d) % n_sig
-    w = (d + pad) // n_sig
-    counts = signature_counts(flat[None], tau)[0]
-    if pad:
-        counts = F.pad(counts, (0, pad))
-    return counts.reshape(n_sig, w).sum(dim=1) * _reciprocal(t * w)
+    flat = x.reshape(-1, x.shape[-1])
+    sums, w = _bucket_sums(signature_counts(flat[None], tau)[0], n_sig)
+    return sums * _reciprocal(flat.shape[0] * w)
+
+
+def signature_buckets(h: torch.Tensor, *, tau: float = 0.05,
+                      n_sig: int = 64):
+    """Per-sample bucketed Eq. 3 counts of ``h`` (B, S, d): (exact bucket
+    sums (B, n_sig), the float32 reciprocal of ``S * w`` that makes them
+    fractions).  One launch of the kernel over ``h`` as (B, S, d)."""
+    sums, w = _bucket_sums(signature_counts(h, tau), n_sig)
+    return sums, _reciprocal(h.shape[1] * w)
+
+
+def signature_per_sample(h: torch.Tensor, *, tau: float = 0.05,
+                         n_sig: int = 64) -> torch.Tensor:
+    """Per-sample Eq. 3 signature rows (B, n_sig) of ``h`` (B, S, d): each
+    row the bits of ``signature`` on that sample alone."""
+    sums, scale = signature_buckets(h, tau=tau, n_sig=n_sig)
+    return sums * scale
 
 
 def signature_per_channel(x: torch.Tensor, *, tau: float = 0.0

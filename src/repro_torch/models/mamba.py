@@ -147,9 +147,12 @@ def selective_scan_ref(x, dt, A, Bc, Cc, h0, chunk: int = 256):
 
     x, dt (B,S,d_in) f32; A (d_in,N); Bc, Cc (B,S,N); h0 (B,d_in,N).
     Returns (y (B,S,d_in), h_last).  Under autograd each chunk runs under
-    ``torch.utils.checkpoint``.  The reference pads S to a multiple of the
-    chunk; a padded step (dt = 0, x = 0, B = 0) leaves h exactly as it was,
-    so the port stops at S instead.
+    ``torch.utils.checkpoint``.  Inside ``torch.func.vmap`` (the cohort
+    engine's training) an input's ``requires_grad`` reads False and the
+    scan keeps every step: a checkpoint's backward would recompute the
+    chunk outside the vmap.  The reference pads S to a multiple of the
+    chunk; a padded step (dt = 0, x = 0, B = 0) leaves h exactly as it
+    was, so the port stops at S instead.
     """
     track = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, dt, A, Bc, Cc, h0))

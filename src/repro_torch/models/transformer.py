@@ -9,10 +9,10 @@ parameter tree loads through ``weights.params_from_numpy`` unchanged.  The
 reference scans that axis with ``lax.scan``; here a Python loop takes
 period ``i`` as the leaves' index ``i``.
 
-Public API: init_params / forward_hidden / forward / loss_fn.  Attention,
-Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers or none
-(``ffn="none"``, or ``d_ff = 0``); MoE layers and encoders raise
-``NotImplementedError``, and ``moe_aux`` is 0.  Serving (``prefill``,
+Public API: init_params / forward_hidden / per_sample_signature /
+forward / loss_fn.  Attention, Mamba, mLSTM and sLSTM blocks, with dense
+feed-forward layers or none (``ffn="none"``, or ``d_ff = 0``); MoE
+layers and encoders raise ``NotImplementedError``, and ``moe_aux`` is 0.  Serving (``prefill``,
 ``decode_step``, ``init_cache``) is not ported yet.
 """
 from __future__ import annotations
@@ -172,9 +172,20 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     if runtime.want_signature:
-        aux["signature"] = ops.signature(x, tau=runtime.signature_tau,
+        # counts have no gradient: the kernel takes the detached output
+        aux["signature"] = ops.signature(x.detach(),
+                                         tau=runtime.signature_tau,
                                          n_sig=runtime.signature_dims)
     return x, aux
+
+
+def per_sample_signature(h, runtime: Runtime = DEFAULT) -> torch.Tensor:
+    """Per-sample Eq. 3 signature rows (B, n_sig) from the final-norm
+    output ``h`` (B, S, d), for the cohort engine's padding-masked means:
+    one launch of the signature kernel over ``h`` (the reference launches
+    once per row under ``vmap``), the bits of the reference's rows."""
+    return ops.signature_per_sample(h, tau=runtime.signature_tau,
+                                    n_sig=runtime.signature_dims)
 
 
 def forward(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):

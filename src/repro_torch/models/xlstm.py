@@ -138,7 +138,10 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state, chunk: int = 256):
     pre-logsigmoid); state {C (B,H,dk,dv), n (B,H,dk), m (B,H)}.  Returns
     (h (B,S,H,dv) float32, state).  S is padded to whole chunks with zero
     inputs and ``f_gate = 30`` (forget ~1), as in the reference.  Under
-    autograd each chunk runs under ``torch.utils.checkpoint``.
+    autograd each chunk runs under ``torch.utils.checkpoint``; inside
+    ``torch.func.vmap`` an input's ``requires_grad`` reads False and every
+    chunk is kept (a checkpoint's backward would recompute it outside the
+    vmap).
     """
     B, S, H, dk = q.shape
     L = min(chunk, S)

@@ -1,0 +1,134 @@
+"""Train and eval step builders used by the launcher (port of
+``repro.train.step``).
+
+``make_train_step`` folds the loss, its gradient, clipping, the optimizer
+update and the DAG-AFL signature extraction into one call.  The reference
+returns new parameter and optimizer trees from a jitted program; the port
+updates them in place and returns the same trees.  Training runs the
+plain attention and the models' own scans under autograd (the kernels
+have no backward, as in the reference); the Eq. 3 signature in the
+metrics comes from the signature kernel on the card, taken on the
+detached final-norm output (``models.transformer.forward_hidden``).
+
+``make_serve_prefill`` and ``make_serve_decode`` wait for the serving
+slice (ROADMAP Queue 1 item 4) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.aggregate import f32_mean, tree_leaves, tree_map
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import torch_dtype
+from repro_torch.optim.optimizers import (Optimizer, adamw, apply_updates,
+                                          clip_by_global_norm)
+from repro_torch.runtime import Runtime
+
+
+def default_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
+    return adamw(lr, weight_decay=0.1,
+                 moment_dtype=torch_dtype(cfg.moment_dtype))
+
+
+def _split(leaf: torch.Tensor, n: int):
+    """A batch leaf cut into ``n`` microbatches along its batch axis."""
+    if leaf.shape[0] % n:
+        raise ValueError(f"batch {leaf.shape[0]} does not split into {n} "
+                         f"microbatches")
+    return leaf.chunk(n)
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
+                    runtime: Runtime = Runtime(want_signature=True),
+                    clip_norm: float = 1.0, microbatches: int = 1):
+    """(train_step, optimizer).  ``train_step(params, opt_state, batch)``
+    returns (params, opt_state, metrics) with ``loss``, ``ce_loss``,
+    ``moe_aux``, ``grad_norm`` and, with ``runtime.want_signature``,
+    ``signature``.  ``microbatches > 1`` splits the batch and accumulates
+    the gradients in float32, as the reference's scan does."""
+    opt = optimizer or default_optimizer(cfg)
+    compute = torch_dtype(cfg.compute_dtype)
+
+    def cast_params(p):
+        """Compute against a copy in the compute type (the reference's
+        mixed precision); gradients reach the float32 masters."""
+        return tree_map(lambda a: a.to(compute)
+                        if a.is_floating_point() and a.dtype != compute
+                        else a, p)
+
+    def grads_of(params, batch):
+        for p in tree_leaves(params):
+            p.grad = None
+        loss, aux = tfm.loss_fn(cast_params(params), batch, cfg, runtime)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, params)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def train_step(params, opt_state, batch):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        if microbatches == 1:
+            loss, aux, grads = grads_of(params, batch)
+        else:
+            pieces = {k: _split(v, microbatches) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(p.shape, device=p.device),
+                             params)
+            loss = torch.zeros((), device=tree_leaves(params)[0].device)
+            aux_sum = {"ce_loss": torch.zeros_like(loss),
+                       "moe_aux": torch.zeros_like(loss)}
+            sigs = []
+            for i in range(microbatches):
+                mb = {k: v[i] for k, v in pieces.items()}
+                mb_loss, mb_aux, g = grads_of(params, mb)
+                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                loss = loss + mb_loss
+                aux_sum = {k: aux_sum[k] + mb_aux[k] for k in aux_sum}
+                if "signature" in mb_aux:
+                    sigs.append(mb_aux["signature"])
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+            aux = {k: v / microbatches for k, v in aux_sum.items()}
+            if sigs and runtime.want_signature:
+                aux["signature"] = f32_mean(torch.stack(sigs), dim=0)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            apply_updates(params, updates)
+        for p in tree_leaves(params):
+            p.grad = None
+        metrics = {"loss": loss, "ce_loss": aux["ce_loss"],
+                   "moe_aux": aux["moe_aux"], "grad_norm": gnorm}
+        if "signature" in aux:
+            metrics["signature"] = aux["signature"]
+        return params, opt_state, metrics
+
+    return train_step, opt
+
+
+def make_serve_prefill(cfg: ArchConfig, runtime: Runtime = Runtime()):
+    raise NotImplementedError(
+        "serving (prefill and KV-cache decode) waits for ROADMAP Queue 1 "
+        "item 4")
+
+
+def make_serve_decode(cfg: ArchConfig, runtime: Runtime = Runtime()):
+    raise NotImplementedError(
+        "serving (prefill and KV-cache decode) waits for ROADMAP Queue 1 "
+        "item 4")
+
+
+def make_eval_step(cfg: ArchConfig, runtime: Runtime = Runtime()):
+    """``eval_step(params, batch)`` -> {"accuracy"}: next-token accuracy of
+    the logits over the batch's tokens, a float32 mean by the
+    reciprocal."""
+
+    @torch.inference_mode()
+    def eval_step(params, batch):
+        logits, _ = tfm.forward(params, batch, cfg, runtime)
+        pred = logits[:, :-1].argmax(-1)
+        return {"accuracy": f32_mean(pred == batch["tokens"][:, 1:])}
+
+    return eval_step

@@ -872,3 +872,74 @@ def test_baseline_on_the_cohort_engine_on_card(card, monkeypatch, name,
     else:
         assert res.extra["chain_len"] == 7
         assert res.extra["cohorts_dispatched"] == len(windows) >= 1
+
+
+def _lm_cohort_config(family):
+    """A reduced LM family at d_model 256 in float32: internlm2, the Jamba
+    hybrid (one Mamba and one attention layer) or the ``(mlstm, slstm)``
+    xLSTM."""
+    if family == "internlm2":
+        return reduced(get_config("internlm2-1.8b"), d_model=256)
+    arch, kinds, ffn = (("jamba-v0.1-52b", ("mamba", "attn"), "dense")
+                        if family == "hybrid" else
+                        ("xlstm-125m", ("mlstm", "slstm"), "none"))
+    return dataclasses.replace(
+        reduced(get_config(arch), d_model=256), n_layers=2,
+        stages=(Stage(tuple(LayerSpec(kind=k, ffn=ffn) for k in kinds), 1),))
+
+
+@pytest.mark.parametrize("family", ["internlm2", "hybrid", "xlstm"])
+def test_lm_cohort_window_equals_plain_on_card(card, family, monkeypatch):
+    """An ``LMCohortPrograms`` window on the card: training (vmapped, under
+    autograd) against ``train_local`` within 1e-4; validation and
+    signatures on the kernels (one signature launch a client, each layer's
+    kernel once a client) against the same window with every kernel entry
+    point swapped for its plain version: the same correct counts up to
+    argmax flips, signatures within two flags a bucket."""
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.cohort import CohortBackend, LMCohortPrograms
+    cfg = _lm_cohort_config(family)
+    backend = LMBackend(cfg, local_steps=2, batch_size=4, seq_len=64,
+                        device=card)
+    engine = CohortBackend(backend)
+    assert isinstance(engine.programs, LMCohortPrograms)
+    streams = [make_lm_dataset(vocab=cfg.vocab_size, n_tokens=4000, seed=c)
+               for c in range(3)]
+    params = [backend.init(torch.Generator(device=card).manual_seed(i))
+              for i in range(3)]
+    seeds = [7, 8, 9]
+    trained, losses = engine.train_cohort(params, streams, seeds)
+    for k, (p, ds, s) in enumerate(zip(params, streams, seeds)):
+        solo, loss = backend.train_local(p, ds, seed=s)
+        for a, b in zip(tree_leaves(solo), tree_leaves(trained[k])):
+            assert b.is_cuda
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+        assert abs(losses[k] - loss) < 1e-5
+    mods = (sig, fa, ss, mlstm, slstm)
+    before = [m.launches for m in mods]
+    accs = engine.evaluate_cohort(trained, streams)
+    sigs = engine.signature_cohort(trained, streams)
+    many = engine.evaluate_many(trained + trained[:1], streams[0])
+    launched = [m.launches - b for m, b in zip(mods, before)]
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    forwards = 3 + 3 + 4                  # cohort, signatures, M = 4
+    assert launched == [3, kinds.count("attn") * forwards,
+                        kinds.count("mamba") * forwards,
+                        kinds.count("mlstm") * forwards,
+                        kinds.count("slstm") * forwards], launched
+    for name, plain in (("signature_counts", sig.signature_counts_plain),
+                        ("flash_attention_bhsd", fa.flash_attention_plain),
+                        ("selective_scan_bsd", ss.selective_scan_plain),
+                        ("mlstm_chunkwise_bshd", mlstm.mlstm_chunkwise_plain),
+                        ("slstm_scan_bsd", slstm.slstm_scan_plain)):
+        monkeypatch.setattr(ops, name, plain)
+    plain_accs = engine.evaluate_cohort(trained, streams)
+    plain_sigs = engine.signature_cohort(trained, streams)
+    plain_many = engine.evaluate_many(trained + trained[:1], streams[0])
+    assert [m.launches - b for m, b in zip(mods, before)] == launched
+    n = 4 * 64
+    for got, want in ((accs, plain_accs), (many, plain_many)):
+        assert all(abs(a - b) * n <= 2.5 for a, b in zip(got, want))
+    assert sigs.shape == plain_sigs.shape == (3, 64)
+    flag = 1 / (n * cfg.d_model // 64)   # one flag of a bucket's mean
+    assert np.abs(sigs - plain_sigs).max() <= 2 * flag + 1e-7

@@ -63,6 +63,38 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert not bad, "\n".join(bad)
 
 
+def test_training_and_lm_cohort_modules_import_no_jax():
+    """The launcher, the train step, the checkpoints, the optimizers, the
+    token pipeline and the LM cohort suite are the port's own."""
+    port = REPO / "src" / "repro_torch"
+    files = [port / "launch" / "train.py", port / "train" / "step.py",
+             port / "train" / "checkpoint.py",
+             port / "optim" / "optimizers.py", port / "data" / "pipeline.py",
+             port / "fl" / "cohort.py", port / "models" / "transformer.py"]
+    assert all(p in PORT_FILES for p in files)
+    bad = [f"{p.name}:{line} imports {root}" for p in files
+           for line, root in _imported_roots(p) if root in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("size,built", [(2, True), (1, False)])
+def test_lm_backend_runs_on_the_cohort_engine(size, built):
+    """An ``LMBackend`` gets the LM suite wherever ``cohort_size > 1``, and
+    a coordinator over it takes the engine."""
+    from repro_torch.fl.cohort import LMCohortPrograms
+    cfg = reduced(get_config("internlm2-1.8b"), d_model=64)
+    backend = LMBackend(cfg, device="cpu")
+    engine = build_cohort_engine(backend, cohort_size=size)
+    assert (engine is not None) == built
+    if built:
+        assert isinstance(engine.programs, LMCohortPrograms)
+        stream = np.arange(2000, dtype=np.int32) % cfg.vocab_size
+        coord = DagAflCoordinator(
+            backend, [{"train": stream, "val": stream, "test": stream}] * 2,
+            stream, DagAflConfig(n_clients=2, cohort_size=size))
+        assert isinstance(coord.cohort.programs, LMCohortPrograms)
+
+
 def test_backend_without_device_raises_where_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
