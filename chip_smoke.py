@@ -111,7 +111,30 @@ Phases, each printing one JSON line:
    over a ``TokenPipeline`` of the sub-vocabulary, batch 8 x 512: a finite
    loss whose last 3 steps' mean is below step 0's, one signature launch a
    step on the vec route and no other kernel, a checkpoint round trip bit
-   for bit, and one eval step on the kernels.
+   for bit, and one eval step on the kernels; then one SGD and one AdamW
+   step on 4,096 parameters on the card and on the CPU, bit for bit;
+13. the serve path: ``launch.serve.serve`` at full width (weights and
+   prompts from seed 0, batch 8, a 512-token prompt, 64 new tokens) over
+   internlm2 (4 layers), the Jamba cut and xlstm-125m, with the launch
+   counts set to 0 just before and read just after (one prefill: each
+   kernel once a layer of its kind, flash on the sm90 route, no plain
+   version): prefill and decode times, decode tokens/s, peak memory and
+   the decode step's weight-read bound; then the same weights and prompts
+   in float32 compute, each step's logits within the reference's 2e-2 of
+   a teacher-forced full forward, the greedy tokens its argmax wherever
+   the top-2 gap exceeds twice the error, every attention cache grown by
+   64 slots; the bfloat16 readings beside it;
+14. the serving path: ``DagAflCoordinator`` with serving on, over the CNN
+   path's world and the LM path's (cadence a quarter of the path's
+   simulated time, 12 expected queries over it, batch 8; the LM queries
+   512-token prompts and 16 new tokens), with the launch counts set to 0
+   just before and read just after (each LM query one prefill on the
+   kernels); at least 3 replica versions and 8 queries, none skipped, the
+   version histogram summing to the queries, every replica equal to a
+   fresh Eq. 6 over its refs bit for bit, the last LM replica's tokens
+   equal to those of Eq. 6 over its refs, the ledgers verified; and
+   whether its tx ids and Eq. 7 hashes equal those of the same world
+   without serving (and, where they do not, of that world run twice).
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -538,6 +561,13 @@ def phase_flash(fa, ops, dev) -> dict:
                           device=dev).to(torch.bfloat16)
         compare(qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:], True,
                 -1, 0.0, f"{path} path {list(shape)}, fused qkv view")
+    # the serve path's float32 check prefills at the LM and hybrid shapes
+    # on the FMA kernel
+    for path, shape in (("LM", FLASH_MAIN), ("hybrid", FLASH_HYBRID)):
+        B, H, K, S, hd = shape
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                   for n in (H, K, K))
+        compare(q, k, v, True, -1, 0.0, f"{path} path {list(shape)}")
     for case in FLASH_CASES + [FLASH_HD256]:
         b, h, kh, s, d, causal, window, cap = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -741,6 +771,7 @@ def phase_mlstm(ml, ops, dev) -> dict:
     cases = [((B, S, H, dk, dv), chunk, torch.float32)
              for B, S, H, dk, dv, chunk in MLSTM_CASES]
     cases += [(MLSTM_MAIN, 256, torch.bfloat16),
+              (MLSTM_MAIN, 256, torch.float32),     # serve path's float32
               (MLSTM_RAGGED[:5], MLSTM_RAGGED[5], torch.float32),
               (MLSTM_RAGGED[:5], MLSTM_RAGGED[5], torch.bfloat16)]
     for shape, chunk, dtype in cases:
@@ -1091,7 +1122,7 @@ def phase_main_path(kern, dev) -> dict:
          calls=calls, seconds=seconds, signature_launches=launches,
          signature_routes=routes, verify_full_dag=why, **ref)
     return {"signature": launches, "signature_routes": routes,
-            "s_per_round": wall / rounds}
+            "s_per_round": wall / rounds, "sim_time": result.sim_time}
 
 
 def cohort_parity(backend, window) -> dict:
@@ -1922,31 +1953,36 @@ def lm_reference_check(tfm, cfg, backend, params, stream,
                 sig_diff.sum().item() * flags_per_bucket))}
 
 
-def profile_lm_round(backend, params, stream) -> dict:
-    """One backend round as the backend's defaults set it (``train_local``
-    with its 8 local steps, then ``evaluate`` and ``signature``) under
-    torch.profiler, after one round that lets the profiler start up: the
-    device's busy time (the union of its kernels' and copies' intervals)
-    against the round's wall time, and the device kernels that took the
-    most time.  The profiler's host-side cost lengthens the wall time, so
-    the idle share is an upper bound; host ops are not traced, to keep
-    that cost small."""
+def profiled(fn):
+    """``fn()`` twice under torch.profiler (device activity only), the
+    first call letting the profiler start up: (the second call's trace,
+    its wall seconds).  ``fn`` ends by synchronising the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch.fl.backend import LMBackend
-
-    def one_round():
-        trained, _ = LMBackend.train_local(backend, params, stream, seed=5)
-        LMBackend.evaluate(backend, trained, stream)
-        LMBackend.signature(backend, trained, stream)
-        torch.cuda.synchronize()
-
     traced = {}
 
     def keep(prof):
         traced["events"] = list(prof.events())
         traced["averages"] = list(prof.key_averages())
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],   # device work only
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        fn()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+        prof.step()
+    return traced, wall
+
+
+def device_busy(traced):
+    """(busy microseconds: the union of the device's kernel and copy
+    intervals, the intervals, the device kernels by time as (name, ms,
+    count)) of a ``profiled`` trace."""
+    import torch
     cuda = torch.autograd.DeviceType.CUDA
 
     def on_device(name, annotation=False):
@@ -1954,16 +1990,6 @@ def profile_lm_round(backend, params, stream) -> dict:
         # covers the whole step and is no work of the card
         return not (annotation or name.startswith("ProfilerStep"))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],   # device work only
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=keep) as prof:
-        one_round()
-        prof.step()
-        t0 = time.perf_counter()
-        one_round()
-        wall = time.perf_counter() - t0
-        prof.step()
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in traced.get("events", ())
                    if e.device_type == cuda and on_device(
@@ -1977,6 +2003,29 @@ def profile_lm_round(backend, params, stream) -> dict:
                   for a in traced.get("averages", ())
                   if a.device_type == cuda and on_device(a.key)),
                  key=lambda kv: -kv[1])
+    return busy_us, spans, top
+
+
+def profile_lm_round(backend, params, stream) -> dict:
+    """One backend round as the backend's defaults set it (``train_local``
+    with its 8 local steps, then ``evaluate`` and ``signature``) under
+    torch.profiler, after one round that lets the profiler start up: the
+    device's busy time (the union of its kernels' and copies' intervals)
+    against the round's wall time, and the device kernels that took the
+    most time.  The profiler's host-side cost lengthens the wall time, so
+    the idle share is an upper bound; host ops are not traced, to keep
+    that cost small."""
+    import torch
+    from repro_torch.fl.backend import LMBackend
+
+    def one_round():
+        trained, _ = LMBackend.train_local(backend, params, stream, seed=5)
+        LMBackend.evaluate(backend, trained, stream)
+        LMBackend.signature(backend, trained, stream)
+        torch.cuda.synchronize()
+
+    traced, wall = profiled(one_round)
+    busy_us, spans, top = device_busy(traced)
     flash = [(ms, n) for key, ms, n in top if "flash_attention" in key]
     # the xLSTM kernels' device time (the mLSTM's three launches a call)
     xlstm = {name: [(ms, n) for key, ms, n in top if mark in key]
@@ -2203,7 +2252,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
         local_steps=local_steps, n_params=n_params,
         clients=clients, rounds=rounds, chain_len=result.extra["chain_len"],
         wall_s=wall, s_per_round=wall / rounds, peak_bytes=peak,
-        data_s=data_s, init_s=init_s,
+        sim_time=result.sim_time, data_s=data_s, init_s=init_s,
         final_accuracy=result.final_accuracy,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
         client_mean_accuracy=result.extra["client_mean_accuracy"],
@@ -2693,6 +2742,38 @@ def phase_lm_cohort_path(kern, dev, sequential: dict) -> dict:
         in LM_COHORT_LEGS}
 
 
+def optimizer_steps_on_card(dev) -> dict:
+    """One SGD (momentum 0.9, weight decay 0.01) and one AdamW (weight
+    decay 0.1) step on 4,096 float32 parameters, on the card and on the
+    CPU: the parameters and moments must be bit-equal (the CPU's equal
+    the jitted reference's; CUDA's ``add`` with ``alpha`` must be the
+    same fused multiply-add)."""
+    import numpy as np
+    import torch
+    from repro_torch.optim import optimizers as topt
+    rng = np.random.default_rng(0)
+    p0 = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal(4096) * 0.5).astype(np.float32))
+    out = {}
+    for name, make in (("sgd", lambda: topt.sgd(0.05, 0.9, 0.01)),
+                       ("adamw", lambda: topt.adamw(1e-2,
+                                                    weight_decay=0.1))):
+        got = []
+        for device in ("cpu", dev):
+            opt, p = make(), p0.clone().to(device)
+            state = opt.init(p)
+            upd, state = opt.update(g.to(device), state, p)
+            topt.apply_updates(p, upd)
+            moments = [state[k].cpu() for k in ("mu", "m", "v")
+                       if k in state]
+            got.append([p.cpu()] + moments)
+        differ = [int((a != b).sum()) for a, b in zip(*got)]
+        check(not any(differ), f"train_path: one {name} step on the card "
+              f"differs from the CPU's in {differ} values")
+        out[name] = differ
+    return out
+
+
 def phase_train_path(kern, dev) -> dict:
     """``launch/train.train_single`` on ``lm_config()``: TRAIN_STEPS AdamW
     steps (clip 1.0, the signature in the metrics) over a TokenPipeline of
@@ -2778,8 +2859,10 @@ def phase_train_path(kern, dev) -> dict:
     check(np.isfinite(acc) and 0.0 <= acc <= 1.0,
           f"train_path: eval accuracy {acc}")
     ms = 1e3 * float(np.mean(step_s[1:]))
+    opt_bits = optimizer_steps_on_card(dev)
     record = dict(
         phase="train_path", model=cfg.name, optimizer="adamw",
+        optimizer_step_card_vs_cpu_differ=opt_bits,
         clip_norm=1.0, batch=8, seq_len=512, data_vocab=LM_DATA_VOCAB,
         steps=TRAIN_STEPS, losses=losses,
         grad_norms=[h["grad_norm"] for h in history],
@@ -2791,6 +2874,430 @@ def phase_train_path(kern, dev) -> dict:
     emit(**record)
     del params
     return record
+
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64   # the serve path
+SERVE_LOGIT_TOL = 2e-2    # the reference's decode bound
+SERVING_QUERIES = 12      # expected queries over a path's simulated time
+
+
+class PlainMeter:
+    """Counts calls of every kernel's plain version while it is entered
+    (a path must launch the kernels, never fall back), and restores
+    them on exit."""
+    NAMES = (("fa", "flash_attention_plain"), ("sig", "signature_counts_plain"),
+             ("ss", "selective_scan_plain"), ("ml", "mlstm_chunkwise_plain"),
+             ("sl", "slstm_scan_plain"))
+
+    def __init__(self, kern):
+        self.kern = kern
+        self.calls = {name: 0 for _, name in self.NAMES}
+
+    def __enter__(self):
+        self.inner = {}
+        for key, name in self.NAMES:
+            mod = self.kern[key]
+            fn = getattr(mod, name)
+            self.inner[key] = fn
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for key, name in self.NAMES:
+            setattr(self.kern[key], name, self.inner[key])
+
+
+def reset_launches(kern) -> None:
+    for key in ("sig", "fa", "ss", "ml", "sl"):
+        kern[key].launches = 0
+    kern["fa"].launches_sm90 = kern["fa"].launches_fma = 0
+    kern["sig"].launches_vec = kern["sig"].launches_strided = 0
+
+
+def read_launches(kern) -> dict:
+    fa, sig = kern["fa"], kern["sig"]
+    return {"launches": {"signature": sig.launches, "flash": fa.launches,
+                         "scan": kern["ss"].launches,
+                         "mlstm": kern["ml"].launches,
+                         "slstm": kern["sl"].launches},
+            "flash_routes": {"sm90": fa.launches_sm90,
+                             "fma": fa.launches_fma},
+            "signature_routes": {"vec": sig.launches_vec,
+                                 "strided": sig.launches_strided}}
+
+
+def expected_prefill_launches(cfg, prefills: int, signatures: int = 0,
+                              forwards: int = 0) -> dict:
+    """Kernel launches of ``prefills`` serve prefills and ``forwards``
+    eval and signature forwards: one a layer of the kernel's kind, and
+    one signature launch a signature call."""
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    n = prefills + forwards
+    return {"signature": signatures, "flash": kinds.count("attn") * n,
+            "scan": kinds.count("mamba") * n,
+            "mlstm": kinds.count("mlstm") * n,
+            "slstm": kinds.count("slstm") * n}
+
+
+def attn_cache_lens(cfg, caches) -> list:
+    """The sequence length of every attention layer's cache entries."""
+    from repro_torch.models.attention import cache_seq_axis
+    lens = []
+    for si, stage in enumerate(cfg.stages):
+        for j, spec in enumerate(stage.pattern):
+            if spec.kind == "attn":
+                for key, a in caches[si][f"l{j}"].items():
+                    lens.append(a.shape[cache_seq_axis(key, a.dim())])
+    return lens
+
+
+def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
+    """``launch.serve.serve`` at full width: weights and prompts from seed
+    0, batch 8, a 512-token prompt, 64 new tokens, in ``cfg``'s compute
+    type, with the launch counts set to 0 just before and read just after
+    (a warm-up call first).  Then the same weights and prompts in float32
+    compute, each step's logits held against a teacher-forced full forward
+    (the models' own plain forms) within the reference's 2e-2, and the
+    greedy tokens against its argmax where the top-2 gap exceeds twice the
+    largest error; the bfloat16 run's readings beside it."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import unembed
+    from repro_torch.runtime import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tfm.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{leg}: {n_params} parameters, expected {expected_params}")
+    # warm-up outside the counted run: cuBLAS handles, allocator pools
+    launch.serve(cfg, SERVE_BATCH, SERVE_PROMPT, 2, device=dev,
+                 params=params, prompts=prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMeter(kern) as plain:
+        reset_launches(kern)                       # counts start here
+        r = launch.serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                         seed=0, device=dev, keep_logits=True)
+        torch.cuda.synchronize()
+        counted = read_launches(kern)              # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    expected = expected_prefill_launches(cfg, prefills=1)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(r["params"]),
+                                                tree_leaves(params)))
+          and torch.equal(r["prompts"], prompts),
+          f"{leg}: serve drew other weights or prompts from seed 0")
+    check(counted["launches"] == expected,
+          f"{leg}: launches {counted['launches']}, expected {expected} "
+          f"for one prefill")
+    check(counted["flash_routes"] == {"sm90": expected["flash"], "fma": 0},
+          f"{leg}: flash launches by route {counted['flash_routes']}")
+    check(not any(plain.calls.values()),
+          f"{leg}: the serve path ran a plain version: {plain.calls}")
+    total = SERVE_PROMPT + SERVE_NEW
+    lens = attn_cache_lens(cfg, r["caches"])
+    check(all(n == total for n in lens),
+          f"{leg}: attention caches of {lens} slots, expected {total}")
+    check(r["tokens"].shape == (SERVE_BATCH, SERVE_NEW)
+          and bool(torch.isfinite(r["logits"]).all()),
+          f"{leg}: tokens {tuple(r['tokens'].shape)} or non-finite logits")
+    bf16_logits, bf16_tokens = r["logits"], r["tokens"]
+    timings = {k: r[k] for k in ("prefill_s", "decode_s",
+                                 "decode_tok_per_s")}
+    del r
+    profile = profile_decode(launch, cfg, params, prompts)
+
+    # float32 compute, the same weights and prompts
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                cache_dtype="float32")
+    r32 = launch.serve(cfg32, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                       device=dev, params=params, prompts=prompts,
+                       keep_logits=True)
+    logits32, tokens32 = r32["logits"], r32["tokens"]
+    check(all(n == total for n in attn_cache_lens(cfg32, r32["caches"])),
+          f"{leg}: float32 caches did not grow by {SERVE_NEW}")
+    del r32
+    full_tokens = torch.cat([prompts, tokens32[:, :-1].long()], dim=1)
+    with torch.inference_mode():
+        h, _ = tfm.forward_hidden(params, {"tokens": full_tokens}, cfg32,
+                                  Runtime())
+        # the positions whose logits the prefill and the decode steps gave:
+        # (steps, B, V)
+        full = unembed(params["embed"], h[:, SERVE_PROMPT - 1:],
+                       torch.float32, cfg32.final_softcap).transpose(0, 1)
+        del h
+        max_err = (logits32 - full).abs().max().item()
+        top2 = full.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * max_err
+        agree = tokens32.transpose(0, 1).long() == full.argmax(-1)
+        mismatched = int((decided & ~agree).sum())
+        excluded = int((~decided).sum())
+        bf16_err = (bf16_logits - full).abs().max().item()
+        bf16_token_agree = (bf16_tokens == tokens32).float().mean().item()
+    del full, logits32, bf16_logits
+    check(max_err <= SERVE_LOGIT_TOL,
+          f"{leg}: float32 prefill/decode logits differ from the full "
+          f"forward by {max_err} (bound {SERVE_LOGIT_TOL})")
+    check(mismatched == 0, f"{leg}: {mismatched} greedy tokens differ from "
+          f"the full forward's argmax where its top-2 gap exceeds "
+          f"{2 * max_err}")
+    # a decode step reads every weight once (the input embedding only for
+    # the batch's rows): float32 masters over the card's memory rate
+    weight_bytes = 4 * (n_params - (0 if cfg.tie_embeddings
+                                    else cfg.vocab_size * cfg.d_model))
+    decode_ms = 1e3 * timings["decode_s"] / (SERVE_NEW - 1)
+    record = dict(
+        phase="serve_path", leg=leg, model=cfg.name,
+        layers=[spec.kind for spec in cfg.layer_specs()],
+        compute_dtype=cfg.compute_dtype, n_params=n_params,
+        batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        prefill_ms=1e3 * timings["prefill_s"],
+        decode_ms_per_token=decode_ms,
+        decode_tokens_per_s=timings["decode_tok_per_s"],
+        decode_weight_bytes=weight_bytes,
+        decode_weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        peak_bytes=peak, cache_lens=sorted(set(lens)),
+        float32_max_abs_err=max_err, float32_bound=SERVE_LOGIT_TOL,
+        float32_steps_compared=SERVE_NEW * SERVE_BATCH,
+        float32_steps_excluded=excluded,
+        bfloat16_max_abs_err_vs_float32_forward=bf16_err,
+        bfloat16_token_agreement_with_float32=bf16_token_agree,
+        plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
+        decode_profile=profile, **counted)
+    emit(**record)
+    del params
+    return record
+
+
+def profile_decode(launch, cfg, params, prompts, steps: int = 8) -> dict:
+    """``steps`` decode steps after a prefill of ``prompts`` under
+    torch.profiler (after as many that let it start up): the device's
+    busy time a token against the host's, and the device kernels that
+    took the most time.  Outside the counted run."""
+    import torch
+    prefill, decode = launch.make_serving_fns(cfg)
+    last, caches = prefill(params, {"tokens": prompts})
+    caches = launch.extend_caches(caches, cfg, steps)
+    tok = last.argmax(-1).to(torch.int32)[:, None]
+
+    def run():
+        t = tok
+        for i in range(steps):      # the same slots, rewritten each run
+            t, _, _ = decode(params, t, caches, prompts.shape[1] + i)
+            t = t[:, None]
+        torch.cuda.synchronize()
+
+    traced, wall = profiled(run)
+    busy_us, spans, top = device_busy(traced)
+    return {"steps": steps, "wall_ms_per_token": 1e3 * wall / steps,
+            "device_busy_ms_per_token": busy_us / 1e3 / steps,
+            "device_idle_share": (1.0 - busy_us / 1e6 / wall
+                                  if spans else None),
+            "device_kernels_per_token": len(spans) / steps,
+            "top_device_ms_per_token": [[k[:90], ms / steps, n / steps]
+                                        for k, ms, n in top[:8]]}
+
+
+def phase_serve_path(kern, dev) -> dict:
+    """The serve launcher's three legs: internlm2 (4 layers), the Jamba
+    cut (Mamba and attention) and xlstm-125m, each at full width."""
+    t0 = time.perf_counter()
+    legs = {"serve_lm": serve_leg(kern, dev, "serve_lm", lm_config(),
+                                  630_736_896),
+            "serve_hybrid": serve_leg(kern, dev, "serve_hybrid",
+                                      hybrid_config(), HYBRID_PARAMS),
+            "serve_xlstm": serve_leg(kern, dev, "serve_xlstm",
+                                     xlstm_config(), XLSTM_PARAMS)}
+    emit(phase="serve_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
+def serving_leg(kern, dev, leg: str, make_world, serving_kw: dict,
+                sim_time: float) -> dict:
+    """``DagAflCoordinator`` with serving on over a world that
+    ``make_world()`` builds afresh ((backend, client data, test set,
+    DagAflConfig keywords, genesis)), cadence a quarter of the path's
+    ``sim_time`` and SERVING_QUERIES expected queries over it, with the
+    launch counts set to 0 just before and read just after; every replica
+    checked against a fresh Eq. 6 over its refs as it is published.  The
+    same world without serving runs before it (its tx ids and hashes are
+    compared, a reading), and again when they differ."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.fl import serving as srv
+
+    def ledger_of(coord):
+        """(tx ids with their parents, the Eq. 7 hashes)."""
+        txs = list(coord.ledger.transactions())
+        return ([(t.tx_id, t.parents) for t in txs],
+                [coord.ledger.hash_of(t.tx_id) for t in txs])
+
+    forwards = {"evaluate": 0, "signature": 0}
+
+    def run(serving=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        backend, data, test, kw, genesis = make_world()
+        for name in forwards:                  # one forward a call
+            def counted(*a, _fn=getattr(backend, name), _name=name, **k):
+                forwards[_name] += 1
+                return _fn(*a, **k)
+            setattr(backend, name, counted)
+        coord = DagAflCoordinator(backend, data, test,
+                                  DagAflConfig(serving=serving, **kw))
+        return coord, coord.run(init_model=genesis)
+
+    off, _ = run()
+    off_ledger = ledger_of(off)
+    del off
+    scfg = srv.ServingConfig(every=sim_time / 4,
+                             query_rate=SERVING_QUERIES / sim_time,
+                             query_batch=8, **serving_kw)
+    parity = []
+    inner = srv.ConsensusPublisher.publish
+
+    def checked_publish(pub):
+        rep = inner(pub)
+        if rep is not None:
+            parity.append(srv.replica_parity(rep, pub.store))
+        return rep
+
+    srv.ConsensusPublisher.publish = checked_publish
+    try:
+        with PlainMeter(kern) as plain:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(kern)                   # counts start here
+            forwards.update(evaluate=0, signature=0)
+            t0 = time.perf_counter()
+            coord, result = run(scfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counted = read_launches(kern)          # and are read here
+    finally:
+        srv.ConsensusPublisher.publish = inner
+    peak = torch.cuda.max_memory_allocated()
+    serving = result.extra["serving"]
+    ok, why = verify_full_dag(coord.ledger)
+    rounds = result.rounds
+    check(serving["replica_versions"] >= 3 and serving["queries"] >= 8,
+          f"{leg}: {serving['replica_versions']} replica versions and "
+          f"{serving['queries']} queries (at least 3 and 8)")
+    check(serving["skipped"] == 0, f"{leg}: {serving['skipped']} queries "
+          f"skipped (v0 is published at genesis)")
+    check(sum(serving["replica_version_hist"].values())
+          == serving["queries"], f"{leg}: version histogram "
+          f"{serving['replica_version_hist']} against "
+          f"{serving['queries']} queries")
+    check(len(parity) == serving["replica_versions"] and all(parity),
+          f"{leg}: replica parity {parity}")
+    check(result.extra["chain_len"] == 1 + rounds,
+          f"{leg}: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(ok, f"{leg}: verify_full_dag: {why}")
+    check(not any(plain.calls.values()),
+          f"{leg}: the path ran a plain version: {plain.calls}")
+    driver = coord.query_stream.driver
+    lm = isinstance(driver, srv.LMQueryDriver)
+    # a CNN query is an evaluation without kernels; an LM query one
+    # prefill, and the LM backend's every call one forward on the kernels
+    if lm:
+        expected = expected_prefill_launches(
+            coord.backend.cfg, prefills=serving["queries"],
+            signatures=forwards["signature"],
+            forwards=forwards["evaluate"] + forwards["signature"])
+    else:
+        expected = {"signature": forwards["signature"], "flash": 0,
+                    "scan": 0, "mlstm": 0, "slstm": 0}
+    check(counted["launches"] == expected,
+          f"{leg}: launches {counted['launches']}, expected {expected} for "
+          f"{forwards} backend calls and {serving['queries']} queries")
+    check(counted["flash_routes"]["fma"] == 0
+          and counted["signature_routes"]["strided"] == 0,
+          f"{leg}: launches by route {counted['flash_routes']}, "
+          f"{counted['signature_routes']}")
+    record = dict(phase="serving_path", leg=leg, rounds=rounds,
+                  chain_len=result.extra["chain_len"],
+                  sim_time=result.sim_time, cadence=scfg.every,
+                  query_rate=scfg.query_rate, wall_s=wall,
+                  peak_bytes=peak, serving=serving,
+                  replica_parity=parity, verify_full_dag=why,
+                  backend_calls=dict(forwards), **counted)
+    if lm:
+        rep = coord.publisher.replica()
+        prompts = np.random.default_rng(5).integers(
+            0, driver.cfg.vocab_size, (driver.batch, driver.prompt_len))
+        got = driver.decode_prompts(rep.params, prompts)
+        want = driver.decode_prompts(
+            srv.consensus_over_refs(coord.store, rep.model_refs), prompts)
+        check(np.array_equal(got, want), f"{leg}: the last replica's tokens "
+              f"differ from those of Eq. 6 over its refs")
+        record["replica_tokens_equal_direct_eq6"] = True
+    on_ledger = ledger_of(coord)
+    record["tx_ids_equal_without_serving"] = on_ledger[0] == off_ledger[0]
+    record["hashes_equal_without_serving"] = on_ledger[1] == off_ledger[1]
+    del coord, driver
+    if on_ledger != off_ledger:
+        # card nondeterminism or serving: the serving-off world twice
+        again, _ = run()
+        twice = ledger_of(again)
+        record["tx_ids_equal_off_twice"] = twice[0] == off_ledger[0]
+        record["hashes_equal_off_twice"] = twice[1] == off_ledger[1]
+        del again
+    emit(**record)
+    return record
+
+
+def phase_serving_path(kern, dev, cnn_sim_time: float,
+                       lm_sim_time: float) -> dict:
+    """Serving on the coordinator over the CNN path's world (VGG16, 4
+    clients, 2 rounds) and the LM path's (internlm2 full width, 4 layers,
+    4 clients, 2 rounds of 8 local steps)."""
+    import torch
+    from repro_torch.fl.backend import CNNBackend, LMBackend
+    t0 = time.perf_counter()
+
+    def cnn():
+        cfg, client_data, test, _ = cnn_world()
+        backend = CNNBackend(cfg, local_epochs=1, batch_size=64)
+        genesis = backend.init(torch.Generator().manual_seed(0))
+        return (backend, client_data, test,
+                dict(n_clients=4, max_rounds=2, local_epochs=1), genesis)
+
+    def lm():
+        streams, global_test = lm_streams(4)
+        backend = LMBackend(lm_config(), lr=3e-3, local_steps=8,
+                            batch_size=8, seq_len=512)
+        genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
+        data = [{"train": s, "val": s, "test": s} for s in streams]
+        return (backend, data, global_test,
+                dict(n_clients=4, max_rounds=2, local_epochs=2), genesis)
+
+    legs = {"cnn_serving": serving_leg(kern, dev, "serving_cnn", cnn, {},
+                                       cnn_sim_time),
+            "lm_serving": serving_leg(
+                kern, dev, "serving_lm", lm,
+                dict(prompt_len=512, new_tokens=16, seed=1234),
+                lm_sim_time)}
+    emit(phase="serving_path_done", seconds=time.perf_counter() - t0)
+    return legs
 
 
 def lm_config():
@@ -2866,7 +3373,11 @@ def main() -> None:
     cohorts = phase_lm_cohort_path(kern, dev, {"lm": lm, "hybrid": hybrid,
                                                "xlstm": xl})
     train = phase_train_path(kern, dev)
-    paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts}
+    serve = phase_serve_path(kern, dev)
+    serving = phase_serving_path(kern, dev, cnn["sim_time"],
+                                 lm["sim_time"])
+    paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
+             **serving}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}

@@ -47,19 +47,67 @@ def tree_leaves(tree) -> List:
     return [tree]
 
 
+TREE_WINDOW = 32      # XLA:CPU's tree reduction splits longer sums
+
+
+def ordered_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Float32 sum along ``dim``, adding the rows left to right."""
+    rows = z.movedim(dim, 0)
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
+    return acc
+
+
+def window_sums(rows: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's tree reduction of more than 32 rows (n, ...) -> (W, ...):
+    padded in front with half the zeros that fill whole windows of 32, the
+    rows of each window added left to right.  The padding is -0.0, which
+    leaves every float32 sum as it was, so the W windows add in one pass
+    of 31 vector additions."""
+    n = rows.shape[0]
+    pad = -n % TREE_WINDOW
+    front = torch.full((pad // 2,) + rows.shape[1:], -0.0,
+                       dtype=rows.dtype, device=rows.device)
+    back = torch.full((pad - pad // 2,) + rows.shape[1:], -0.0,
+                      dtype=rows.dtype, device=rows.device)
+    return ordered_sum(torch.cat([front, rows, back]).unflatten(
+        0, (-1, TREE_WINDOW)), dim=1)
+
+
+def input_row_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the leading axis of rows that are a program input,
+    in XLA:CPU's order for the reference's jitted ``jnp.sum``/``jnp.mean``
+    (jaxlib 0.9.0 on x86-64 with AVX-512, probed at every count from 1 to
+    69 and at eight counts to 5,000, 1 to 2,048 columns): left to right up
+    to 32 rows; past 32, window sums (:func:`window_sums`), split again
+    while more than 32 remain, then added left to right."""
+    while rows.shape[0] > TREE_WINDOW:
+        rows = window_sums(rows)
+    return ordered_sum(rows)
+
+
 def f32_mean(x: torch.Tensor, dim=None, keepdim: bool = False
              ) -> torch.Tensor:
     """Mean of ``x`` as the reference's jitted ``jnp.mean`` computes it: a
-    float32 sum multiplied by the float32 reciprocal of the count.  A true
-    division (``torch.mean``) is 1 ulp off on many counts, and these means
-    reach the Eq. 7 digest (accuracies, signatures).  ``dim`` is one axis,
-    a tuple of axes, or None for all."""
+    float32 sum multiplied by the float32 reciprocal of the count.  A
+    true division (``torch.mean``) is 1 ulp off on many counts, and these
+    means reach the Eq. 7 digest (accuracies, signatures).  ``dim`` is one
+    axis, a tuple of axes, or None for all.  A mean over the leading axis
+    alone (``dim=0``, or all of a 1-D tensor) adds its rows in XLA:CPU's
+    order (:func:`input_row_sum`); other axes take torch's sum."""
     x = x.float()
     if dim is None:
         dim = tuple(range(x.dim()))
-    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    dims = tuple(d % max(x.dim(), 1) for d in
+                 ((dim,) if isinstance(dim, int) else dim))
     n = int(np.prod([x.shape[d] for d in dims]))
-    total = x.sum(dim=dims, keepdim=keepdim)
+    if dims == (0,) and n > 0:
+        total = input_row_sum(x)
+        if keepdim:
+            total = total.unsqueeze(0)
+    else:
+        total = x.sum(dim=dims, keepdim=keepdim)
     return total * float(np.float32(1) / np.float32(n))
 
 

@@ -28,9 +28,12 @@ Fault scenarios (``repro_torch.fl.scenarios``) attack the loop as in the
 reference: poisoned shards at construction, the update transform before
 validation and the signature, straggler durations, dropped publishes and
 tampered metadata; a scenario with all rates zero is bit-identical to
-``scenario=None``.  Live serving and device meshes are not ported yet:
-setting either raises ``NotImplementedError`` rather than being ignored
-(``mesh`` takes None or ``"auto"``, one card).
+``scenario=None``.  Live serving (``serve_every`` / ``serving``,
+``repro_torch.fl.serving``) publishes the frontier's Eq. 6 replica and
+replays a seeded query trace against it on the same event loop, on both
+engines; it is read-only, so the training trajectory is bit-identical
+with it on or off.  Device meshes are not ported: any ``mesh`` other than
+None or ``"auto"`` (one card) raises ``NotImplementedError``.
 ``run(init_model=None)`` takes the genesis model itself where the reference
 takes a JAX PRNG key.
 """
@@ -98,12 +101,19 @@ class DagAflConfig:
     # Scenario instance (pass the instance to read its event counters after
     # the run).  A scenario with all rates zero is bit-identical to None.
     scenario: object = None
-    # not ported yet: each raises NotImplementedError when set
+    # live-traffic serving (repro_torch/fl/serving.py): > 0 publishes the
+    # tip frontier's Eq. 6 aggregate into a versioned double-buffered
+    # replica every this many SIMULATED seconds and replays a seeded
+    # Poisson query trace against it concurrently with training.  Serving
+    # is read-only: the training trajectory is bit-identical with it on or
+    # off.  0 = off.
     serve_every: float = 0.0
+    # query driver: "auto" sniffs the backend (LMBackend -> prefill+decode,
+    # else batched eval); "cnn" / "lm" force one
+    serve_backend: str = "auto"
+    # full repro_torch.fl.serving.ServingConfig override (query rate/batch/
+    # seed, prompt geometry); None derives one from the two knobs above
     serving: object = None
-
-
-_UNPORTED = {"serve_every": 0.0, "serving": None}
 
 
 class _ClientTipEvaluator:
@@ -131,11 +141,6 @@ class DagAflCoordinator:
         """client_data[k]: {"train": ..., "val": ..., "test": ...} per client
         (backend-specific containers).  ``cohort_engine`` lets callers reuse
         one :class:`repro_torch.fl.cohort.CohortBackend` across runs."""
-        for name, default in _UNPORTED.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f"DagAflConfig.{name}={getattr(cfg, name)!r}: not ported "
-                    f"to the PyTorch package yet (only {default!r})")
         single_device(cfg.mesh)
         self.backend = backend
         self.scenario = as_scenario(cfg.scenario, cfg.n_clients)
@@ -157,6 +162,10 @@ class DagAflCoordinator:
         # LATEST (needed by the final per-client sweep); evicted as soon as
         # the client publishes again
         self._deferred_evict: Dict[int, str] = {}
+        # live-traffic serving (built in run() when serving is on); must
+        # exist before the first _on_prune can fire
+        self.publisher = None
+        self.query_stream = None
         self.contract = SimilarityContract(cfg.n_clients)
         self.selector = TipSelector(self.ledger, self.contract, cfg.tip)
         self.loop = EventLoop()
@@ -199,7 +208,16 @@ class DagAflCoordinator:
         if self.ledger.latest_of(client) == tx.tx_id:
             self._deferred_evict[client] = tx.model_ref
         else:
-            self.store.evict(tx.model_ref)
+            self._evict_model(tx.model_ref)
+
+    def _evict_model(self, ref: str) -> None:
+        """Single chokepoint for prune-driven ModelStore evictions: a ref
+        pinned by a live serving replica is handed to the publisher (which
+        evicts it on the swap that unpins it) instead of being dropped out
+        from under in-flight queries."""
+        if self.publisher is not None and self.publisher.guard_evict(ref):
+            return
+        self.store.evict(ref)
 
     def _evaluate_tip(self, client: int, tx_id: str) -> float:
         key = (client, tx_id)
@@ -228,7 +246,7 @@ class DagAflCoordinator:
                  parents) -> str:
         pending = self._deferred_evict.pop(client, None)
         if pending is not None:         # pruned-while-latest: safe to drop now
-            self.store.evict(pending)
+            self._evict_model(pending)
         ref = self.store.put(f"m{self._refs_issued:012d}", model)
         self._refs_issued += 1
         meta = TxMetadata(client_id=client,
@@ -483,6 +501,35 @@ class DagAflCoordinator:
                   for t in tips]
         return tree_mean(models) if models else None
 
+    def _serving_config(self):
+        """The effective ServingConfig, or None when serving is off."""
+        if self.cfg.serving is not None:
+            return self.cfg.serving
+        if self.cfg.serve_every > 0:
+            from repro_torch.fl.serving import ServingConfig
+            return ServingConfig(every=self.cfg.serve_every,
+                                 backend=self.cfg.serve_backend)
+        return None
+
+    def _start_serving(self) -> None:
+        """Bring up the replica publisher + query stream on the event loop
+        (no-op when serving is off).  Runs after genesis so replica v0 is
+        the genesis frontier."""
+        scfg = self._serving_config()
+        if scfg is None:
+            return
+        from repro_torch.fl.serving import (ConsensusPublisher, QueryStream,
+                                            make_query_driver)
+        done = lambda: self.tracker.done  # noqa: E731
+        self.publisher = ConsensusPublisher(self.ledger, self.store,
+                                            self.loop, scfg.every, stop=done)
+        driver = make_query_driver(scfg, self.backend, self.global_test)
+        self.query_stream = QueryStream(self.publisher, driver, self.loop,
+                                        self.ledger, scfg.query_rate,
+                                        scfg.seed, stop=done)
+        self.publisher.start()
+        self.query_stream.start()
+
     def run(self, init_model=None) -> RunResult:
         """Run to convergence or ``max_rounds``.  ``init_model`` is the
         genesis model; None draws one from ``torch.Generator`` seeded with
@@ -503,6 +550,7 @@ class DagAflCoordinator:
                 self.cfg.ledger_checkpoint_every,
                 lambda: self.ledger.maybe_checkpoint(now=self.loop.now),
                 stop=lambda: self.tracker.done)
+        self._start_serving()
         for c in range(self.cfg.n_clients):
             # staggered joins: asynchrony from the first event on
             self._start_round(float(self.rng.uniform(0, 2.0)), c)
@@ -540,6 +588,9 @@ class DagAflCoordinator:
         if self.scenario is not None:
             extra_scenario = {"scenario": self.scenario.cfg.name,
                               "scenario_counts": self.scenario.counts()}
+        if self.query_stream is not None:
+            extra_scenario["serving"] = {**self.publisher.report(),
+                                         **self.query_stream.report()}
         return RunResult(
             name="DAG-AFL",
             final_accuracy=final_acc,

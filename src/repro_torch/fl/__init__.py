@@ -1,5 +1,5 @@
-"""Client training backends, the cohort engine, the baselines and the
-fault scenarios (port of ``repro.fl``; serving is not ported yet)."""
+"""Client training backends, the cohort engine, the baselines, the fault
+scenarios and live consensus serving (port of ``repro.fl``)."""
 from repro_torch.fl.backend import CNNBackend, LMBackend
 from repro_torch.fl.baselines import (ALGORITHMS, FLConfig,
                                       fedat_tier_weights, run_centralized,
@@ -12,6 +12,12 @@ from repro_torch.fl.cohort import (CNNCohortPrograms, CohortBackend,
                                    perturb_update, register_cohort_programs)
 from repro_torch.fl.scenarios import (SCENARIOS, Scenario, ScenarioConfig,
                                       as_scenario, dag_attack_metrics)
+from repro_torch.fl.serving import (CNNQueryDriver, ConsensusPublisher,
+                                    LMQueryDriver, QueryStream,
+                                    ServingConfig, ServingReplica,
+                                    consensus_over_refs, frontier_snapshot,
+                                    make_query_driver, replica_parity,
+                                    trees_bitwise_equal)
 
 __all__ = ["CNNBackend", "LMBackend", "ALGORITHMS", "FLConfig",
            "run_centralized", "run_independent", "run_fedavg", "run_fedasync",
@@ -21,4 +27,8 @@ __all__ = ["CNNBackend", "LMBackend", "ALGORITHMS", "FLConfig",
            "build_cohort_engine", "perturb_update",
            "register_cohort_programs",
            "SCENARIOS", "Scenario", "ScenarioConfig", "as_scenario",
-           "dag_attack_metrics"]
+           "dag_attack_metrics",
+           "ServingConfig", "ServingReplica", "ConsensusPublisher",
+           "QueryStream", "CNNQueryDriver", "LMQueryDriver",
+           "make_query_driver", "consensus_over_refs", "frontier_snapshot",
+           "trees_bitwise_equal", "replica_parity"]

@@ -84,10 +84,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregate import (f32_mean, fma_f32, next_pow2,
-                                        pad_leading, round_up_multiple,
-                                        tree_leaves, tree_map, tree_stack,
-                                        tree_unstack)
+from repro_torch.core.aggregate import (TREE_WINDOW, f32_mean, fma_f32,
+                                        input_row_sum, next_pow2,
+                                        ordered_sum, pad_leading,
+                                        round_up_multiple, tree_leaves,
+                                        tree_map, tree_stack, tree_unstack)
 from repro_torch.data.pipeline import WindowAssembler
 from repro_torch.fl.backend import CNNBackend, LMBackend
 from repro_torch.kernels import ops
@@ -218,18 +219,6 @@ def _masked_mean(rows: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     return (rows * w).sum(dim=0) / w.sum().clamp_min(1.0)
 
 
-def _ordered_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Float32 sum along ``dim``, adding the rows left to right."""
-    rows = z.movedim(dim, 0)
-    acc = rows[0]
-    for row in rows[1:]:
-        acc = acc + row
-    return acc
-
-
-_TREE_WINDOW = 32     # XLA:CPU's tree reduction splits longer sums
-
-
 def _reference_rows(n: int) -> int:
     """The rows the reference engine pads a shard of ``n`` to
     (``_round_chunk`` at its default quantum of 64): the padded rows are
@@ -246,15 +235,6 @@ def _join_lanes(acc: torch.Tensor) -> torch.Tensor:
     return acc[0]
 
 
-def _window_sums(rows: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's tree reduction of more than 32 rows: padded in front with
-    half the zeros that fill whole windows of 32, the rows of each window
-    added left to right."""
-    first = _TREE_WINDOW - (-rows.shape[0] % _TREE_WINDOW) // 2
-    return torch.stack([_ordered_sum(p) for p in
-                        (rows[:first], *rows[first:].split(_TREE_WINDOW))])
-
-
 def _lane_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Float32 sum along ``dim`` of rows computed in the program
     (accuracies), in the order of the reference's jitted LM programs on
@@ -265,18 +245,15 @@ def _lane_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
     Up to 32 rows (a power of two), one vectorized loop: lane ``j`` of
     ``min(n, 8)`` lanes adds rows ``j, j + lanes, ...``, and the lanes are
-    joined in halves.  Past 32 rows, window sums (``_window_sums``), split
-    again while there are more than 32, then added left to right: they
-    are the next fusion's input."""
+    joined in halves.  Past 32 rows, the order of rows that are a program
+    input (``core.aggregate.input_row_sum``): the window sums are the next
+    fusion's input."""
     rows = z.movedim(dim, 0)
     rows = pad_leading(rows, _reference_rows(rows.shape[0]))
     n = rows.shape[0]
-    if n > _TREE_WINDOW:
-        rows = _window_sums(rows)
-        while rows.shape[0] > _TREE_WINDOW:
-            rows = _window_sums(rows)
-        return _ordered_sum(rows)
-    return _join_lanes(_ordered_sum(rows.unflatten(0, (-1, min(n, 8)))))
+    if n > TREE_WINDOW:
+        return input_row_sum(rows)
+    return _join_lanes(ordered_sum(rows.unflatten(0, (-1, min(n, 8)))))
 
 
 def _fused_row_sum(counts: torch.Tensor, scale: torch.Tensor
@@ -288,7 +265,7 @@ def _fused_row_sum(counts: torch.Tensor, scale: torch.Tensor
     multiply-add (``fma_f32``) a row in 8 lanes joined in halves; past
     32, the rounded products as ``_lane_sum`` adds them."""
     n = _reference_rows(counts.shape[0])
-    if n > _TREE_WINDOW:
+    if n > TREE_WINDOW:
         return _lane_sum(counts * scale[:, None])
     rows = round_up_multiple(n, 8)
     counts = pad_leading(counts, rows).unflatten(0, (-1, 8))

@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro.launch``: the training launcher)."""
+"""Launchers (port of ``repro.launch``: the training and serving
+launchers)."""

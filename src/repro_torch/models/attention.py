@@ -14,8 +14,14 @@ to bfloat16, so ``_sdpa`` multiplies the bfloat16 values as float32: the
 products of two bfloat16 values are exact in float32, so this is the
 reference's arithmetic up to the order of the sums.
 
+Decode (``attn_decode``, one new token against the KV cache) takes the
+dense scores over the cache, as the reference computes it outside any
+kernel.  The new key and value are written into the cache in place: the
+serving loop owns its caches (``launch.serve.greedy_decode``), and the
+reference's functional update gives the same values.
+
 Not ported (they raise ``NotImplementedError``): the chunked and banded
-score paths beyond 2048 tokens, MLA, cross-attention and KV-cache decode.
+score paths beyond 2048 tokens, MLA and cross-attention.
 """
 from __future__ import annotations
 
@@ -55,6 +61,32 @@ def init_attn(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
         p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
     return p
+
+
+# The KV-cache layout spec: number of trailing dims AFTER the sequence axis
+# for each cache entry ("k"/"v": (n_kv_heads, head_dim); MLA "ckv"/"krope":
+# (rank,)).  Any number of leading axes may be stacked in front (the layer
+# axis of a stage, or none at all), so code that grows a cache along its
+# sequence axis derives the axis from this spec, counting from the END.
+KV_CACHE_TRAILING_DIMS = {"k": 2, "v": 2, "ckv": 1, "krope": 1}
+
+
+def cache_seq_axis(key: str, ndim: int) -> int:
+    """Sequence axis of a KV-cache entry, for any number of leading axes."""
+    return ndim - 1 - KV_CACHE_TRAILING_DIMS[key]
+
+
+def init_kv_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                  max_seq: int, dtype=None, leading: tuple = (),
+                  device=None) -> dict:
+    """Zero cache for one attention layer (stacked over ``leading``), in
+    ``cfg.cache_dtype`` unless ``dtype`` is given."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention is not ported")
+    dtype = torch_dtype(cfg.cache_dtype) if dtype is None else dtype
+    shape = tuple(leading) + (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +146,7 @@ def scaled_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
 
 
 # ---------------------------------------------------------------------------
-# GQA attention layer (full sequence)
+# GQA attention layer (full sequence and decode)
 # ---------------------------------------------------------------------------
 
 
@@ -135,9 +167,10 @@ def _project_qkv(params, x, cfg: ArchConfig, compute_dtype):
 
 
 def attn_forward(params, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
-                 window: int, runtime=None) -> torch.Tensor:
-    """Full-sequence self-attention (train / eval).  The reference also
-    returns the KV cache; the port's serving slice will add it."""
+                 window: int, runtime=None):
+    """Full-sequence self-attention (train / eval / prefill).  Returns
+    (out, {"k", "v"}): the roped keys and the values in
+    ``cfg.cache_dtype``, the layer's KV cache for decode."""
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported")
     compute = torch_dtype(cfg.compute_dtype)
@@ -149,4 +182,38 @@ def attn_forward(params, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     out = scaled_attention(q, k, v, pos1d, pos1d, causal=True, window=window,
                            cap=cfg.attn_softcap, runtime=runtime)
     out = out.reshape(x.shape[0], x.shape[1], cfg.q_dim)
-    return (out.to(compute) @ params["wo"].to(compute)).to(x.dtype)
+    out = (out.to(compute) @ params["wo"].to(compute)).to(x.dtype)
+    cache_dt = torch_dtype(cfg.cache_dtype)
+    return out, {"k": k.to(cache_dt), "v": v.to(cache_dt)}
+
+
+def attn_decode(params, x, cache, pos: int, *, cfg: ArchConfig,
+                spec: LayerSpec, window: int, runtime=None):
+    """One-token decode against a cache.  x (B,1,d); ``pos`` a Python int,
+    the new token's position.  The new key and value are written into
+    ``cache`` at ``pos`` in place; the scores mask the slots not yet
+    written and those outside the window.  Returns (out (B,1,d), cache)."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention is not ported")
+    compute = torch_dtype(cfg.compute_dtype)
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(params, x, cfg, compute)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta,
+                           cfg.mrope_sections)
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+    k_pos = torch.arange(S, device=x.device)
+    valid = k_pos <= pos
+    if window > 0:
+        valid &= k_pos > pos - window
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    bias = torch.where(valid, zero, _NEG)
+    out = _sdpa(q, k, v, bias[None], cfg.attn_softcap)
+    out = out.reshape(B, 1, cfg.q_dim)
+    out = (out.to(compute) @ params["wo"].to(compute)).to(x.dtype)
+    return out, {"k": k, "v": v}

@@ -24,7 +24,10 @@ port does the same with ``torch.utils.checkpoint`` (non-reentrant): the
 forward keeps each chunk's inputs and outputs, and the backward recomputes
 one chunk at a time, which bounds the saved steps to ``chunk`` of them.
 
-``mamba_decode`` waits for the serving slice.
+``mamba_decode`` is the reference's single recurrent step against the
+carried state (the scan state ``h`` and the conv tail), in plain PyTorch
+as the reference computes it in ``jnp``; a prefill through the kernel
+hands its final ``h`` over as that state.
 """
 from __future__ import annotations
 
@@ -72,14 +75,16 @@ def init_mamba(generator, cfg: ArchConfig, dtype) -> dict:
     }
 
 
-def init_mamba_state(cfg: ArchConfig, batch: int, device=None) -> dict:
-    """Zero scan state and conv tail.  The reference's ``leading`` axes
-    serve its decode caches, which wait for the serving slice."""
+def init_mamba_state(cfg: ArchConfig, batch: int, leading: tuple = (),
+                     device=None) -> dict:
+    """Zero scan state and conv tail (stacked over ``leading``, as a
+    stage's decode cache)."""
     mc, d_in, _ = _dims(cfg)
+    lead = tuple(leading)
     return {
-        "h": torch.zeros((batch, d_in, mc.d_state), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, mc.d_conv - 1, d_in),
+        "h": torch.zeros(lead + (batch, d_in, mc.d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros(lead + (batch, mc.d_conv - 1, d_in),
                             dtype=torch.float32, device=device),
     }
 
@@ -166,3 +171,23 @@ def selective_scan_ref(x, dt, A, Bc, Cc, h0, chunk: int = 256):
         ys.append(y)
     y = torch.cat(ys, 1) if ys else torch.zeros_like(x)
     return y, h
+
+
+def mamba_decode(params, x, state, *, cfg: ArchConfig):
+    """Single-token recurrent step.  x (B,1,d) -> (out (B,1,d), state)."""
+    mc, d_in, _ = _dims(cfg)
+    compute = torch_dtype(cfg.compute_dtype)
+    xz = x[:, 0].to(compute) @ params["in_proj"].to(compute)
+    xs, z = xz.chunk(2, dim=-1)                               # (B,d_in)
+    conv_w = params["conv_w"].to(compute)
+    window = torch.cat([state["conv"].to(compute), xs[:, None]], dim=1)
+    xconv = (window * conv_w[None]).sum(dim=1)
+    xb = F.silu(xconv + params["conv_b"].to(compute))
+    dt, Bc, Cc = _ssm_params(params, xb, cfg, compute)
+    A = -torch.exp(params["A_log"])
+    xbf = xb.float()
+    da = torch.exp(dt[..., None] * A)
+    h = da * state["h"] + (dt * xbf)[..., None] * Bc[:, None, :]
+    y = (h * Cc[:, None, :]).sum(-1) + xbf * params["D"]
+    out = (y.to(compute) * F.silu(z)) @ params["out_proj"].to(compute)
+    return out[:, None].to(x.dtype), {"h": h, "conv": window[:, 1:].float()}

@@ -9,11 +9,20 @@ parameter tree loads through ``weights.params_from_numpy`` unchanged.  The
 reference scans that axis with ``lax.scan``; here a Python loop takes
 period ``i`` as the leaves' index ``i``.
 
-Public API: init_params / forward_hidden / per_sample_signature /
-forward / loss_fn.  Attention, Mamba, mLSTM and sLSTM blocks, with dense
-feed-forward layers or none (``ffn="none"``, or ``d_ff = 0``); MoE
-layers and encoders raise ``NotImplementedError``, and ``moe_aux`` is 0.  Serving (``prefill``,
-``decode_step``, ``init_cache``) is not ported yet.
+Public API: init_params / init_cache / forward_hidden /
+per_sample_signature / forward / loss_fn / prefill / decode_step.
+Attention, Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers
+or none (``ffn="none"``, or ``d_ff = 0``); MoE layers and encoders raise
+``NotImplementedError``, and ``moe_aux`` is 0.
+
+Serving: ``prefill`` runs the full-sequence forward (on the kernels with
+``runtime.use_kernels``) and collects each layer's cache (the attention
+layers' roped keys and values, the recurrent blocks' final states),
+stacked on each stage's ``repeats`` axis as the reference's scan stacks
+them; ``decode_step`` runs one token through every layer against those
+caches, in plain PyTorch as the reference's decode.  ``pos`` is a Python
+int, so a step never waits on the card, and the caches are updated in
+place: ``decode_step`` returns the caches it was given.
 """
 from __future__ import annotations
 
@@ -108,21 +117,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
-                   window: int, runtime: Runtime):
-    _check_supported(cfg, spec)
-    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    if spec.kind == "attn":
-        core = attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
-                                 positions=positions, window=window,
-                                 runtime=runtime)
-    elif spec.kind == "mamba":
-        core, _ = mam.mamba_forward(lp["core"], h, cfg=cfg, runtime=runtime)
-    elif spec.kind == "mlstm":
-        core, _ = xl.mlstm_forward(lp["core"], h, cfg=cfg, runtime=runtime)
-    else:
-        core, _ = xl.slstm_forward(lp["core"], h, cfg=cfg, runtime=runtime)
-    x = x + core
+def _ffn(lp, x, cfg: ArchConfig, spec: LayerSpec):
     if spec.ffn == "dense" and cfg.d_ff > 0:
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, _ = apply_mlp(lp["ffn"], h3, cfg.act,
@@ -131,15 +126,63 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     return x
 
 
+def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
+                   window: int, runtime: Runtime):
+    """Full-sequence block.  Returns (x, cache)."""
+    _check_supported(cfg, spec)
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    if spec.kind == "attn":
+        core, cache = attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
+                                        positions=positions, window=window,
+                                        runtime=runtime)
+    elif spec.kind == "mamba":
+        core, cache = mam.mamba_forward(lp["core"], h, cfg=cfg,
+                                        runtime=runtime)
+    elif spec.kind == "mlstm":
+        core, cache = xl.mlstm_forward(lp["core"], h, cfg=cfg,
+                                       runtime=runtime)
+    else:
+        core, cache = xl.slstm_forward(lp["core"], h, cfg=cfg,
+                                       runtime=runtime)
+    return _ffn(lp, x + core, cfg, spec), cache
+
+
+def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
+                  spec: LayerSpec, window: int, runtime: Runtime):
+    """One-token block against its cache.  Returns (x, new cache)."""
+    _check_supported(cfg, spec)
+    h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    if spec.kind == "attn":
+        core, new_cache = attn.attn_decode(lp["core"], h, cache, pos,
+                                           cfg=cfg, spec=spec, window=window,
+                                           runtime=runtime)
+    elif spec.kind == "mamba":
+        core, new_cache = mam.mamba_decode(lp["core"], h, cache, cfg=cfg)
+    elif spec.kind == "mlstm":
+        core, new_cache = xl.mlstm_decode(lp["core"], h, cache, cfg=cfg)
+    else:
+        core, new_cache = xl.slstm_decode(lp["core"], h, cache, cfg=cfg)
+    return _ffn(lp, x + core, cfg, spec), new_cache
+
+
 def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
-                   positions, seq_len: int, runtime: Runtime):
+                   positions, seq_len: int, runtime: Runtime,
+                   collect_cache: bool = False):
+    """The stage's periods in order.  Returns (x, caches): with
+    ``collect_cache`` each layer's cache stacked on the ``repeats`` axis,
+    else an empty dict per layer."""
     windows = [resolve_window(cfg, spec, seq_len) for spec in pattern]
+    periods = []
     for i in range(repeats):
+        caches = {}
         for j, spec in enumerate(pattern):
             lp = tree_map(lambda a: a[i], stage_params[f"l{j}"])
-            x = _layer_forward(lp, x, cfg=cfg, spec=spec, positions=positions,
-                               window=windows[j], runtime=runtime)
-    return x
+            x, c = _layer_forward(lp, x, cfg=cfg, spec=spec,
+                                  positions=positions, window=windows[j],
+                                  runtime=runtime)
+            caches[f"l{j}"] = c if collect_cache else {}
+        periods.append(caches)
+    return x, tree_map(lambda *leaves: torch.stack(leaves), *periods)
 
 
 # ---------------------------------------------------------------------------
@@ -147,28 +190,64 @@ def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
 # ---------------------------------------------------------------------------
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
+    """Zero decode cache mirroring the stage structure: one dict per
+    stage, each layer's entry stacked on the stage's ``repeats`` axis."""
+    caches = []
+    for stage in cfg.stages:
+        sc = {}
+        lead = (stage.repeats,)
+        for j, spec in enumerate(stage.pattern):
+            _check_supported(cfg, spec)
+            if spec.kind == "attn":
+                c = attn.init_kv_cache(cfg, spec, batch, max_seq,
+                                       leading=lead, device=device)
+            elif spec.kind == "mamba":
+                c = mam.init_mamba_state(cfg, batch, leading=lead,
+                                         device=device)
+            elif spec.kind == "mlstm":
+                c = xl.init_mlstm_state(cfg, batch, leading=lead,
+                                        device=device)
+            else:
+                c = xl.init_slstm_state(cfg, batch, leading=lead,
+                                        device=device)
+            sc[f"l{j}"] = c
+        caches.append(sc)
+    return caches
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
+    if cfg.norm == "rmsnorm" and cfg.tie_embeddings:
+        x = x * cfg.d_model ** 0.5
+    return x
+
+
 def forward_hidden(params, batch, cfg: ArchConfig,
-                   runtime: Runtime = DEFAULT):
+                   runtime: Runtime = DEFAULT, collect_cache: bool = False):
     """Full-sequence forward up to the final norm (no unembedding).
 
-    Returns (h (B,S,d), aux dict).  With ``runtime.want_signature``,
+    Returns (h (B,S,d), aux dict), and with ``collect_cache`` the caches
+    too: one dict per stage, each layer's cache stacked on the stage's
+    ``repeats`` axis (``prefill``).  With ``runtime.want_signature``,
     ``aux["signature"]`` is the bucketed Eq. 3 signature of ``h``
     (``kernels.ops.signature``).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
-    compute = torch_dtype(cfg.compute_dtype)
-    x = embed_tokens(params["embed"], tokens, compute)
-    if cfg.norm == "rmsnorm" and cfg.tie_embeddings:
-        x = x * cfg.d_model ** 0.5
+    x = _embed(params, tokens, cfg)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+    caches = []
     for si, stage in enumerate(cfg.stages):
-        x = _stage_forward(params["stages"][si], x, cfg=cfg,
-                           pattern=stage.pattern, repeats=stage.repeats,
-                           positions=positions, seq_len=S, runtime=runtime)
+        x, cache = _stage_forward(params["stages"][si], x, cfg=cfg,
+                                  pattern=stage.pattern,
+                                  repeats=stage.repeats, positions=positions,
+                                  seq_len=S, runtime=runtime,
+                                  collect_cache=collect_cache)
+        caches.append(cache)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     if runtime.want_signature:
@@ -176,6 +255,8 @@ def forward_hidden(params, batch, cfg: ArchConfig,
         aux["signature"] = ops.signature(x.detach(),
                                          tau=runtime.signature_tau,
                                          n_sig=runtime.signature_dims)
+    if collect_cache:
+        return x, aux, caches
     return x, aux
 
 
@@ -208,3 +289,49 @@ def loss_fn(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
     aux = dict(aux)
     aux["ce_loss"] = loss
     return loss + aux["moe_aux"], aux
+
+
+def prefill(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
+    """Serve-prefill: last-position logits (B, V) float32, the caches, and
+    aux (the full (B,S,V) logits are never formed)."""
+    h, aux, caches = forward_hidden(params, batch, cfg, runtime,
+                                    collect_cache=True)
+    logits = unembed(params["embed"], h[:, -1:],
+                     torch_dtype(cfg.compute_dtype), cfg.final_softcap)
+    return logits[:, 0], caches, aux
+
+
+def decode_step(params, token, caches, pos: int, cfg: ArchConfig,
+                runtime: Runtime = DEFAULT):
+    """One decode step.  token (B,1) integer, ``pos`` a Python int (the
+    token's position).  Returns (logits (B,V) float32, caches): the
+    caches given, updated in place (the attention layers' slot ``pos``
+    written, the recurrent states replaced row by row of the stack)."""
+    x = _embed(params, token, cfg)
+    for si, stage in enumerate(cfg.stages):
+        cache_seq = _cache_seq_len(caches[si], stage.pattern, cfg)
+        windows = [resolve_window(cfg, spec, cache_seq)
+                   for spec in stage.pattern]
+        for i in range(stage.repeats):
+            for j, spec in enumerate(stage.pattern):
+                lp = tree_map(lambda a: a[i], params["stages"][si][f"l{j}"])
+                stacked = caches[si][f"l{j}"]
+                cache = {k: v[i] for k, v in stacked.items()}
+                x, new = _layer_decode(lp, x, cache, pos, cfg=cfg, spec=spec,
+                                       window=windows[j], runtime=runtime)
+                for k, v in new.items():
+                    if v is not cache[k]:
+                        stacked[k][i].copy_(v)
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    logits = unembed(params["embed"], x, torch_dtype(cfg.compute_dtype),
+                     cfg.final_softcap)
+    return logits[:, 0], caches
+
+
+def _cache_seq_len(stage_cache, pattern, cfg: ArchConfig) -> int:
+    """The sequence length a stage's attention caches were built for (0
+    for a stage without attention)."""
+    for j, spec in enumerate(pattern):
+        if spec.kind == "attn":
+            return stage_cache[f"l{j}"]["k"].shape[2]
+    return 0

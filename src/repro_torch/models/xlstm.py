@@ -33,9 +33,15 @@ backward.  The reference wraps each chunk in ``jax.checkpoint``; the port
 runs each chunk under ``torch.utils.checkpoint`` (non-reentrant), which
 keeps only the chunk-boundary states.
 
+Decode: :func:`mlstm_decode` is one step of :func:`mlstm_recurrent_ref`
+and :func:`slstm_decode` the full-sequence block over one token from the
+carried state with no runtime (the model's step), in plain PyTorch as the
+reference computes them in ``jnp``.  A prefill through the kernels hands
+their final states (``C, n, m`` and ``c, n, h, m``) over as the decode
+state.
+
 Not ported: the mesh branch of the reference's
-``_slstm_scan_maybe_sharded`` (one card, no mesh) and ``mlstm_decode`` /
-``slstm_decode``, which wait for the serving slice; each raises
+``_slstm_scan_maybe_sharded`` (one card, no mesh); it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -100,15 +106,17 @@ def init_mlstm(generator, cfg: ArchConfig, dtype) -> dict:
     }
 
 
-def init_mlstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
-    """Fresh state and conv tail.  The reference's ``leading`` axes serve
-    its decode caches, which wait for the serving slice."""
+def init_mlstm_state(cfg: ArchConfig, batch: int, leading: tuple = (),
+                     device=None) -> dict:
+    """Fresh state and conv tail (stacked over ``leading``, as a stage's
+    decode cache)."""
     xc, d_in, d_qk, H = _mdims(cfg)
+    lead = tuple(leading) + (batch,)
     return {
-        "C": torch.zeros((batch, H, d_qk // H, d_in // H), device=device),
-        "n": torch.zeros((batch, H, d_qk // H), device=device),
-        "m": torch.full((batch, H), -1e30, device=device),
-        "conv": torch.zeros((batch, xc.s_conv - 1, d_in), device=device),
+        "C": torch.zeros(lead + (H, d_qk // H, d_in // H), device=device),
+        "n": torch.zeros(lead + (H, d_qk // H), device=device),
+        "m": torch.full(lead + (H,), -1e30, device=device),
+        "conv": torch.zeros(lead + (xc.s_conv - 1, d_in), device=device),
     }
 
 
@@ -221,7 +229,27 @@ def mlstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
 
 
 def mlstm_decode(params, x, state, *, cfg: ArchConfig):
-    raise NotImplementedError("mlstm_decode waits for the serving slice")
+    """Single-step recurrent decode.  x (B,1,d) -> (out (B,1,d), state)."""
+    xc, d_in, d_qk, H = _mdims(cfg)
+    compute = torch_dtype(cfg.compute_dtype)
+    B = x.shape[0]
+    up = x[:, 0].to(compute) @ params["up_proj"].to(compute)
+    xm, z = up.chunk(2, dim=-1)
+    window = torch.cat([state["conv"].to(compute), xm[:, None]], dim=1)
+    conv_w = params["conv_w"].to(compute)
+    xcn = F.silu((window * conv_w[None]).sum(dim=1)
+                 + params["conv_b"].to(compute))
+    q = (xcn @ params["wq"].to(compute)).reshape(B, 1, H, d_qk // H)
+    k = (xcn @ params["wk"].to(compute)).reshape(B, 1, H, d_qk // H)
+    v = (xm @ params["wv"].to(compute)).reshape(B, 1, H, d_in // H)
+    gif = (xm @ params["w_if"].to(compute)).float() + params["b_if"]
+    i_gate, f_gate = gif[:, None].chunk(2, dim=-1)
+    h, core = mlstm_recurrent_ref(q, k, v, i_gate, f_gate, state)
+    h = apply_norm(params["head_norm"], h.reshape(B, 1, d_in), "rmsnorm")
+    out = (h[:, 0].to(compute) * F.silu(z)) @ params["down_proj"].to(compute)
+    new_state = dict(core)
+    new_state["conv"] = window[:, 1:].float()
+    return out[:, None].to(x.dtype), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +283,15 @@ def init_slstm(generator, cfg: ArchConfig, dtype) -> dict:
     }
 
 
-def init_slstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
+def init_slstm_state(cfg: ArchConfig, batch: int, leading: tuple = (),
+                     device=None) -> dict:
+    """Fresh state and conv tail (stacked over ``leading``)."""
     d = cfg.d_model
-    zeros = lambda: torch.zeros((batch, d), device=device)  # noqa: E731
+    lead = tuple(leading) + (batch,)
+    zeros = lambda: torch.zeros(lead + (d,), device=device)  # noqa: E731
     return {"c": zeros(), "n": zeros(), "h": zeros(),
-            "m": torch.full((batch, d), -1e30, device=device),
-            "conv": torch.zeros((batch, cfg.xlstm.s_conv - 1, d),
+            "m": torch.full(lead + (d,), -1e30, device=device),
+            "conv": torch.zeros(lead + (cfg.xlstm.s_conv - 1, d),
                                 device=device)}
 
 
@@ -315,4 +346,6 @@ def slstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
 
 
 def slstm_decode(params, x, state, *, cfg: ArchConfig):
-    raise NotImplementedError("slstm_decode waits for the serving slice")
+    """Single-step decode: the block over one token from ``state``, on
+    the model's own step (no runtime, as the reference)."""
+    return slstm_forward(params, x, cfg=cfg, state=state)

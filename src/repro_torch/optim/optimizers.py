@@ -2,15 +2,32 @@
 
 ``Optimizer`` is an (init, update) pair over model trees, as in the
 reference, but the port updates in place where the reference builds new
-trees: ``update`` advances the moment buffers in place, and
-:func:`apply_updates` adds the updates into the parameters.  Call both
-under ``torch.no_grad()`` on parameters that require grad.
+trees: ``update`` advances the moment buffers in place and returns the
+step as :class:`Scaled` (a direction tree and the scale ``-lr``), and
+:func:`apply_updates` adds it into the parameters.  Call both under
+``torch.no_grad()`` on parameters that require grad.
 
-Arithmetic follows the reference's float32 order: learning rates and bias
-corrections are float32 scalars (the schedules compute in float32, as the
-reference's ``jnp`` scalars do), moments are kept in ``moment_dtype`` and
-updated in float32 (Jamba's are bfloat16).  The step counter is a Python
-int.
+Arithmetic follows the reference's jitted float32 programs bit for bit
+(``tests/test_torch_train.py`` holds 4 steps against ``jax.jit`` of the
+reference's update and ``apply_updates``):
+
+- learning rates and bias corrections are float32 scalars (the schedules
+  compute in float32), moments are kept in ``moment_dtype`` and updated
+  in float32 (Jamba's are bfloat16); the step counter is a Python int;
+- XLA:CPU fuses each ``a * b + c`` of the update into one FMA.  The port
+  writes each as ``c.add(b, alpha=a)``, which both PyTorch's CPU kernel
+  (an explicit ``fmadd``) and its CUDA kernel (contracted by nvcc)
+  compute with one rounding: ``p + (-lr) * d``, ``g + wd * p``,
+  ``mu * momentum + g``, ``d + wd * p`` and the moments.  Which product
+  XLA fuses depends on the program: the stored AdamW moments take
+  ``fma(m, b1, (1 - b1) * g)``, and with bfloat16 moments the update
+  recomputes them as ``fma(g, 1 - b1, m * b1)`` from the unrounded
+  inputs (read from the optimized HLO and confirmed bit for bit);
+- XLA rewrites ``mhat / (sqrt(vhat) + eps)`` as ``m / (bc1 * (sqrt(v /
+  bc2) + eps))``; the divisions are true divisions by a tensor (on the
+  card PyTorch divides by a host scalar as a multiply by its
+  reciprocal), and ``sqrt`` is correctly rounded (PyTorch's vectorised
+  float32 ``sqrt`` on the CPU is not: it is taken in float64 there).
 """
 from __future__ import annotations
 
@@ -82,10 +99,31 @@ def clip_by_global_norm(grads, max_norm: float):
 # ---------------------------------------------------------------------------
 
 
+class Scaled(NamedTuple):
+    """An optimizer step: ``p <- p + scale * direction`` with one rounding
+    (:func:`apply_updates`)."""
+    direction: object        # a tree congruent with the parameters
+    scale: float             # -lr, a float32 value
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true float32 division on any device: ``c`` as a
+    0-dim tensor on ``x``'s device (filled there, no host copy)."""
+    return x / torch.full((), c, dtype=torch.float32, device=x.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``sqrt``: in float64 on the CPU, whose
+    vectorised float32 ``sqrt`` is not."""
+    if x.device.type == "cpu":
+        return x.double().sqrt_().float()
+    return x.sqrt()
+
+
 def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
     """SGD with heavy-ball momentum: ``mu <- momentum*mu + g``,
-    ``p <- p + (-lr*mu)``; ``weight_decay`` adds ``wd * p`` to the
-    gradient first."""
+    ``p <- p + (-lr)*mu``; ``weight_decay`` adds ``wd * p`` to the
+    gradient first.  Each ``a*b + c`` is one FMA, as XLA fuses it."""
     lr_t = constant_schedule(lr)(0)
 
     def init(params):
@@ -100,18 +138,18 @@ def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
 
         def grad(g, p):
             g = g.float()
-            return g + weight_decay * p.float() if weight_decay else g
+            return g.add(p.float(), alpha=weight_decay) if weight_decay \
+                else g
 
         if momentum == 0.0:
-            return (tree_map(lambda g, p: grad(g, p) * -lr_t, grads, params),
+            return (Scaled(tree_map(grad, grads, params), -lr_t),
                     {"step": step})
 
         def advance(g, p, mu):
-            mu.mul_(momentum).add_(grad(g, p))
-            return mu * -lr_t
+            return torch.add(grad(g, p), mu, alpha=momentum, out=mu)
 
-        updates = tree_map(advance, grads, params, state["mu"])
-        return updates, {"step": step, "mu": state["mu"]}
+        direction = tree_map(advance, grads, params, state["mu"])
+        return Scaled(direction, -lr_t), {"step": step, "mu": state["mu"]}
 
     return Optimizer(init, update)
 
@@ -120,8 +158,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0,
           moment_dtype: torch.dtype = torch.float32) -> Optimizer:
     """AdamW with bias-corrected moments kept in ``moment_dtype``:
-    ``u = -lr * (mhat / (sqrt(vhat) + eps) + wd * p)``, all in float32."""
+    ``p <- p + (-lr) * (mhat / (sqrt(vhat) + eps) + wd * p)``, in the
+    jitted reference's float32 order (module docstring)."""
     sched = lr if callable(lr) else constant_schedule(lr)
+    narrow = moment_dtype != torch.float32
 
     def init(params):
         def zeros(p):
@@ -136,30 +176,41 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc1 = float(1 - torch.pow(_f32(b1), _f32(step)))
         bc2 = float(1 - torch.pow(_f32(b2), _f32(step)))
 
-        def upd(g, m, v, p):
+        def direction(g, m, v, p):
             g = g.float()
-            m_new = b1 * m.float() + (1 - b1) * g
-            v_new = b2 * v.float() + (1 - b2) * g.square()
-            mhat = m_new / bc1
-            vhat = v_new / bc2
-            u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)
-                         + weight_decay * p.float())
+            g2 = g.square()
+            m32, v32 = m.float(), v.float()
+            m_new = (g * (1 - b1)).add_(m32, alpha=b1)
+            v_new = (g2 * (1 - b2)).add_(v32, alpha=b2)
+            if narrow:
+                # the update's own fusion of the unrounded moments
+                m_use = (m32 * b1).add_(g, alpha=1 - b1)
+                v_use = (v32 * b2).add_(g2, alpha=1 - b2)
+            else:
+                m_use, v_use = m_new, v_new
             m.copy_(m_new)
             v.copy_(v_new)
-            return u
+            denom = _sqrt(_div(v_use, bc2)).add_(eps).mul_(bc1)
+            d = m_use.div_(denom)
+            return d.add_(p.float(), alpha=weight_decay) if weight_decay \
+                else d
 
-        updates = tree_map(upd, grads, state["m"], state["v"], params)
-        return updates, {"step": step, "m": state["m"], "v": state["v"]}
+        updates = tree_map(direction, grads, state["m"], state["v"], params)
+        return (Scaled(updates, -lr_t),
+                {"step": step, "m": state["m"], "v": state["v"]})
 
     return Optimizer(init, update)
 
 
-def apply_updates(params, updates) -> None:
-    """``p <- p + u`` in place, leaf by leaf; a parameter of a narrower
-    type takes the float32 sum rounded once."""
-    def add(p, u):
+def apply_updates(params, updates: Scaled) -> None:
+    """``p <- p + scale * direction`` in place, leaf by leaf, as one fused
+    multiply-add; a parameter of a narrower type takes the float32 result
+    rounded once."""
+    alpha = updates.scale
+
+    def add(p, d):
         if p.dtype == torch.float32:
-            p.add_(u)
+            p.add_(d, alpha=alpha)
         else:
-            p.copy_(p.float() + u)
-    tree_map(add, params, updates)
+            p.copy_(p.float().add_(d, alpha=alpha))
+    tree_map(add, params, updates.direction)

@@ -31,6 +31,15 @@ class Runtime:
 DEFAULT = Runtime()
 
 
+def serve_runtime() -> Runtime:
+    """Runtime for the serving path (prefill + KV-cache decode), the
+    counterpart of the reference's ``serve_runtime``: no signature, the
+    hot spots on the kernels.  The port has no kernel policy: on the card
+    the prefill launches the kernels, on the CPU their plain versions
+    (the tensor's device decides, as ``LMBackend.eval_runtime``)."""
+    return Runtime(use_kernels=True)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the CUDA card (raises without one); else ``device``."""
     if device is None:

@@ -10,13 +10,17 @@ have no backward, as in the reference); the Eq. 3 signature in the
 metrics comes from the signature kernel on the card, taken on the
 detached final-norm output (``models.transformer.forward_hidden``).
 
-``make_serve_prefill`` and ``make_serve_decode`` wait for the serving
-slice (ROADMAP Queue 1 item 4) and raise ``NotImplementedError``.
+``make_serve_prefill`` / ``make_serve_decode`` are the serving pair
+(decode = ONE new token against the caches), run under
+``torch.inference_mode()``; the prefill launches the kernels with
+``runtime.use_kernels`` (``runtime.serve_runtime``), the decode step is
+plain PyTorch, as the reference's.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -48,7 +52,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     returns (params, opt_state, metrics) with ``loss``, ``ce_loss``,
     ``moe_aux``, ``grad_norm`` and, with ``runtime.want_signature``,
     ``signature``.  ``microbatches > 1`` splits the batch and accumulates
-    the gradients in float32, as the reference's scan does."""
+    the gradients in float32, as the reference's scan does, and takes
+    their mean by the float32 reciprocal, as its jitted ``/ n``."""
     opt = optimizer or default_optimizer(cfg)
     compute = torch_dtype(cfg.compute_dtype)
 
@@ -88,9 +93,12 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
                 aux_sum = {k: aux_sum[k] + mb_aux[k] for k in aux_sum}
                 if "signature" in mb_aux:
                     sigs.append(mb_aux["signature"])
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
-            aux = {k: v / microbatches for k, v in aux_sum.items()}
+            # the jitted reference's ``/ n`` is a multiply by the float32
+            # reciprocal of n
+            inv = float(np.float32(1) / np.float32(microbatches))
+            grads = tree_map(lambda g: g * inv, grads)
+            loss = loss * inv
+            aux = {k: v * inv for k, v in aux_sum.items()}
             if sigs and runtime.want_signature:
                 aux["signature"] = f32_mean(torch.stack(sigs), dim=0)
         with torch.no_grad():
@@ -109,15 +117,29 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
 
 
 def make_serve_prefill(cfg: ArchConfig, runtime: Runtime = Runtime()):
-    raise NotImplementedError(
-        "serving (prefill and KV-cache decode) waits for ROADMAP Queue 1 "
-        "item 4")
+    """``serve_prefill(params, batch)`` -> (last logits (B, V), caches)."""
+
+    @torch.inference_mode()
+    def serve_prefill(params, batch):
+        last_logits, caches, _ = tfm.prefill(params, batch, cfg, runtime)
+        return last_logits, caches
+
+    return serve_prefill
 
 
 def make_serve_decode(cfg: ArchConfig, runtime: Runtime = Runtime()):
-    raise NotImplementedError(
-        "serving (prefill and KV-cache decode) waits for ROADMAP Queue 1 "
-        "item 4")
+    """``serve_decode(params, token, caches, pos)`` -> (next token (B,)
+    int32, logits (B, V), caches updated in place); ``pos`` a Python
+    int."""
+
+    @torch.inference_mode()
+    def serve_decode(params, token, caches, pos):
+        logits, new_caches = tfm.decode_step(params, token, caches, pos, cfg,
+                                             runtime)
+        next_token = logits.argmax(dim=-1).to(torch.int32)
+        return next_token, logits, new_caches
+
+    return serve_decode
 
 
 def make_eval_step(cfg: ArchConfig, runtime: Runtime = Runtime()):

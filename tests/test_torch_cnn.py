@@ -167,10 +167,21 @@ def test_batches_match_reference_draws():
             assert np.array_equal(np.asarray(jy), ty)
 
 
+def _reference_sgd_step(opt, apply):
+    """The reference's update and ``apply_updates`` as one program, which
+    the caller jits, as ``CNNBackend``'s training loop runs them."""
+    def step(p, g, s):
+        upd, s = opt.update(g, s, p)
+        return apply(p, upd), s
+    return step
+
+
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
 def test_sgd_matches_reference(momentum):
-    """Three steps from the same grads.  Both sides run op by op (the
-    reference's update is not jitted here), so the float32 bits agree."""
+    """Three steps from the same grads, bit for bit against the
+    reference's update and ``apply_updates`` jitted as its training loop
+    runs them: XLA fuses ``p + (-lr) * mu`` into one multiply-add, and so
+    does the port."""
     from repro.optim.optimizers import apply_updates as j_apply
     from repro.optim.optimizers import sgd as j_sgd
     from repro_torch.optim.optimizers import apply_updates, sgd
@@ -184,9 +195,9 @@ def test_sgd_matches_reference(momentum):
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     tp = params_from_numpy(params, "cpu")
     js, ts = j_opt.init(jp), t_opt.init(tp)
+    j_step = jax.jit(_reference_sgd_step(j_opt, j_apply))
     for g in grads:
-        upd, js = j_opt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
-        jp = j_apply(jp, upd)
+        jp, js = j_step(jp, jax.tree_util.tree_map(jnp.asarray, g), js)
         tupd, ts = t_opt.update(params_from_numpy(g, "cpu"), ts, tp)
         apply_updates(tp, tupd)
     assert ts["step"] == int(js["step"]) == 3

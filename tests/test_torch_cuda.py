@@ -943,3 +943,115 @@ def test_lm_cohort_window_equals_plain_on_card(card, family, monkeypatch):
     assert sigs.shape == plain_sigs.shape == (3, 64)
     flag = 1 / (n * cfg.d_model // 64)   # one flag of a bucket's mean
     assert np.abs(sigs - plain_sigs).max() <= 2 * flag + 1e-7
+
+
+def _serve_config(family):
+    """A reduced float32 member of each LM family with every block kind
+    the serving path runs: attention (internlm2), Mamba and attention
+    (the Jamba cut), mLSTM and sLSTM (xLSTM).  d_model 128 gives the
+    attention layers a head_dim of 32, the flash kernels' smallest."""
+    if family == "internlm2":
+        cfg = reduced(get_config("internlm2-1.8b"), d_model=128)
+    elif family == "hybrid":
+        cfg = dataclasses.replace(
+            reduced(get_config("jamba-v0.1-52b"), d_model=128), n_layers=2,
+            stages=(Stage((LayerSpec(kind="mamba", ffn="dense"),
+                           LayerSpec(kind="attn", ffn="dense")), 1),))
+    else:
+        cfg = dataclasses.replace(
+            reduced(get_config("xlstm-125m"), d_model=64), n_layers=2,
+            stages=(Stage((LayerSpec(kind="mlstm", ffn="none"),
+                           LayerSpec(kind="slstm", ffn="none")), 1),))
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               cache_dtype="float32")
+
+
+def _same_state(got: dict, want: dict, tol: float = 1e-4) -> None:
+    """One layer's caches within ``tol`` (relative to the values).  The
+    mLSTM state (C, n) is defined up to its stabiliser m, which depends on
+    the chunking (the kernel's 64-step chunks, the model's own form's
+    ``xlstm.chunk``): C and n are compared at the plain form's m."""
+    scale = torch.exp(got["m"] - want["m"]) if "C" in got else None
+    for key, b in want.items():
+        a = got[key]
+        if scale is not None and key == "m":
+            continue
+        if scale is not None and key in ("C", "n"):
+            a = a * scale.reshape(scale.shape + (1,) * (a.dim()
+                                                       - scale.dim()))
+        assert a.shape == b.shape, key
+        assert bool(((a - b).abs() <= tol + tol * b.abs()).all()), (
+            key, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("family", ["internlm2", "hybrid", "xlstm"])
+def test_serve_prefill_kernels_equal_plain_on_card(card, family):
+    """Prefill on the kernels (flash, scan, mLSTM, sLSTM) against prefill
+    on the plain versions, on the card: the last logits and every cache
+    within 1e-4; then a decode step from each prefill's caches, within
+    1e-4 of each other (the hand-over of the kernels' final states); each
+    kernel launched once per layer of its kind (and flash on the float32
+    FMA route)."""
+    from repro_torch.launch.serve import extend_caches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Runtime, serve_runtime
+    cfg = _serve_config(family)
+    params = tfm.init_params(torch.Generator(device=card).manual_seed(0),
+                             cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 70), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    kinds = [s.kind for s in cfg.layer_specs()]
+    counters = {"attn": fa, "mamba": ss, "mlstm": mlstm, "slstm": slstm}
+    before = {k: counters[k].launches for k in sorted(set(kinds))}
+    fma = fa.launches_fma
+    with torch.inference_mode():
+        k_logits, k_caches, _ = tfm.prefill(params, {"tokens": tokens}, cfg,
+                                            serve_runtime())
+        torch.cuda.synchronize()
+        for kind in sorted(set(kinds)):
+            assert counters[kind].launches == before[kind] + kinds.count(kind)
+        assert fa.launches_fma - fma == kinds.count("attn")
+        p_logits, p_caches, _ = tfm.prefill(params, {"tokens": tokens}, cfg,
+                                            Runtime())
+        assert (k_logits - p_logits).abs().max().item() <= 1e-4
+        for k_stage, p_stage in zip(k_caches, p_caches):
+            assert sorted(k_stage) == sorted(p_stage)
+            for name in k_stage:
+                _same_state(k_stage[name], p_stage[name])
+        tok = p_logits.argmax(-1)[:, None]
+        steps = []
+        for caches in (k_caches, p_caches):
+            caches = extend_caches(caches, cfg, 1)
+            logits, _ = tfm.decode_step(params, tok, caches, 70, cfg)
+            steps.append(logits)
+        assert bool(torch.isfinite(steps[0]).all())
+        assert (steps[0] - steps[1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adamw",
+                                  "adamw_bf16"])
+def test_optimizer_steps_on_card_equal_cpu(card, name):
+    """Four optimizer steps on 4,096 float32 parameters on the card equal
+    the same steps on the CPU bit for bit (the CPU's equal the jitted
+    reference's, ``test_torch_train.py``): CUDA's ``add`` with ``alpha``
+    is one fused multiply-add, as the CPU kernel's."""
+    from repro_torch.optim import optimizers as topt
+    make = {"sgd": lambda: topt.sgd(0.05),
+            "sgd_momentum": lambda: topt.sgd(0.05, 0.9, 0.01),
+            "adamw": lambda: topt.adamw(1e-2, weight_decay=0.1),
+            "adamw_bf16": lambda: topt.adamw(
+                1e-2, weight_decay=0.1, moment_dtype=torch.bfloat16)}[name]
+    rng = np.random.default_rng(0)
+    p0 = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    grads = [torch.from_numpy((rng.standard_normal(4096) * 0.5)
+                              .astype(np.float32)) for _ in range(4)]
+    out = []
+    for device in ("cpu", card):
+        opt, p = make(), p0.clone().to(device)
+        state = opt.init(p)
+        for g in grads:
+            upd, state = opt.update(g.to(device), state, p)
+            topt.apply_updates(p, upd)
+        out.append(p.cpu())
+    assert torch.equal(out[0], out[1])

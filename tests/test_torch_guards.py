@@ -77,6 +77,26 @@ def test_training_and_lm_cohort_modules_import_no_jax():
     assert not bad, bad
 
 
+def test_serving_modules_import_no_jax():
+    """The serve launcher and live serving are the port's own."""
+    port = REPO / "src" / "repro_torch"
+    files = [port / "launch" / "serve.py", port / "fl" / "serving.py"]
+    assert all(p in PORT_FILES for p in files)
+    bad = [f"{p.name}:{line} imports {root}" for p in files
+           for line, root in _imported_roots(p) if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_serve_without_device_raises_where_cuda_is_absent(monkeypatch):
+    """``launch.serve.serve`` runs on the card unless the CPU is asked
+    for."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("internlm2-1.8b"), d_model=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve(cfg, 1, 4, 2)
+
+
 @pytest.mark.parametrize("size,built", [(2, True), (1, False)])
 def test_lm_backend_runs_on_the_cohort_engine(size, built):
     """An ``LMBackend`` gets the LM suite wherever ``cohort_size > 1``, and
@@ -808,9 +828,7 @@ def test_nvcc_missing_raises(monkeypatch):
         build._nvcc()
 
 
-@pytest.mark.parametrize("name,value", [("mesh", "2x2"),
-                                        ("serve_every", 5.0),
-                                        ("serving", object())])
+@pytest.mark.parametrize("name,value", [("mesh", "2x2")])
 def test_unported_options_raise(name, value):
     cfg = DagAflConfig(n_clients=2)
     setattr(cfg, name, value)
@@ -818,18 +836,36 @@ def test_unported_options_raise(name, value):
         DagAflCoordinator(object(), [{}, {}], None, cfg)
 
 
+@pytest.mark.parametrize("name", ["serve_every", "serving"])
+def test_serving_options_are_ported(name):
+    """``serve_every`` and ``serving`` left the unported options: the
+    coordinator builds, and its effective serving config carries them."""
+    from repro_torch.fl.serving import ServingConfig
+    value = 5.0 if name == "serve_every" else ServingConfig(every=2.5)
+    cfg = DagAflConfig(n_clients=2, **{name: value})
+    data = [{"train": None, "val": None}] * 2
+    coord = DagAflCoordinator(object(), data, None, cfg)
+    scfg = coord._serving_config()
+    assert isinstance(scfg, ServingConfig)
+    assert scfg.every == (5.0 if name == "serve_every" else 2.5)
+    assert coord.publisher is None and coord.query_stream is None
+    assert DagAflCoordinator(object(), data, None, DagAflConfig(
+        n_clients=2))._serving_config() is None
+
+
 @pytest.mark.parametrize("scenario", ["poison", "lazy", "dp", "straggler",
                                       "dropout"])
 def test_scenarios_are_ported(scenario):
     """``scenario`` left the unported options: the coordinator builds its
-    injector (and still refuses serving beside it)."""
+    injector, and serves beside it."""
     data = [{"train": None, "val": None}] * 4
     coord = DagAflCoordinator(object(), data, None,
                               DagAflConfig(n_clients=4, scenario=scenario))
     assert coord.scenario.cfg.name == scenario
-    with pytest.raises(NotImplementedError, match="serve_every"):
-        DagAflCoordinator(object(), data, None, DagAflConfig(
-            n_clients=4, scenario=scenario, serve_every=5.0))
+    both = DagAflCoordinator(object(), data, None, DagAflConfig(
+        n_clients=4, scenario=scenario, serve_every=5.0))
+    assert both.scenario.cfg.name == scenario
+    assert both._serving_config().every == 5.0
 
 
 @pytest.mark.parametrize("mesh,ok", [(None, True), ("auto", True),

@@ -83,3 +83,22 @@ def test_f32_mean_equals_jitted_jnp_mean(n):
     flags = torch.arange(47) < 47
     assert f32_mean(flags).item() == np.float32(47) * (np.float32(1)
                                                        / np.float32(47))
+
+
+@pytest.mark.parametrize("den", [784, 1000])
+@pytest.mark.parametrize("n", [37, 100, 128, 500])
+def test_f32_mean_follows_xla_order(n, den):
+    """Fractions k/784 and k/1000 do not add exactly, so the mean's bits
+    depend on the order of the column sums too: rows that are a program
+    input add left to right in windows of 32 (``input_row_sum``), as
+    XLA:CPU's tree reduction adds them, bit for bit with jitted
+    ``jnp.mean``.  torch's own ``sum`` is off in some columns."""
+    k = np.random.default_rng(n + den).integers(0, den + 1, (n, 64))
+    x = k.astype(np.float32) * np.float32(1 / den)
+    want = np.asarray(jax.jit(lambda a: jax.numpy.mean(a, axis=0))(x))
+    got = f32_mean(torch.from_numpy(x), dim=0)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(f32_mean(torch.from_numpy(x[:, 0])).numpy(),
+                          want[0])
+    torch_sum = torch.from_numpy(x).sum(0) * float(np.float32(1) / n)
+    assert not np.array_equal(torch_sum.numpy(), want)

@@ -10,11 +10,14 @@ reasons:
 * schedules: 2e-7 relative or one unit in the last place of ``lr`` --
   XLA's float32 ``cos`` and ``pow`` are other implementations than
   torch's, a unit apart, and ``1 + cos`` near the end of a cosine cancels;
-* clipping and optimizer updates: 1e-6 -- float32 sums of squares in
-  another order; bfloat16 moments: one bfloat16 unit where the float32
-  value before the cast sits on a rounding boundary;
-* three train steps of reduced internlm2 in float32: parameters, loss and
-  ``grad_norm`` within 1e-5 -- gradients summed in another order (the
+* clipping: 1e-6 -- float32 sums of squares in another order;
+* optimizer updates against the jitted reference (its fused multiply-adds
+  and its divisions): bit for bit at a constant learning rate; 1e-6
+  through the warm-up cosine schedule, whose float32 ``cos`` is another
+  implementation than torch's; bfloat16 moments: one bfloat16 unit where
+  the float32 value before the cast sits on a rounding boundary;
+* three train steps of reduced internlm2 in float32 (microbatches 1, 2
+  and 3): parameters, loss and ``grad_norm`` within 1e-5 -- gradients summed in another order (the
   reference's chunked cross-entropy), through AdamW's division by
   ``sqrt(v)``; the signature within one flag per bucket;
 * checkpoints: bit for bit, both ways.
@@ -139,17 +142,27 @@ def test_clip_by_global_norm_matches_reference(scale):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
 
 
-def _run_optimizer(make_ref, make_got, steps=4):
-    params = _tree(2)
+def _reference_step(opt):
+    """The reference's update and ``apply_updates`` as one program, which
+    the caller jits, as its training loops run them (``fl/backend.py``,
+    the cohort programs, ``launch/train.py``)."""
+    def step(p, g, s):
+        u, s = opt.update(g, s, p)
+        return jopt.apply_updates(p, u), s
+    return step
+
+
+def _run_optimizer(make_ref, make_got, steps=4, params=None, grads=None):
+    params = _tree(2) if params is None else params
+    grads = grads or (lambda i: _tree(10 + i, 0.5))
     ref_opt, got_opt = make_ref(), make_got()
+    ref_step = jax.jit(_reference_step(ref_opt))
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     tp = params_from_numpy(params, "cpu")
     js, ts = ref_opt.init(jp), got_opt.init(tp)
     for i in range(steps):
-        g = _tree(10 + i, 0.5)
-        ju, js = ref_opt.update(jax.tree_util.tree_map(jnp.asarray, g), js,
-                                jp)
-        jp = jopt.apply_updates(jp, ju)
+        g = grads(i)
+        jp, js = ref_step(jp, jax.tree_util.tree_map(jnp.asarray, g), js)
         tu, ts = got_opt.update(params_from_numpy(g, "cpu"), ts, tp)
         topt.apply_updates(tp, tu)
     assert ts["step"] == int(js["step"]) == steps
@@ -189,13 +202,52 @@ def test_sgd_matches_reference(momentum, weight_decay):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
 
 
+def _normals(seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(4096) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("momentum,weight_decay", [(0.0, 0.0), (0.0, 0.01),
+                                                   (0.9, 0.0), (0.9, 0.01)])
+def test_sgd_equals_jitted_reference_bits(momentum, weight_decay):
+    """4,096 float32 parameters over 4 steps, bit for bit: each ``a*b + c``
+    of the jitted update is one fused multiply-add."""
+    jp, js, tp, ts = _run_optimizer(
+        lambda: jopt.sgd(0.05, momentum, weight_decay),
+        lambda: topt.sgd(0.05, momentum, weight_decay),
+        params=_normals(0), grads=lambda i: _normals(10 + i, 0.5))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    if momentum:
+        assert np.array_equal(ts["mu"].numpy(), np.asarray(js["mu"]))
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adamw_equals_jitted_reference_bits(moments, weight_decay):
+    """4,096 float32 parameters over 4 AdamW steps, bit for bit: the
+    moments, ``m / (bc1 * (sqrt(v / bc2) + eps))`` as XLA rewrites it, and
+    the fused products (with bfloat16 moments the update's own fusion
+    takes the other product of each moment)."""
+    jp, js, tp, ts = _run_optimizer(
+        lambda: jopt.adamw(1e-2, weight_decay=weight_decay,
+                           moment_dtype=getattr(jnp, moments)),
+        lambda: topt.adamw(1e-2, weight_decay=weight_decay,
+                           moment_dtype=getattr(torch, moments)),
+        params=_normals(0), grads=lambda i: _normals(10 + i, 0.5))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    for key in ("m", "v"):
+        assert np.array_equal(ts[key].float().numpy(),
+                              np.asarray(js[key].astype(jnp.float32)))
+
+
 # -- train and eval steps ---------------------------------------------------
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("microbatches", [1, 2, 3])
 def test_train_step_matches_reference(microbatches):
     """Three AdamW steps of reduced internlm2 (float32) with clipping and
-    the signature in the metrics, on the same pipeline batches."""
+    the signature in the metrics, on the same pipeline batches (6 rows at
+    3 microbatches, where the mean's reciprocal is inexact)."""
     jc, tc = _configs()
     np_params = _np_params(jc)
     ref_step, ref_opt = jstep.make_train_step(
@@ -208,7 +260,8 @@ def test_train_step_matches_reference(microbatches):
     tp = params_from_numpy(np_params, "cpu")
     js, ts = ref_opt.init(jp), got_opt.init(tp)
     ref_step = jax.jit(ref_step)
-    pipe = TokenPipeline(128, 4, 32, n_tokens=5000, seed=1)
+    batch_rows = 6 if microbatches == 3 else 4
+    pipe = TokenPipeline(128, batch_rows, 32, n_tokens=5000, seed=1)
     it = iter(pipe)
     for _ in range(3):
         batch = pipe.batch_dict(next(it))
@@ -221,7 +274,7 @@ def test_train_step_matches_reference(microbatches):
         assert float(tm["moe_aux"]) == float(jm["moe_aux"]) == 0.0
         np.testing.assert_allclose(tm["signature"].numpy(),
                                    np.asarray(jm["signature"]), rtol=0,
-                                   atol=1 / (4 * 32) + 1e-7)
+                                   atol=1 / (batch_rows * 32) + 1e-7)
     assert float(tm["grad_norm"]) > 0.0
     for a, b in zip(_tnp(tp), _np(jp)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
@@ -241,11 +294,22 @@ def test_eval_step_matches_reference():
     assert np.float32(got["accuracy"]) == np.float32(want["accuracy"])
 
 
-def test_serving_steps_wait_for_their_slice():
+def test_serving_steps_are_built():
+    """The serving pair replaced its raises: a prefill and one decode step
+    of the reduced internlm2, the step's token the argmax of its logits
+    (held against the reference in ``test_torch_decode.py``)."""
     _, tc = _configs()
-    for make in (tstep.make_serve_prefill, tstep.make_serve_decode):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            make(tc)
+    params = params_from_numpy(_np_params(_configs()[0]), "cpu")
+    prefill = tstep.make_serve_prefill(tc)
+    decode = tstep.make_serve_decode(tc)
+    tokens = torch.from_numpy(np.arange(10, dtype=np.int32).reshape(2, 5))
+    logits, caches = prefill(params, {"tokens": tokens})
+    assert logits.shape == (2, tc.vocab_size)
+    from repro_torch.launch.serve import extend_caches
+    caches = extend_caches(caches, tc, 1)
+    tok, step_logits, _ = decode(params, logits.argmax(-1)[:, None], caches,
+                                 5)
+    assert torch.equal(tok, step_logits.argmax(-1).to(torch.int32))
 
 
 # -- checkpoints ------------------------------------------------------------

@@ -346,18 +346,31 @@ def test_model_mlstm_checkpoints_each_chunk_under_autograd(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The decode steps wait for serving; the sharded sLSTM scan needs a
-    mesh, which one card does not have."""
+    """The sharded sLSTM scan needs a mesh, which one card does not
+    have."""
     jc, tc, core, x = _block("slstm")
     params = params_from_numpy(core, "cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        xlstm.slstm_decode(params, torch.zeros((1, 1, 64)), None, cfg=tc)
-    with pytest.raises(NotImplementedError, match="serving"):
-        xlstm.mlstm_decode(params, torch.zeros((1, 1, 64)), None, cfg=tc)
     with pytest.raises(NotImplementedError, match="mesh"):
         xlstm.slstm_forward(params, torch.zeros((1, 4, 64)), cfg=tc,
                             runtime=SimpleNamespace(mesh=object(),
                                                     use_kernels=False))
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_decode_steps_run(kind):
+    """The decode steps replaced their raises: one step from a fresh state
+    keeps the state's shapes (held against the reference in
+    ``test_torch_decode.py``)."""
+    jc, tc, core, x = _block(kind)
+    params = params_from_numpy(core, "cpu")
+    init = {"mlstm": xlstm.init_mlstm_state,
+            "slstm": xlstm.init_slstm_state}[kind](tc, 1)
+    decode = {"mlstm": xlstm.mlstm_decode,
+              "slstm": xlstm.slstm_decode}[kind]
+    out, state = decode(params, torch.ones((1, 1, 64)), init, cfg=tc)
+    assert out.shape == (1, 1, 64) and bool(torch.isfinite(out).all())
+    assert {k: v.shape for k, v in state.items()} == \
+        {k: v.shape for k, v in init.items()}
 
 
 KW = dict(lr=5e-3, local_steps=2, batch_size=8, seq_len=64)
