@@ -81,7 +81,7 @@ Phases, each printing one JSON line:
    plain-attention forward on the card; then one profiled backend round;
 9. the hybrid path: the same loop over three jamba-v0.1-52b clients at
    full width, depth cut to one Mamba and one attention layer with dense
-   feed-forward layers (the MoE layers are not ported), with the launch
+   feed-forward layers (its MoE layers are phase 15's), with the launch
    counts set to 0 just before and read just after; the kernel forward
    (selective scan and flash attention) held against the plain forward
    (the model's chunked scan and dense attention) on the card; then one
@@ -134,7 +134,25 @@ Phases, each printing one JSON line:
    fresh Eq. 6 over its refs bit for bit, the last LM replica's tokens
    equal to those of Eq. 6 over its refs, the ledgers verified; and
    whether its tx ids and Eq. 7 hashes equal those of the same world
-   without serving (and, where they do not, of that world run twice).
+   without serving (and, where they do not, of that world run twice);
+15. the MoE path: jamba-v0.1-52b at full width cut to layers 4 and 5 of
+   its period, ``(attn, dense)`` and ``(mamba, moe)`` (16 experts of
+   14,336, top-2; 3,678,941,184 parameters), in three legs, each with
+   the launch counts set to 0 just before and read just after:
+   ``moe_backend``, ``LMBackend.evaluate`` and ``signature`` (the
+   tip-selection forwards, ``mode="prefill"``) at batch 8 x 512 (flash
+   and the scan once a forward, flash on sm90, the signature once a
+   signature call on vec, no plain call), then the kernel forward against
+   the plain forward in float32 (at least 99.9% of the tokens routed to
+   the same experts, logits within the reference's 2e-2 on those) and in
+   bfloat16 (reported); ``moe_train``, ``launch.train.train_single`` for
+   10 AdamW steps with bfloat16 moments at batch 8 x 512 (``moe_aux``
+   finite and above 0 at every step, the loss falling, one signature
+   launch a step, the peak leaving 5 GB of the card free; the choices
+   the capacity dropped each step); ``moe_serve``, the serve leg above
+   at this config (the steps whose tokens the serve run and the
+   teacher-forced forward route to other experts are reported and left
+   out of the float32 comparison).
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -238,6 +256,11 @@ SLSTM_TOL = {"hs": 1e-5, "state": 1e-4}   # rtol and atol, the reference's
 # model's scale, and the drift at 0.05 is measured against float64
 SLSTM_R_SCALE, SLSTM_MODEL_R_SCALE = 0.05, 0.01
 XLSTM_PARAMS = 134_421_576           # the reference's tree, leaf by leaf
+# the MoE path: the hybrid cut less one dense FFN, plus 16 experts and a
+# router (the reference's tree, leaf by leaf)
+MOE_PARAMS = 3_678_941_184
+MOE_ROUTED_ALIKE_MIN = 0.999         # tokens routed alike by two forwards
+MOE_FREE_BYTES_MIN = 5e9             # the train leg's peak leaves this free
 
 
 def emit(**fields) -> None:
@@ -2046,8 +2069,8 @@ def profile_lm_round(backend, params, stream) -> dict:
 
 def tree_param_count(cfg) -> int:
     """Parameters of the port's tree for a config of attention blocks
-    without biases, Mamba, mLSTM and sLSTM blocks, with dense feed-forward
-    layers or none, counted leaf by leaf from its shapes
+    without biases, Mamba, mLSTM and sLSTM blocks, with dense or MoE
+    feed-forward layers or none, counted leaf by leaf from its shapes
     (``ArchConfig.param_count()`` counts a Mamba layer's small leaves and
     most of an xLSTM layer's leaves otherwise, and leaves out the
     norms)."""
@@ -2060,6 +2083,11 @@ def tree_param_count(cfg) -> int:
         total += norm                                    # norm1
         if spec.ffn == "dense" and cfg.d_ff > 0:
             total += norm + 3 * d * cfg.d_ff             # norm2, ffn
+        elif spec.ffn == "moe":
+            mo = cfg.moe                                 # norm2, router,
+            total += (norm + d * mo.n_experts            # experts, shared
+                      + 3 * mo.n_experts * d * mo.d_expert
+                      + 3 * d * mo.n_shared * mo.d_expert)
         if spec.kind == "mlstm":
             xc = cfg.xlstm
             d_in = xc.m_expand * d
@@ -2911,6 +2939,61 @@ class PlainMeter:
             setattr(self.kern[key], name, self.inner[key])
 
 
+class RoutingMeter:
+    """While entered, records each MoE routing (every call of
+    ``models.moe.topk_dispatch``): its greedy top-k choices (G, S_g, k),
+    the reference's rule (the first largest probability, then the first
+    largest of the rest), and the choices its capacity dropped; restores
+    the function on exit."""
+
+    def __init__(self):
+        self.choices, self.dropped = [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.inner = moe, moe.topk_dispatch
+
+        def routed(probs, k, cap):
+            gates, dispatch = self.inner(probs, k, cap)
+            with torch.no_grad():
+                rest, picks = probs.detach(), []
+                for _ in range(k):
+                    picks.append(rest.argmax(-1))
+                    rest = rest.scatter(-1, picks[-1][..., None], 0.0)
+                self.choices.append(torch.stack(picks, -1))
+                self.dropped.append(k * probs.shape[0] * probs.shape[1]
+                                    - dispatch.sum())
+            return gates, dispatch
+
+        moe.topk_dispatch = routed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.topk_dispatch = self.inner
+
+    def tokens(self, calls, batch: int, seq: int):
+        """The choices of ``calls`` (indices into the record) as (layers,
+        batch, seq, k): each call's groups cut back to the batch's rows."""
+        import torch
+        return torch.stack([self.choices[i].reshape(-1, self.choices[i]
+                                                    .shape[-1])
+                            [:batch * seq].reshape(batch, seq, -1)
+                            for i in calls])
+
+    def dropped_total(self) -> int:
+        return int(sum(int(d) for d in self.dropped))
+
+
+def moe_layers(cfg) -> int:
+    return sum(spec.ffn == "moe" for spec in cfg.layer_specs())
+
+
+def routed_choices(cfg, tokens: int) -> int:
+    """Routed choices of ``tokens`` tokens over the MoE layers."""
+    return tokens * cfg.moe.top_k * moe_layers(cfg)
+
+
 def reset_launches(kern) -> None:
     for key in ("sig", "fa", "ss", "ml", "sl"):
         kern[key].launches = 0
@@ -3024,34 +3107,42 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     # float32 compute, the same weights and prompts
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
                                 cache_dtype="float32")
-    r32 = launch.serve(cfg32, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
-                       device=dev, params=params, prompts=prompts,
-                       keep_logits=True)
+    with RoutingMeter() as served:
+        r32 = launch.serve(cfg32, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+                           device=dev, params=params, prompts=prompts,
+                           keep_logits=True)
     logits32, tokens32 = r32["logits"], r32["tokens"]
     check(all(n == total for n in attn_cache_lens(cfg32, r32["caches"])),
           f"{leg}: float32 caches did not grow by {SERVE_NEW}")
     del r32
     full_tokens = torch.cat([prompts, tokens32[:, :-1].long()], dim=1)
-    with torch.inference_mode():
+    with torch.inference_mode(), RoutingMeter() as forced:
         h, _ = tfm.forward_hidden(params, {"tokens": full_tokens}, cfg32,
-                                  Runtime())
+                                  Runtime(), mode="prefill")
         # the positions whose logits the prefill and the decode steps gave:
         # (steps, B, V)
         full = unembed(params["embed"], h[:, SERVE_PROMPT - 1:],
                        torch.float32, cfg32.final_softcap).transpose(0, 1)
         del h
-        max_err = (logits32 - full).abs().max().item()
+        alike = served_routed_alike(served, forced, cfg,
+                                    *full_tokens.shape, logits32.device)
+        err = (logits32 - full).abs().amax(-1)          # (steps, B)
+        max_err = err[alike].max().item()
         top2 = full.topk(2, dim=-1).values
-        decided = (top2[..., 0] - top2[..., 1]) > 2 * max_err
+        decided = alike & ((top2[..., 0] - top2[..., 1]) > 2 * max_err)
         agree = tokens32.transpose(0, 1).long() == full.argmax(-1)
         mismatched = int((decided & ~agree).sum())
         excluded = int((~decided).sum())
+        routed_apart = int((~alike).sum())
+        routed_apart_err = (err[~alike].max().item() if routed_apart
+                            else None)
         bf16_err = (bf16_logits - full).abs().max().item()
         bf16_token_agree = (bf16_tokens == tokens32).float().mean().item()
     del full, logits32, bf16_logits
     check(max_err <= SERVE_LOGIT_TOL,
           f"{leg}: float32 prefill/decode logits differ from the full "
-          f"forward by {max_err} (bound {SERVE_LOGIT_TOL})")
+          f"forward by {max_err} (bound {SERVE_LOGIT_TOL}) on the steps "
+          f"routed alike ({routed_apart} of them routed apart)")
     check(mismatched == 0, f"{leg}: {mismatched} greedy tokens differ from "
           f"the full forward's argmax where its top-2 gap exceeds "
           f"{2 * max_err}")
@@ -3074,6 +3165,10 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
         float32_max_abs_err=max_err, float32_bound=SERVE_LOGIT_TOL,
         float32_steps_compared=SERVE_NEW * SERVE_BATCH,
         float32_steps_excluded=excluded,
+        float32_steps_routed_apart=routed_apart,
+        float32_routed_apart_max_abs_err=routed_apart_err,
+        float32_dropped_choices={"serve": served.dropped_total(),
+                                 "full_forward": forced.dropped_total()},
         bfloat16_max_abs_err_vs_float32_forward=bf16_err,
         bfloat16_token_agreement_with_float32=bf16_token_agree,
         plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
@@ -3081,6 +3176,25 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     emit(**record)
     del params
     return record
+
+
+def served_routed_alike(served, forced, cfg, B: int, S: int, device):
+    """(steps, B) bool: the steps of a serve run whose tokens every MoE
+    layer routed as the teacher-forced full forward did (all steps for a
+    model without MoE layers).  ``served`` recorded the prefill (one call
+    a MoE layer), then each decode step (one call a layer); ``forced`` the
+    full forward.  Step 0's logits come from the prompt's last position,
+    step i's from position SERVE_PROMPT - 1 + i."""
+    import torch
+    n = moe_layers(cfg)
+    if not n:
+        return torch.ones((SERVE_NEW, B), dtype=torch.bool, device=device)
+    prompt = served.tokens(range(n), B, SERVE_PROMPT)[:, :, -1:]
+    steps = [served.tokens(range(n + i * n, 2 * n + i * n), B, 1)
+             for i in range(SERVE_NEW - 1)]
+    got = torch.cat([prompt] + steps, dim=2)             # (n, B, steps, k)
+    want = forced.tokens(range(n), B, S)[:, :, SERVE_PROMPT - 1:]
+    return (got == want).all(-1).all(0).transpose(0, 1)
 
 
 def profile_decode(launch, cfg, params, prompts, steps: int = 8) -> dict:
@@ -3300,6 +3414,245 @@ def phase_serving_path(kern, dev, cnn_sim_time: float,
     return legs
 
 
+def moe_forward_check(tfm, cfg, backend, params, stream, compute: str,
+                      checked: bool) -> dict:
+    """The kernel forward (flash attention, the selective scan) against
+    the plain forward (dense attention, the model's chunked scan) of
+    ``params`` in ``mode="prefill"``, the backend's tip-selection
+    forwards, on one batch of ``stream`` with the products in
+    ``compute``.  A token the two forwards route to other experts is a
+    near-tie of the router, not an error: the share of tokens routed
+    alike is held at MOE_ROUTED_ALIKE_MIN and the logits within
+    SERVE_LOGIT_TOL (the reference's 2e-2) on those tokens, when
+    ``checked``; the tokens each forward dropped are reported."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.runtime import Runtime
+    c = dataclasses.replace(cfg, compute_dtype=compute)
+    batch = backend._batch(backend._sample(stream, np.random.default_rng(3),
+                                           1)[0])
+    B, S = batch["tokens"].shape
+    runs = {}
+    for name, kernels in (("kernel", True), ("plain", False)):
+        with torch.inference_mode(), RoutingMeter() as routes:
+            logits, aux = tfm.forward(params, batch, c, Runtime(
+                use_kernels=kernels, want_signature=True), mode="prefill")
+        runs[name] = (logits, aux["signature"], routes)
+    (k_logits, k_sig, k_routes), (p_logits, p_sig, p_routes) = \
+        runs["kernel"], runs["plain"]
+    n = moe_layers(cfg)
+    alike = (k_routes.tokens(range(n), B, S) == p_routes.tokens(
+        range(n), B, S)).all(-1).all(0)                  # (B, S)
+    share = alike.float().mean().item()
+    with torch.inference_mode():
+        err = (k_logits - p_logits).abs().amax(-1)       # (B, S)
+        logit_err = err[alike].max().item()
+        apart_err = err[~alike].max().item() if not alike.all() else None
+        scale = p_logits.abs().max().item()
+        argmax_agree = (k_logits.argmax(-1) == p_logits.argmax(-1)
+                        ).float().mean().item()
+        sig_err = (k_sig - p_sig).abs().max().item()
+    check(bool(torch.isfinite(k_logits).all()), f"non-finite MoE logits "
+          f"({compute})")
+    if checked:
+        check(share >= MOE_ROUTED_ALIKE_MIN, f"moe_backend: {share} of the "
+              f"tokens routed alike by the kernel and plain forwards "
+              f"({compute}), below {MOE_ROUTED_ALIKE_MIN}")
+        check(logit_err <= SERVE_LOGIT_TOL, f"moe_backend: kernel logits "
+              f"differ from the plain forward's by {logit_err} on the "
+              f"tokens routed alike ({compute})")
+        check(sig_err <= LM_SIG_TOL, f"moe_backend: kernel signature "
+              f"differs from plain by {sig_err} ({compute})")
+    return {"compute_dtype": compute, "checked": checked,
+            "routed_alike_share": share,
+            "tokens_routed_apart": int((~alike).sum()),
+            "logits_max_abs_err_routed_alike": logit_err,
+            "logits_max_abs_err_routed_apart": apart_err,
+            "logits_scale": scale, "argmax_agreement": argmax_agree,
+            "signature_max_abs_err": sig_err,
+            "dropped_choices": {"kernel": k_routes.dropped_total(),
+                                "plain": p_routes.dropped_total()},
+            "routed_choices": routed_choices(cfg, B * S)}
+
+
+def moe_backend_leg(kern, dev, cfg) -> dict:
+    """``LMBackend.evaluate`` and ``signature`` (the tip-selection forwards,
+    ``mode="prefill"``) on one full-width MoE model at batch 8 x 512, with
+    the launch counts set to 0 just before and read just after (one flash
+    and one scan launch a forward, all flash on sm90; one signature launch
+    a signature call, on the vec route; no plain call); then the kernel
+    forward against the plain forward in float32 (checked) and bfloat16
+    (reported)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    streams, global_test = lm_streams(2)
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=8,
+                        seq_len=512)
+    check(backend.device.type == "cuda", "moe_backend: backend is not on "
+          "the card")
+    t0 = time.perf_counter()
+    params = backend.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == MOE_PARAMS,
+          f"moe_backend: {n_params} parameters, expected {MOE_PARAMS}")
+    backend.evaluate(params, streams[0])       # warm-up, outside the count
+    backend.signature(params, streams[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {"evaluate": [], "signature": []}
+    accs, sigs = [], []
+    with PlainMeter(kern) as plain:
+        reset_launches(kern)                       # counts start here
+        for stream in streams:
+            t0 = time.perf_counter()
+            accs.append(backend.evaluate(params, stream))
+            seconds["evaluate"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            sigs.append(backend.signature(params, stream))
+            seconds["signature"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counted = read_launches(kern)              # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    calls = len(streams)
+    expected = expected_prefill_launches(cfg, prefills=0, signatures=calls,
+                                         forwards=2 * calls)
+    check(counted["launches"] == expected, f"moe_backend: launches "
+          f"{counted['launches']}, expected {expected} for {calls} evaluate "
+          f"and {calls} signature calls")
+    check(counted["flash_routes"] == {"sm90": expected["flash"], "fma": 0},
+          f"moe_backend: flash launches by route {counted['flash_routes']}")
+    check(counted["signature_routes"] == {"vec": calls, "strided": 0},
+          f"moe_backend: signature launches by route "
+          f"{counted['signature_routes']}")
+    check(not any(plain.calls.values()),
+          f"moe_backend: the path ran a plain version: {plain.calls}")
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs)
+          and all(s.shape == (64,) and np.all((s >= 0) & (s <= 1))
+                  for s in sigs), f"moe_backend: accuracies {accs} or "
+          f"signatures out of range")
+    checks = {c: moe_forward_check(tfm, cfg, backend, params, global_test,
+                                   c, checked=c == "float32")
+              for c in ("float32", "bfloat16")}
+    record = dict(
+        phase="moe_path", leg="moe_backend", model=cfg.name,
+        layers=[[spec.kind, spec.ffn] for spec in cfg.layer_specs()],
+        experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        d_expert=cfg.moe.d_expert, n_params=n_params, batch=8, seq_len=512,
+        data_vocab=LM_DATA_VOCAB, init_s=init_s,
+        evaluate_ms=[1e3 * t for t in seconds["evaluate"]],
+        signature_ms=[1e3 * t for t in seconds["signature"]],
+        accuracies=accs, peak_bytes=peak, plain_calls=plain.calls,
+        forward_check=checks, leg_s=time.perf_counter() - t_leg, **counted)
+    emit(**record)
+    del params, backend
+    return record
+
+
+def moe_train_leg(kern, dev, cfg) -> dict:
+    """``launch/train.train_single`` on the MoE cut: TRAIN_STEPS AdamW steps
+    with Jamba's bfloat16 moments (clip 1.0, the signature in the metrics)
+    over a TokenPipeline of the LM paths' sub-vocabulary, batch 8 x 512,
+    with the launch counts set to 0 just before and read just after: a
+    finite ``moe_aux`` above 0 at every step, the last 3 steps' mean loss
+    below step 0's, one signature launch a step and no other kernel, and
+    the peak leaving MOE_FREE_BYTES_MIN of the card free."""
+    import argparse
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    pipe = TokenPipeline(LM_DATA_VOCAB, 8, 512, seed=0)
+    args = argparse.Namespace(steps=TRAIN_STEPS, batch=8, seq=512, seed=0,
+                              device=str(dev), log_every=TRAIN_STEPS,
+                              checkpoint="")
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMeter(kern) as plain, RoutingMeter() as routes:
+        reset_launches(kern)                       # counts start here
+        t0 = time.perf_counter()
+        params = launch.train_single(cfg, args, pipe=pipe, history=history)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = read_launches(kern)              # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    del params
+    losses = [h["loss"] for h in history]
+    aux = [h["moe_aux"] for h in history]
+    n = moe_layers(cfg)
+    dropped = [sum(int(d) for d in routes.dropped[i * n:(i + 1) * n])
+               for i in range(len(history))]
+    check(len(history) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"moe_train: losses {losses}")
+    check(all(np.isfinite(a) and a > 0 for a in aux),
+          f"moe_train: moe_aux {aux}")
+    check(float(np.mean(losses[-3:])) < losses[0], f"moe_train: the mean "
+          f"loss of the last 3 steps {np.mean(losses[-3:])} is not below "
+          f"step 0's {losses[0]}")
+    expected = {"signature": TRAIN_STEPS, "flash": 0, "scan": 0, "mlstm": 0,
+                "slstm": 0}
+    check(counted["launches"] == expected and not any(plain.calls.values()),
+          f"moe_train: launches {counted['launches']} (plain {plain.calls})"
+          f": one signature launch a step and nothing else")
+    check(counted["signature_routes"] == {"vec": TRAIN_STEPS, "strided": 0},
+          f"moe_train: signature launches by route "
+          f"{counted['signature_routes']}")
+    check(len(routes.dropped) == n * TRAIN_STEPS, f"moe_train: "
+          f"{len(routes.dropped)} routings for {TRAIN_STEPS} steps")
+    check(total - peak >= MOE_FREE_BYTES_MIN, f"moe_train: peak {peak} of "
+          f"{total} bytes leaves less than {MOE_FREE_BYTES_MIN} free")
+    step_s = [h["seconds"] for h in history]
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    record = dict(
+        phase="moe_path", leg="moe_train", model=cfg.name, optimizer="adamw",
+        moment_dtype=cfg.moment_dtype, clip_norm=1.0, batch=8, seq_len=512,
+        microbatches=1, data_vocab=LM_DATA_VOCAB, steps=TRAIN_STEPS,
+        losses=losses, moe_aux=aux,
+        grad_norms=[h["grad_norm"] for h in history],
+        dropped_choices=dropped,
+        routed_choices_per_step=routed_choices(cfg, 8 * 512),
+        step_ms=[1e3 * t for t in step_s], ms_per_step=ms,
+        tokens_per_s=8 * 512 / (ms / 1e3), wall_s=wall, peak_bytes=peak,
+        peak_reserved_bytes=reserved, card_bytes=total,
+        plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
+        **counted)
+    emit(**record)
+    return record
+
+
+def phase_moe_path(kern, dev) -> dict:
+    """The MoE cut (``hybrid_moe_config``) at full Jamba width: the
+    backend's tip-selection forwards, the trainer and the serve launcher."""
+    t0 = time.perf_counter()
+    cfg = hybrid_moe_config()
+    legs = {"moe_backend": moe_backend_leg(kern, dev, cfg),
+            "moe_train": moe_train_leg(kern, dev, cfg),
+            "moe_serve": serve_leg(kern, dev, "moe_serve", cfg, MOE_PARAMS)}
+    emit(phase="moe_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
 def lm_config():
     """internlm2-1.8b at full width, depth cut to 4 of 24 layers."""
     import dataclasses
@@ -3312,8 +3665,8 @@ def lm_config():
 
 def hybrid_config():
     """jamba-v0.1-52b at full width, depth cut to its two dense-FFN block
-    kinds: one Mamba layer and one attention layer (the MoE layers at odd
-    indices are not ported)."""
+    kinds: one Mamba layer and one attention layer (its MoE layers at odd
+    indices are ``hybrid_moe_config``'s)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import LayerSpec, Stage
@@ -3321,6 +3674,21 @@ def hybrid_config():
                                stages=(Stage((
                                    LayerSpec(kind="mamba", ffn="dense"),
                                    LayerSpec(kind="attn", ffn="dense")), 1),))
+
+
+def hybrid_moe_config():
+    """jamba-v0.1-52b at full width, depth cut to layers 4 and 5 of its
+    published period: ``(attn, dense)`` and ``(mamba, moe)`` (16 experts,
+    top-2, d_expert 14,336, capacity factor 1.25).  The MoE layer is the
+    last block before the final norm, whose output the Eq. 3 signature
+    reads, so it decides tip selection."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec, Stage
+    return dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=2,
+                               stages=(Stage((
+                                   LayerSpec(kind="attn", ffn="dense"),
+                                   LayerSpec(kind="mamba", ffn="moe")), 1),))
 
 
 def xlstm_config():
@@ -3376,8 +3744,9 @@ def main() -> None:
     serve = phase_serve_path(kern, dev)
     serving = phase_serving_path(kern, dev, cnn["sim_time"],
                                  lm["sim_time"])
+    moe = phase_moe_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving}
+             **serving, **moe}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -3404,10 +3773,13 @@ def main() -> None:
         name: p["flash_routes"] for name, p in paths.items()
         if p["launches"]["flash"]}
     for width in sig_record["widths"]:
-        # every CNN path signs at the CNN width
+        # every CNN path signs at the CNN width, the MoE legs at Jamba's
+        prefixes = (width["path"],) + (("moe",) if width["path"] == "hybrid"
+                                       else ())
         width["launches"] = sum(
             n for name, n in sig_record["launches_by_path"].items()
-            if name == width["path"] or name.startswith(width["path"] + "_"))
+            if any(name == pre or name.startswith(pre + "_")
+                   for pre in prefixes))
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,12 @@
 transformer runs: the dense GQA decoders ``internlm2-1.8b``, ``qwen2-7b``
 (QKV bias) and ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
 embeddings, GeLU), the recurrent ``xlstm-125m`` (mLSTM and sLSTM blocks,
-layer norms with biases, no feed-forward sublayer), and the hybrid
-``jamba-v0.1-52b``, whose Mamba and attention blocks with dense
-feed-forward layers run; its MoE layers raise ``NotImplementedError`` at
-``init_params`` and ``forward``.  The reference's other arch ids raise
-``NotImplementedError`` naming the blocks the port lacks for them.
+layer norms with biases, no feed-forward sublayer), the hybrid
+``jamba-v0.1-52b`` (Mamba and attention blocks, dense and mixture-of-experts
+feed-forward layers), and ``llama4-maverick-400b-a17b`` (dense and MoE
+layers interleaved, 128 routed experts top-1 and a shared expert).  The
+reference's other arch ids raise ``NotImplementedError`` naming the blocks
+the port lacks for them.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ _ARCH_MODULES = {
     "qwen2-7b": "qwen2_7b",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "xlstm-125m": "xlstm_125m",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
 }
 
 _UNPORTED = {
@@ -31,8 +33,7 @@ _UNPORTED = {
     "gemma3-27b": "the banded sliding-window path beyond 2048 tokens "
                   "(its config is not copied yet)",
     "qwen2-vl-72b": "M-RoPE",
-    "llama4-maverick-400b-a17b": "MoE feed-forward layers",
-    "deepseek-v2-236b": "MLA attention and MoE feed-forward layers",
+    "deepseek-v2-236b": "MLA attention",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

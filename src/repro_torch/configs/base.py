@@ -5,10 +5,10 @@ repeating ``pattern`` of :class:`LayerSpec` blocks, repeated ``repeats``
 times over parameters stacked along a leading ``repeats`` axis, so a JAX
 parameter tree loads into the port unchanged.  Copied as it is, without the
 assigned input-shape table of the TPU dry runs.  The port's transformer runs
-the dense GQA families, Jamba's Mamba and attention blocks with dense
-feed-forward layers, and xLSTM's mLSTM and sLSTM blocks; the other blocks'
-configs are kept so that :func:`reduced` and the registry read every
-config.  ``param_count()`` is the reference's, miscounts and all (Mamba
+the dense GQA families, Jamba's Mamba and attention blocks, xLSTM's mLSTM
+and sLSTM blocks, and dense and mixture-of-experts feed-forward layers;
+the other blocks' configs are kept so that :func:`reduced` and the
+registry read every config.  ``param_count()`` is the reference's, miscounts and all (Mamba
 and xLSTM layers, norms): the port counts its trees leaf by leaf.
 """
 from __future__ import annotations

@@ -59,32 +59,47 @@ def ordered_sum(z: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return acc
 
 
-def window_sums(rows: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's tree reduction of more than 32 rows (n, ...) -> (W, ...):
-    padded in front with half the zeros that fill whole windows of 32, the
-    rows of each window added left to right.  The padding is -0.0, which
-    leaves every float32 sum as it was, so the W windows add in one pass
-    of 31 vector additions."""
-    n = rows.shape[0]
-    pad = -n % TREE_WINDOW
-    front = torch.full((pad // 2,) + rows.shape[1:], -0.0,
-                       dtype=rows.dtype, device=rows.device)
-    back = torch.full((pad - pad // 2,) + rows.shape[1:], -0.0,
-                      dtype=rows.dtype, device=rows.device)
-    return ordered_sum(torch.cat([front, rows, back]).unflatten(
-        0, (-1, TREE_WINDOW)), dim=1)
+def _negative_zeros(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """-0.0 of ``x``'s shape with ``n`` entries on ``axis``."""
+    return torch.full(x.shape[:axis] + (n,) + x.shape[axis + 1:], -0.0,
+                      dtype=x.dtype, device=x.device)
 
 
-def input_row_sum(rows: torch.Tensor) -> torch.Tensor:
-    """Float32 sum over the leading axis of rows that are a program input,
-    in XLA:CPU's order for the reference's jitted ``jnp.sum``/``jnp.mean``
-    (jaxlib 0.9.0 on x86-64 with AVX-512, probed at every count from 1 to
-    69 and at eight counts to 5,000, 1 to 2,048 columns): left to right up
-    to 32 rows; past 32, window sums (:func:`window_sums`), split again
-    while more than 32 remain, then added left to right."""
-    while rows.shape[0] > TREE_WINDOW:
-        rows = window_sums(rows)
-    return ordered_sum(rows)
+def window_sums(x: torch.Tensor, axes: int = 1) -> torch.Tensor:
+    """One level of XLA:CPU's tree reduction over the leading ``axes`` axes
+    of ``x``: each of those axes longer than 32 is padded in front with
+    half the zeros that fill whole windows of 32 and cut into them, a
+    shorter one is one window; the elements of each window are added in
+    row-major order, giving one sum a window.  The padding is -0.0, which
+    leaves every float32 sum as it was."""
+    lead, rest = x.shape[:axes], x.shape[axes:]
+    shape = []
+    for i, n in enumerate(lead):
+        if n <= TREE_WINDOW:
+            shape += [1, n]
+            continue
+        pad = -n % TREE_WINDOW
+        x = torch.cat([_negative_zeros(x, i, pad // 2), x,
+                       _negative_zeros(x, i, pad - pad // 2)], dim=i)
+        shape += [(n + pad) // TREE_WINDOW, TREE_WINDOW]
+    x = x.reshape(*shape, *rest).permute(
+        *range(0, 2 * axes, 2), *range(1, 2 * axes, 2),
+        *range(2 * axes, 2 * axes + len(rest)))
+    return ordered_sum(x.flatten(axes, 2 * axes - 1), dim=axes)
+
+
+def input_row_sum(x: torch.Tensor, axes: int = 1) -> torch.Tensor:
+    """Float32 sum over the leading ``axes`` axes of a program input, in
+    XLA:CPU's order for the reference's jitted ``jnp.sum``/``jnp.mean``
+    over them (jaxlib 0.9.0 on x86-64 with AVX-512; one axis probed at
+    every count from 1 to 69 and at eight counts to 5,000, 1 to 2,048
+    columns; two axes, the MoE layer's (groups, tokens), at 1 to 40 groups
+    of 1 to 5,000 tokens): while an axis is longer than 32, window sums
+    (:func:`window_sums`); then the rest added left to right in row-major
+    order."""
+    while any(n > TREE_WINDOW for n in x.shape[:axes]):
+        x = window_sums(x, axes)
+    return ordered_sum(x.flatten(0, axes - 1) if axes > 1 else x)
 
 
 def f32_mean(x: torch.Tensor, dim=None, keepdim: bool = False

@@ -179,7 +179,8 @@ class LMBackend:
         """Next-token accuracy on one sampled batch."""
         rng = np.random.default_rng(seed)
         batch = self._batch(self._sample(stream, rng, 1)[0])
-        logits, _ = tfm.forward(params, batch, self.cfg, self.eval_runtime)
+        logits, _ = tfm.forward(params, batch, self.cfg, self.eval_runtime,
+                                mode="prefill")
         return float(f32_mean(logits.argmax(-1) == batch["labels"]))
 
     @torch.inference_mode()
@@ -190,5 +191,5 @@ class LMBackend:
         rng = np.random.default_rng(seed)
         batch = self._batch(self._sample(stream, rng, 1)[0])
         _, aux = tfm.forward_hidden(params, batch, self.cfg,
-                                    self.signature_runtime)
+                                    self.signature_runtime, mode="prefill")
         return aux["signature"].cpu().numpy()

@@ -24,7 +24,7 @@ The batched programs come per backend family from a suite
     per-sample rows come from the Eq. 3 signature kernel
     (``ops.signature_per_channel``), one launch per client.
   * :class:`LMCohortPrograms`, the ``LMBackend`` path (the dense GQA
-    decoders, Jamba's hybrid, xLSTM).  Its training is
+    decoders, Jamba's hybrid, xLSTM, the MoE models).  Its training is
     ``torch.func.vmap`` of the model's functional ``loss_fn`` over the
     stacked tree (the reference's ``vmap``), on the plain attention and
     the models' own scans under autograd; validation and signatures run
@@ -475,8 +475,8 @@ class CNNCohortPrograms(CohortPrograms):
 
 
 class LMCohortPrograms(CohortPrograms):
-    """``LMBackend`` programs: the dense GQA decoders, Jamba's hybrid and
-    xLSTM.
+    """``LMBackend`` programs: the dense GQA decoders, Jamba's hybrid,
+    xLSTM and the MoE models.
 
     Training is ``torch.func.vmap`` of the model's functional ``loss_fn``
     over the K stacked trees, each client on its own token batch, on the
@@ -524,7 +524,7 @@ class LMCohortPrograms(CohortPrograms):
     def _row_correct(self, params, xs, ys):
         """(N, S) correctness grid of a token shard."""
         logits, _ = tfm.forward(params, {"tokens": xs[:, :-1]}, self.cfg,
-                                self.runtime)
+                                self.runtime, mode="prefill")
         return (logits.argmax(-1) == ys).float()
 
     def _row_accuracy(self, params, xs, ys):
@@ -548,7 +548,7 @@ class LMCohortPrograms(CohortPrograms):
 
     def _hidden(self, params, xs):
         return tfm.forward_hidden(params, {"tokens": xs[:, :-1]}, self.cfg,
-                                  self.runtime)[0]
+                                  self.runtime, mode="prefill")[0]
 
     def sample_signature(self, params, xs):
         """(N, signature_dims) Eq. 3 rows of the final-norm output."""

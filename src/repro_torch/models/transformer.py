@@ -11,9 +11,16 @@ period ``i`` as the leaves' index ``i``.
 
 Public API: init_params / init_cache / forward_hidden /
 per_sample_signature / forward / loss_fn / prefill / decode_step.
-Attention, Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers
-or none (``ffn="none"``, or ``d_ff = 0``); MoE layers and encoders raise
-``NotImplementedError``, and ``moe_aux`` is 0.
+Attention, Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers,
+mixture-of-experts ones (``models.moe``) or none (``ffn="none"``, or
+``d_ff = 0``); encoders raise ``NotImplementedError``.
+
+``mode`` is the reference's: ``"train"`` (the default, and ``loss_fn``'s)
+gives the MoE layers Switch-style capacity, which drops tokens; any other
+mode (``"prefill"``: the evaluation, signature and serving forwards) the
+generous capacity of serving, and a decode step routes one token a row,
+which is generous too.  ``aux["moe_aux"]`` sums the MoE layers' router
+losses in the reference's layer order (0 for a model without them).
 
 Serving: ``prefill`` runs the full-sequence forward (on the kernels with
 ``runtime.use_kernels``) and collects each layer's cache (the attention
@@ -33,6 +40,7 @@ from repro_torch.core.aggregate import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        embed_tokens, init_embedding,
@@ -69,8 +77,6 @@ def resolve_window(cfg: ArchConfig, spec: LayerSpec, seq_len: int) -> int:
 def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
     if spec.kind not in ("attn", "mamba", "mlstm", "slstm"):
         raise NotImplementedError(f"{spec.kind} blocks are not ported")
-    if spec.ffn == "moe":
-        raise NotImplementedError("MoE feed-forward layers are not ported")
     if cfg.encoder is not None:
         raise NotImplementedError("encoders are not ported")
 
@@ -90,6 +96,9 @@ def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
     if spec.ffn == "dense" and cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    elif spec.ffn == "moe":
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        p["ffn"] = moe_mod.init_moe(generator, cfg, dtype)
     return p
 
 
@@ -117,18 +126,27 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, x, cfg: ArchConfig, spec: LayerSpec):
+def _ffn(lp, x, cfg: ArchConfig, spec: LayerSpec,
+         generous_capacity: bool = False):
+    """The feed-forward sublayer.  Returns (x, the MoE layer's router
+    losses, or None)."""
     if spec.ffn == "dense" and cfg.d_ff > 0:
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, _ = apply_mlp(lp["ffn"], h3, cfg.act,
                          torch_dtype(cfg.compute_dtype))
-        x = x + y
-    return x
+        return x + y, None
+    if spec.ffn == "moe":
+        h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, maux = moe_mod.moe_forward(lp["ffn"], h3, cfg=cfg,
+                                      generous_capacity=generous_capacity)
+        return x + y, maux["moe_aux"]
+    return x, None
 
 
 def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
-                   window: int, runtime: Runtime):
-    """Full-sequence block.  Returns (x, cache)."""
+                   window: int, runtime: Runtime, mode: str = "train"):
+    """Full-sequence block.  Returns (x, cache, the MoE router losses or
+    None)."""
     _check_supported(cfg, spec)
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
     if spec.kind == "attn":
@@ -144,7 +162,9 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     else:
         core, cache = xl.slstm_forward(lp["core"], h, cfg=cfg,
                                        runtime=runtime)
-    return _ffn(lp, x + core, cfg, spec), cache
+    x, aux = _ffn(lp, x + core, cfg, spec,
+                  generous_capacity=(mode != "train"))
+    return x, cache, aux
 
 
 def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
@@ -162,27 +182,32 @@ def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
         core, new_cache = xl.mlstm_decode(lp["core"], h, cache, cfg=cfg)
     else:
         core, new_cache = xl.slstm_decode(lp["core"], h, cache, cfg=cfg)
-    return _ffn(lp, x + core, cfg, spec), new_cache
+    # one token a row: a MoE layer's capacity is the generous one
+    return _ffn(lp, x + core, cfg, spec)[0], new_cache
 
 
 def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
                    positions, seq_len: int, runtime: Runtime,
-                   collect_cache: bool = False):
-    """The stage's periods in order.  Returns (x, caches): with
+                   collect_cache: bool = False, mode: str = "train"):
+    """The stage's periods in order.  Returns (x, aux, caches): aux the
+    MoE layers' router losses added up in layer order, and with
     ``collect_cache`` each layer's cache stacked on the ``repeats`` axis,
     else an empty dict per layer."""
     windows = [resolve_window(cfg, spec, seq_len) for spec in pattern]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     periods = []
     for i in range(repeats):
         caches = {}
         for j, spec in enumerate(pattern):
             lp = tree_map(lambda a: a[i], stage_params[f"l{j}"])
-            x, c = _layer_forward(lp, x, cfg=cfg, spec=spec,
-                                  positions=positions, window=windows[j],
-                                  runtime=runtime)
+            x, c, a = _layer_forward(lp, x, cfg=cfg, spec=spec,
+                                     positions=positions, window=windows[j],
+                                     runtime=runtime, mode=mode)
+            if a is not None:
+                aux = aux + a
             caches[f"l{j}"] = c if collect_cache else {}
         periods.append(caches)
-    return x, tree_map(lambda *leaves: torch.stack(leaves), *periods)
+    return x, aux, tree_map(lambda *leaves: torch.stack(leaves), *periods)
 
 
 # ---------------------------------------------------------------------------
@@ -224,14 +249,16 @@ def _embed(params, tokens, cfg: ArchConfig):
 
 
 def forward_hidden(params, batch, cfg: ArchConfig,
-                   runtime: Runtime = DEFAULT, collect_cache: bool = False):
+                   runtime: Runtime = DEFAULT, collect_cache: bool = False,
+                   mode: str = "train"):
     """Full-sequence forward up to the final norm (no unembedding).
 
     Returns (h (B,S,d), aux dict), and with ``collect_cache`` the caches
     too: one dict per stage, each layer's cache stacked on the stage's
-    ``repeats`` axis (``prefill``).  With ``runtime.want_signature``,
-    ``aux["signature"]`` is the bucketed Eq. 3 signature of ``h``
-    (``kernels.ops.signature``).
+    ``repeats`` axis (``prefill``).  ``aux["moe_aux"]`` is the MoE layers'
+    summed router losses (float32, 0 without MoE layers).  With
+    ``runtime.want_signature``, ``aux["signature"]`` is the bucketed Eq. 3
+    signature of ``h`` (``kernels.ops.signature``).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -241,15 +268,16 @@ def forward_hidden(params, batch, cfg: ArchConfig,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
-        x, cache = _stage_forward(params["stages"][si], x, cfg=cfg,
-                                  pattern=stage.pattern,
-                                  repeats=stage.repeats, positions=positions,
-                                  seq_len=S, runtime=runtime,
-                                  collect_cache=collect_cache)
+        x, stage_aux, cache = _stage_forward(
+            params["stages"][si], x, cfg=cfg, pattern=stage.pattern,
+            repeats=stage.repeats, positions=positions, seq_len=S,
+            runtime=runtime, collect_cache=collect_cache, mode=mode)
+        aux_total = aux_total + stage_aux
         caches.append(cache)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    aux = {"moe_aux": aux_total}
     if runtime.want_signature:
         # counts have no gradient: the kernel takes the detached output
         aux["signature"] = ops.signature(x.detach(),
@@ -269,9 +297,10 @@ def per_sample_signature(h, runtime: Runtime = DEFAULT) -> torch.Tensor:
                                     n_sig=runtime.signature_dims)
 
 
-def forward(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
+def forward(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT,
+            mode: str = "train"):
     """Full logits (B,S,V) float32, and aux."""
-    h, aux = forward_hidden(params, batch, cfg, runtime)
+    h, aux = forward_hidden(params, batch, cfg, runtime, mode=mode)
     logits = unembed(params["embed"], h, torch_dtype(cfg.compute_dtype),
                      cfg.final_softcap)
     return logits, aux
@@ -295,7 +324,7 @@ def prefill(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
     """Serve-prefill: last-position logits (B, V) float32, the caches, and
     aux (the full (B,S,V) logits are never formed)."""
     h, aux, caches = forward_hidden(params, batch, cfg, runtime,
-                                    collect_cache=True)
+                                    collect_cache=True, mode="prefill")
     logits = unembed(params["embed"], h[:, -1:],
                      torch_dtype(cfg.compute_dtype), cfg.final_softcap)
     return logits[:, 0], caches, aux

@@ -120,6 +120,27 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt()
 
 
+# AdamW updates a leaf in pieces of at most this many elements, so that
+# the update's float32 temporaries (eight a piece) stay small beside a
+# multi-GB leaf (an MoE layer's experts: 3.76 GB each at Jamba's width)
+_PIECE = 1 << 26
+
+
+def _in_pieces(fn, g, m, v, p) -> torch.Tensor:
+    """``fn(g, m, v, p)``, elementwise, over the flattened leaves in
+    pieces of ``_PIECE`` elements, into one float32 leaf: the values of
+    one call (``fn`` advances its ``m`` and ``v`` pieces in place)."""
+    if p.numel() <= _PIECE:
+        return fn(g, m, v, p)
+    out = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    flat = (out.view(-1), g.reshape(-1), m.view(-1), v.view(-1),
+            p.reshape(-1))
+    for i in range(0, p.numel(), _PIECE):
+        piece, *args = (t[i:i + _PIECE] for t in flat)
+        piece.copy_(fn(*args))
+    return out
+
+
 def sgd(lr, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
     """SGD with heavy-ball momentum: ``mu <- momentum*mu + g``,
     ``p <- p + (-lr)*mu``; ``weight_decay`` adds ``wd * p`` to the
@@ -195,7 +216,8 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             return d.add_(p.float(), alpha=weight_decay) if weight_decay \
                 else d
 
-        updates = tree_map(direction, grads, state["m"], state["v"], params)
+        updates = tree_map(lambda *leaves: _in_pieces(direction, *leaves),
+                           grads, state["m"], state["v"], params)
         return (Scaled(updates, -lr_t),
                 {"step": step, "m": state["m"], "v": state["v"]})
 

@@ -70,6 +70,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         loss, aux = tfm.loss_fn(cast_params(params), batch, cfg, runtime)
         loss.backward()
         grads = tree_map(lambda p: p.grad, params)
+        for p in tree_leaves(params):
+            p.grad = None          # held by the tree alone: freed once used
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def train_step(params, opt_state, batch):
@@ -105,8 +107,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             updates, opt_state = opt.update(grads, opt_state, params)
             apply_updates(params, updates)
-        for p in tree_leaves(params):
-            p.grad = None
         metrics = {"loss": loss, "ce_loss": aux["ce_loss"],
                    "moe_aux": aux["moe_aux"], "grad_norm": gnorm}
         if "signature" in aux:
@@ -149,7 +149,7 @@ def make_eval_step(cfg: ArchConfig, runtime: Runtime = Runtime()):
 
     @torch.inference_mode()
     def eval_step(params, batch):
-        logits, _ = tfm.forward(params, batch, cfg, runtime)
+        logits, _ = tfm.forward(params, batch, cfg, runtime, mode="prefill")
         pred = logits[:, :-1].argmax(-1)
         return {"accuracy": f32_mean(pred == batch["tokens"][:, 1:])}
 

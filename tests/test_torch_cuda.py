@@ -1055,3 +1055,61 @@ def test_optimizer_steps_on_card_equal_cpu(card, name):
             topt.apply_updates(p, upd)
         out.append(p.cpu())
     assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("generous", [False, True])
+def test_moe_layer_on_card_equals_cpu(card, generous):
+    """The MoE layer at Jamba's width (d_model 4,096, 16 experts of
+    14,336, top-2) on 2 x 40 tokens in float32: the card's routing equal
+    to the CPU's (dispatch bit for bit, the same kept share), the output
+    within 1e-4 and ``moe_aux`` within 1e-5 relative (float32 products in
+    another order)."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              compute_dtype="float32")
+    params = moe.init_moe(torch.Generator(device=card).manual_seed(0), cfg,
+                          torch.float32)
+    x = torch.randn((2, 40, cfg.d_model), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    routes = []
+    inner = moe.topk_dispatch
+
+    def kept(probs, k, cap):
+        out = inner(probs, k, cap)
+        routes.append(out[1].cpu())
+        return out
+
+    moe.topk_dispatch = kept
+    try:
+        with torch.no_grad():
+            got, aux = moe.moe_forward(params, x, cfg=cfg,
+                                       generous_capacity=generous)
+            want, want_aux = moe.moe_forward(
+                tree_map(lambda a: a.cpu(), params), x.cpu(), cfg=cfg,
+                generous_capacity=generous)
+    finally:
+        moe.topk_dispatch = inner
+    assert torch.equal(routes[0], routes[1])
+    assert torch.equal(aux["expert_load"].cpu(), want_aux["expert_load"])
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    assert float(aux["moe_aux"]) == pytest.approx(float(want_aux["moe_aux"]),
+                                                  rel=1e-5)
+
+
+@pytest.mark.parametrize("E", [4, 16, 128])
+def test_argmax_takes_the_first_of_ties_on_card(card, E):
+    """The MoE routing's tie rule on the card: ``argmax`` over the last
+    axis returns the first largest index, as on the CPU and as
+    ``jnp.argmax`` (uniform rows, the padded tokens', go to expert 0), over
+    4,096 rows of ties at several places."""
+    rows = torch.rand((4096, E), device=card) * 0.5
+    rows[::3] = 1.0 / E                                # uniform
+    tied = torch.arange(1, 4096, 3, device=card)
+    first = (tied * 7) % E
+    rows[tied] = 0.1
+    rows[tied, first] = 0.6
+    rows[tied, E - 1] = 0.6                            # and the last
+    got = rows.argmax(-1).cpu()
+    assert torch.equal(got, rows.cpu().argmax(-1))
+    assert bool((got[::3] == 0).all())
+    assert torch.equal(got[1::3], first.cpu())

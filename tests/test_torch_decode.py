@@ -5,7 +5,11 @@ of the serve launcher.
 JAX weights are carried over with ``params_from_numpy``; the reduced
 configs run in float32 on both sides: internlm2, qwen2 (QKV biases),
 gemma2 (a local window the decode passes, and soft-caps), the Jamba cut of
-one Mamba and one attention layer, and an ``(mlstm, slstm)`` xLSTM period.
+one Mamba and one attention layer, an ``(mlstm, slstm)`` xLSTM period, and
+the MoE configs' reduced first two layers (Jamba's ``(mamba, dense)``,
+``(mamba, moe)``; llama4's ``(attn, dense)``, ``(attn, moe)`` with a shared
+expert): a prefill routes with the generous capacity, a decode step one
+token a row.
 Tolerances and their reasons:
 
 * logits and caches: atol 2e-5 -- the two frameworks' float32 matrix
@@ -46,7 +50,8 @@ from repro_torch.runtime import Runtime, serve_runtime  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
-ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b", "hybrid", "xlstm"]
+ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b", "hybrid", "xlstm",
+         "jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
 ATOL = 2e-5
 B, PROMPT, STEPS = 2, 12, 4
 
@@ -202,14 +207,15 @@ def test_greedy_decode_tokens_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_tracks_full_forward(arch):
     """Inside the port: teacher-forced decode steps after a prefill equal
-    the full forward's logits at those positions (2e-5, float32)."""
+    the full forward's logits at those positions (2e-5, float32), the
+    forward in the prefill's mode (an MoE layer's generous capacity)."""
     _, tc, np_params, tokens, _, _ = _world(arch)
     tp = params_from_numpy(np_params, "cpu")
     full = torch.from_numpy(np.concatenate(
         [tokens, np.random.default_rng(5).integers(
             0, tc.vocab_size, (B, STEPS)).astype(np.int32)], 1))
     with torch.no_grad():
-        want, _ = tfm.forward(tp, {"tokens": full}, tc)
+        want, _ = tfm.forward(tp, {"tokens": full}, tc, mode="prefill")
         _, caches, _ = tfm.prefill(tp, {"tokens": full[:, :PROMPT]}, tc)
         caches = t_serve.extend_caches(caches, tc, STEPS)
         for s in range(STEPS):

@@ -38,20 +38,31 @@ from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator  # noqa
 from repro_torch.core.verify import verify_full_dag  # noqa: E402
 from repro_torch.fl.backend import LMBackend  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
+from test_torch_baselines import few_torch_threads  # noqa: E402,F401
 
 KW = dict(lr=5e-3, local_steps=2, batch_size=8, seq_len=64)
 
 
-def _configs():
-    jc = dataclasses.replace(j_reduced(j_get_config("internlm2-1.8b"),
-                                       d_model=64), vocab_size=128)
-    tc = dataclasses.replace(reduced(get_config("internlm2-1.8b"),
-                                     d_model=64), vocab_size=128)
+# the MoE configs reduced: Jamba's (mamba, dense), (mamba, moe) and
+# llama4's (attn, dense), (attn, moe) with its shared expert
+MOE_ARCHS = ["jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
+
+
+def _configs(arch="internlm2-1.8b", **moe_kw):
+    jc = dataclasses.replace(j_reduced(j_get_config(arch), d_model=64),
+                             vocab_size=128)
+    tc = dataclasses.replace(reduced(get_config(arch), d_model=64),
+                             vocab_size=128)
+    if moe_kw:
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe,
+                                                             **moe_kw))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe,
+                                                             **moe_kw))
     return jc, tc
 
 
-def _backends():
-    jc, tc = _configs()
+def _backends(arch="internlm2-1.8b", **moe_kw):
+    jc, tc = _configs(arch, **moe_kw)
     return (JBackend(jc, kernel_policy="interpret", **KW),
             LMBackend(tc, device="cpu", **KW))
 
@@ -77,7 +88,15 @@ def test_sample_draws_match_reference():
 
 
 def test_train_evaluate_signature_match_reference():
-    jb, tb = _backends()
+    _train_evaluate_signature_agree(*_backends())
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_evaluate_signature_match_reference(arch):
+    _train_evaluate_signature_agree(*_backends(arch))
+
+
+def _train_evaluate_signature_agree(jb, tb):
     np_params = _jax_params(jb.cfg)
     stream, other = _streams(2)
     j_new, j_loss = jb.train_local(
@@ -115,7 +134,17 @@ def _tip_decisions(coord) -> list:
 def test_lm_coordinator_runs_agree():
     """Three clients, two rounds.  The port's coordinator is the one the
     CNN path runs: token streams go through it as opaque client data."""
-    jb, tb = _backends()
+    _coordinator_runs_agree(*_backends())
+
+
+def test_moe_coordinator_runs_agree():
+    """The same run over the reduced llama4 (its Jamba counterpart is
+    ``test_torch_mamba.py``'s): training routes with the training
+    capacity, the eval and signature forwards with the generous one."""
+    _coordinator_runs_agree(*_backends("llama4-maverick-400b-a17b"))
+
+
+def _coordinator_runs_agree(jb, tb):
     streams = _streams(3)
     data = [{"train": s, "val": s, "test": s} for s in streams]
     test = make_lm_dataset(vocab=128, n_tokens=6000, order=2.0, seed=10_000)
@@ -130,3 +159,52 @@ def test_lm_coordinator_runs_agree():
     assert verify_full_dag(got.ledger) == (True, "ok")
     assert _tip_decisions(got) == _tip_decisions(ref)
     assert r_got.final_accuracy == r_ref.final_accuracy
+
+
+def test_eval_and_signature_forwards_run_in_prefill_mode(monkeypatch):
+    """On a reduced Jamba whose training capacity drops tokens (capacity
+    factor 0.25), the evaluation forwards route with the generous capacity
+    as the reference's do: ``evaluate``, ``signature``, the eval step and
+    the cohort engine's validation and signature rows equal the
+    reference's, while a training-mode forward gives other logits; and
+    every such forward is called with ``mode="prefill"``."""
+    from repro.fl.cohort import CohortBackend as JCohort
+    from repro.train import step as jstep
+    from repro_torch.fl import cohort
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import step as tstep
+    jb, tb = _backends("jamba-v0.1-52b", capacity_factor=0.25)
+    np_params = _jax_params(jb.cfg, seed=3)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tp = params_from_numpy(np_params, "cpu")
+    stream, other = _streams(2)
+    tokens = torch.from_numpy(tb._sample(stream, np.random.default_rng(1),
+                                         1)[0])
+    with torch.no_grad():
+        train_logits, _ = tfm.forward(tp, {"tokens": tokens[:, :-1]}, tb.cfg)
+        eval_logits, _ = tfm.forward(tp, {"tokens": tokens[:, :-1]}, tb.cfg,
+                                     mode="prefill")
+    assert not torch.allclose(train_logits, eval_logits, atol=1e-3)
+    modes = []
+    for name in ("forward", "forward_hidden"):
+        inner = getattr(tfm, name)
+        monkeypatch.setattr(tfm, name, lambda *a, _f=inner, **kw: (
+            modes.append(kw.get("mode")), _f(*a, **kw))[1])
+    for ds in (stream, other):
+        assert tb.evaluate(tp, ds) == jb.evaluate(jp, ds)
+        assert np.array_equal(tb.signature(tp, ds),
+                              np.asarray(jb.signature(jp, ds)))
+    batch = {"tokens": tokens[:, :-1].numpy()}
+    want = jstep.make_eval_step(jb.cfg)(jp, {"tokens": jnp.asarray(
+        batch["tokens"])})
+    got = tstep.make_eval_step(tb.cfg)(tp, {"tokens": tokens[:, :-1]})
+    assert np.float32(got["accuracy"]) == np.float32(want["accuracy"])
+    j_engine = JCohort(jb, capacity=4)
+    t_engine = cohort.CohortBackend(tb)
+    assert t_engine.evaluate_cohort([tp], [stream]) == \
+        j_engine.evaluate_cohort([jp], [stream])
+    np.testing.assert_allclose(
+        t_engine.signature_cohort([tp], [stream]),
+        j_engine.signature_cohort([jp], [stream]), rtol=0,
+        atol=1 / (KW["batch_size"] * KW["seq_len"]))
+    assert modes and set(modes) == {"prefill"}

@@ -2,9 +2,11 @@
 reference's ``CohortBackend(LMBackend(...))``, and against its own
 sequential path.
 
-Three reduced families in float32, from the JAX genesis
+Five reduced families in float32, from the JAX genesis
 (``weights.params_from_numpy``): internlm2 at d_model 64, the Jamba hybrid
-(one Mamba and one attention layer) and the ``(mlstm, slstm)`` xLSTM, each
+(one Mamba and one attention layer), the ``(mlstm, slstm)`` xLSTM, and the
+MoE configs (Jamba's ``(mamba, dense)``, ``(mamba, moe)``; llama4's
+``(attn, dense)``, ``(attn, moe)`` with its shared expert), each
 at a 128-token vocabulary, 37 positions (not a power of two, so a
 reciprocal multiply and a division give other bits) and batch 4.  The
 reference runs its plain math (``kernel_policy="reference"``), the port
@@ -64,14 +66,18 @@ from test_torch_mamba import _tip_decisions  # noqa: E402
 VOCAB = 128
 SEQ = 37
 KW = dict(lr=5e-3, local_steps=2, batch_size=4, seq_len=SEQ)
-FAMILIES = ("internlm2", "hybrid", "xlstm")
+FAMILIES = ("internlm2", "hybrid", "xlstm", "jamba_moe", "llama4")
+# the reduced configs' own first two layers: Jamba's (mamba, dense),
+# (mamba, moe) and llama4's (attn, dense), (attn, moe)
+_REDUCED = {"internlm2": "internlm2-1.8b", "jamba_moe": "jamba-v0.1-52b",
+            "llama4": "llama4-maverick-400b-a17b"}
 
 
 def _configs(family):
     """(JAX config, port config) of one reduced family, float32."""
-    if family == "internlm2":
-        jc = j_reduced(j_get_config("internlm2-1.8b"), d_model=64)
-        tc = reduced(get_config("internlm2-1.8b"), d_model=64)
+    if family in _REDUCED:
+        jc = j_reduced(j_get_config(_REDUCED[family]), d_model=64)
+        tc = reduced(get_config(_REDUCED[family]), d_model=64)
     else:
         arch, kinds, ffn = (("jamba-v0.1-52b", ("mamba", "attn"), "dense")
                             if family == "hybrid" else

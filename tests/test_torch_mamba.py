@@ -3,7 +3,8 @@ from the same weights and tokens.
 
 The hybrid is jamba-v0.1-52b reduced in both packages to d_model 64 and
 one period of its two dense-FFN block kinds, ``(mamba, dense)`` then
-``(attn, dense)``; MoE layers are not ported.  JAX weights are carried over
+``(attn, dense)``; the MoE cut is the reduced config's own first two
+layers, ``(mamba, dense)`` then ``(mamba, moe)``.  JAX weights are carried over
 with ``params_from_numpy``.  Both sides run in float32; the reference runs
 its kernels in interpret mode, the port its plain versions on the CPU.
 Tolerances and their reasons:
@@ -11,8 +12,8 @@ Tolerances and their reasons:
 * the Mamba block's output and state: 1e-5 absolute at a scale of about
   1, the scan's tolerance (float32 ``exp`` and sums differ in the last
   bits between the frameworks);
-* logits: atol 2e-5, loss: 1e-5, as for the dense decoders
-  (``test_torch_transformer.py``);
+* logits: atol 2e-5, loss: 1e-5, ``moe_aux`` 1e-5 relative, as for the
+  dense and MoE decoders (``test_torch_transformer.py``);
 * loss gradients: atol 1e-6 (measured: at most 3.2e-7, on gradients of
   up to 0.18), the same float32 noise carried through the backward;
 * signatures: bit-equal (exact counts and bucket sums; no activation of
@@ -50,6 +51,7 @@ from repro_torch.models import mamba  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.runtime import Runtime  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
+from test_torch_baselines import few_torch_threads  # noqa: E402,F401
 
 ARCH = "jamba-v0.1-52b"
 # the full-width cut that the card runs: 2 of Jamba's 32 layers
@@ -250,20 +252,99 @@ def test_model_scan_checkpoints_each_chunk_under_autograd(monkeypatch):
     assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
-def test_moe_layers_raise():
-    jc, tc = _configs()
-    moe = dataclasses.replace(tc, stages=(Stage(
-        (LayerSpec(kind="mamba", ffn="moe"),), 1),), n_layers=1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init_params(torch.Generator().manual_seed(0), moe)
-    params = tfm.init_params(torch.Generator().manual_seed(0), tc)
-    moe_params = dict(params, stages=[{"l0": params["stages"][0]["l0"]}])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        with torch.no_grad():
-            tfm.forward_hidden(moe_params,
-                               {"tokens": torch.zeros((1, 4),
-                                                      dtype=torch.int32)},
-                               moe)
+def _moe_configs(vocab=None):
+    """The reduced Jamba in both packages at d_model 64: its first two
+    layers, ``(mamba, dense)`` and ``(mamba, moe)`` (4 experts, top-2)."""
+    jc = j_reduced(j_get_config(ARCH), d_model=64)
+    tc = reduced(get_config(ARCH), d_model=64)
+    if vocab is not None:
+        jc = dataclasses.replace(jc, vocab_size=vocab)
+        tc = dataclasses.replace(tc, vocab_size=vocab)
+    return jc, tc
+
+
+def test_full_width_moe_cut_size():
+    """The card's MoE cut at Jamba's published widths, layers 4 and 5 of
+    its period, ``(attn, dense)`` and ``(mamba, moe)``: the dense cut less
+    one dense FFN, plus 16 experts and a router, 3,678,941,184 in the
+    reference's tree."""
+    def cut(cfg, ls, st):
+        return dataclasses.replace(cfg, n_layers=2, stages=(st(
+            (ls(kind="attn", ffn="dense"), ls(kind="mamba", ffn="moe")),
+            1),))
+    jc = cut(j_get_config(ARCH), JLayerSpec, JStage)
+    tc = cut(get_config(ARCH), LayerSpec, Stage)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    shapes = jax.eval_shape(lambda k: j_tfm.init_params(k, jc),
+                            jax.random.PRNGKey(0))
+    d, f, E = 4096, 14336, 16
+    want = FULL_CUT_PARAMS - 3 * d * f + E * 3 * d * f + d * E
+    assert want == 3_678_941_184
+    assert sum(int(np.prod(a.shape))
+               for a in jax.tree_util.tree_leaves(shapes)) == want
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_moe_layers_match_reference(kernels):
+    """The reduced Jamba's Mamba layer with an MoE feed-forward layer:
+    logits and signature in the evaluation forward (``mode="prefill"``,
+    the scan kernel's plain version with ``kernels``), and the training
+    loss with its ``moe_aux``."""
+    jc, tc = _moe_configs()
+    np_params = _jax_params(jc)
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    j_params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    j_rt = JRuntime(use_pallas=kernels, want_signature=True,
+                    kernel_policy="interpret" if kernels else "reference")
+    j_logits, j_aux, _ = j_tfm.forward(j_params,
+                                       {"tokens": jnp.asarray(tokens)}, jc,
+                                       j_rt, mode="prefill")
+    j_loss, j_loss_aux = j_tfm.loss_fn(
+        j_params, {"tokens": jnp.asarray(tokens),
+                   "labels": jnp.asarray(labels)}, jc)
+    params = params_from_numpy(np_params, "cpu")
+    with torch.no_grad():
+        logits, aux = tfm.forward(
+            params, {"tokens": torch.from_numpy(tokens)}, tc,
+            Runtime(use_kernels=kernels, want_signature=True),
+            mode="prefill")
+        loss, loss_aux = tfm.loss_fn(
+            params, {"tokens": torch.from_numpy(tokens),
+                     "labels": torch.from_numpy(labels)}, tc)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                               rtol=0, atol=2e-5)
+    assert abs(float(loss) - float(j_loss)) <= 1e-5
+    for a, b in ((aux, j_aux), (loss_aux, j_loss_aux)):
+        assert float(a["moe_aux"]) == pytest.approx(float(b["moe_aux"]),
+                                                    rel=1e-5)
+    sig, j_sig = aux["signature"].numpy(), np.asarray(j_aux["signature"])
+    assert np.array_equal(sig, j_sig), np.flatnonzero(sig != j_sig)
+
+
+def test_moe_loss_gradient_matches_reference():
+    """Through the MoE layer's router, experts and aux losses and the
+    Mamba layer's chunked scan, as local training runs them."""
+    jc, tc = _moe_configs()
+    np_params = _jax_params(jc)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    j_grads = jax.grad(lambda p: j_tfm.loss_fn(
+        p, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
+        jc)[0])(jax.tree_util.tree_map(jnp.asarray, np_params))
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      params_from_numpy(np_params, "cpu"))
+    loss, _ = tfm.loss_fn(params, {"tokens": torch.from_numpy(tokens),
+                                   "labels": torch.from_numpy(labels)}, tc)
+    loss.backward()
+    leaves = tree_leaves(params)
+    j_leaves = jax.tree_util.tree_leaves(j_grads)
+    assert len(leaves) == len(j_leaves)
+    for p, g in zip(leaves, j_leaves):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=0,
+                                   atol=1e-6)
 
 
 KW = dict(lr=5e-3, local_steps=2, batch_size=8, seq_len=64)
@@ -287,7 +368,17 @@ def test_hybrid_coordinator_runs_agree():
     vocabulary: the port's plain versions against the reference's
     interpret-mode kernels in the eval and signature forwards, and the
     model's chunked scans in training on both sides."""
-    jc, tc = _configs(vocab=128)
+    _coordinator_runs_agree(*_configs(vocab=128))
+
+
+def test_moe_coordinator_runs_agree():
+    """The same run over the reduced Jamba's ``(mamba, dense)`` and
+    ``(mamba, moe)`` layers: training routes with the training capacity,
+    the eval and signature forwards with the generous one."""
+    _coordinator_runs_agree(*_moe_configs(vocab=128))
+
+
+def _coordinator_runs_agree(jc, tc):
     jb = JBackend(jc, kernel_policy="interpret", **KW)
     tb = LMBackend(tc, device="cpu", **KW)
     streams = [make_lm_dataset(vocab=128, n_tokens=6000, order=2.0, seed=c)

@@ -17,9 +17,14 @@ reasons:
   implementation than torch's; bfloat16 moments: one bfloat16 unit where
   the float32 value before the cast sits on a rounding boundary;
 * three train steps of reduced internlm2 in float32 (microbatches 1, 2
-  and 3): parameters, loss and ``grad_norm`` within 1e-5 -- gradients summed in another order (the
-  reference's chunked cross-entropy), through AdamW's division by
-  ``sqrt(v)``; the signature within one flag per bucket;
+  and 3), and of the reduced MoE configs (microbatches 1 and 3):
+  loss and ``grad_norm`` within 1e-5, parameters within 1e-5 (internlm2)
+  and 3e-5 (MoE) -- gradients summed in another order (the reference's
+  chunked cross-entropy), through AdamW's division by ``sqrt(v) + eps``:
+  where a gradient entry is of the order of eps (1e-8), its float32 noise
+  moves the update by lr times noise over eps (llama4's dense ``wdown``,
+  a first gradient of 1.3e-8: 1.06e-5 after 3 steps); ``moe_aux`` within
+  1e-5 relative; the signature within one flag per bucket;
 * checkpoints: bit for bit, both ways.
 """
 import dataclasses
@@ -56,11 +61,11 @@ from test_torch_baselines import few_torch_threads  # noqa: E402,F401
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _configs():
-    jc = dataclasses.replace(j_reduced(j_get_config("internlm2-1.8b"),
-                                       d_model=64), vocab_size=128)
-    tc = dataclasses.replace(reduced(get_config("internlm2-1.8b"),
-                                     d_model=64), vocab_size=128)
+def _configs(arch="internlm2-1.8b"):
+    jc = dataclasses.replace(j_reduced(j_get_config(arch), d_model=64),
+                             vocab_size=128)
+    tc = dataclasses.replace(reduced(get_config(arch), d_model=64),
+                             vocab_size=128)
     return jc, tc
 
 
@@ -240,6 +245,37 @@ def test_adamw_equals_jitted_reference_bits(moments, weight_decay):
                               np.asarray(js[key].astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_adamw_in_pieces_equals_one_piece(monkeypatch, moments):
+    """A leaf larger than ``_PIECE`` elements (an MoE layer's experts at
+    full width) is updated in pieces: pieces of 1,000 over leaves of 4,096
+    and (3, 40, 50) elements, the last piece ragged, give the parameters
+    and moments of one piece bit for bit, and the parameters of the
+    jitted reference."""
+    def tree(seed, scale=1.0):
+        r = np.random.default_rng(seed)
+        return {"a": (r.standard_normal(4096) * scale).astype(np.float32),
+                "b": (r.standard_normal((3, 40, 50)) * scale)
+                .astype(np.float32)}
+
+    runs = []
+    for piece in (topt._PIECE, 1000):
+        monkeypatch.setattr(topt, "_PIECE", piece)
+        runs.append(_run_optimizer(
+            lambda: jopt.adamw(1e-2, weight_decay=0.1,
+                               moment_dtype=getattr(jnp, moments)),
+            lambda: topt.adamw(1e-2, weight_decay=0.1,
+                               moment_dtype=getattr(torch, moments)),
+            params=tree(5), grads=lambda i: tree(10 + i, 0.5)))
+    (jp, _, whole, whole_state), (_, _, pieces, piece_state) = runs
+    for a, b, c in zip(_tnp(pieces), _tnp(whole), _np(jp)):
+        assert np.array_equal(a, b) and np.array_equal(a, c)
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(piece_state[key]),
+                        tree_leaves(whole_state[key])):
+            assert torch.equal(a, b)
+
+
 # -- train and eval steps ---------------------------------------------------
 
 
@@ -248,7 +284,19 @@ def test_train_step_matches_reference(microbatches):
     """Three AdamW steps of reduced internlm2 (float32) with clipping and
     the signature in the metrics, on the same pipeline batches (6 rows at
     3 microbatches, where the mean's reciprocal is inexact)."""
-    jc, tc = _configs()
+    _train_steps_agree(*_configs(), microbatches, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("microbatches", [1, 3])
+def test_moe_train_step_matches_reference(arch, microbatches):
+    """The same steps over the reduced MoE configs: ``moe_aux`` nonzero,
+    its mean over microbatches by the float32 reciprocal."""
+    _train_steps_agree(*_configs(arch), microbatches, atol=3e-5)
+
+
+def _train_steps_agree(jc, tc, microbatches, atol):
     np_params = _np_params(jc)
     ref_step, ref_opt = jstep.make_train_step(
         jc, runtime=JRuntime(want_signature=True), clip_norm=1.0,
@@ -271,13 +319,18 @@ def test_train_step_matches_reference(microbatches):
                                        for k, v in batch.items()})
         for key in ("loss", "ce_loss", "grad_norm"):
             assert float(tm[key]) == pytest.approx(float(jm[key]), abs=1e-5)
-        assert float(tm["moe_aux"]) == float(jm["moe_aux"]) == 0.0
+        if jc.moe is None:
+            assert float(tm["moe_aux"]) == float(jm["moe_aux"]) == 0.0
+        else:
+            assert float(tm["moe_aux"]) > 0.0
+            assert float(tm["moe_aux"]) == pytest.approx(
+                float(jm["moe_aux"]), rel=1e-5)
         np.testing.assert_allclose(tm["signature"].numpy(),
                                    np.asarray(jm["signature"]), rtol=0,
                                    atol=1 / (batch_rows * 32) + 1e-7)
     assert float(tm["grad_norm"]) > 0.0
     for a, b in zip(_tnp(tp), _np(jp)):
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
 
 
 def test_eval_step_matches_reference():

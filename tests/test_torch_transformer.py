@@ -1,5 +1,6 @@
 """The port's transformer path against the JAX reference, from the same
-weights and tokens.
+weights and tokens: the dense decoders, and the MoE decoders (llama4's
+dense/MoE interleave with a shared expert, Jamba's Mamba layers with MoE).
 
 JAX weights are carried over with ``params_from_numpy`` (torch cannot
 reproduce JAX's PRNG bits).  The reduced configs run in float32 on both
@@ -7,7 +8,9 @@ sides.  Tolerances and their reasons:
 
 * logits: atol 2e-5 at a scale of about 2 -- the two frameworks' float32
   matrix products and transcendental functions differ in the last bits;
-* loss: 1e-5 absolute, for the same reason;
+* loss: 1e-5 absolute, for the same reason; ``moe_aux`` (the MoE layers'
+  router losses, llama4 and Jamba): 1e-5 relative -- the router's float32
+  products, and its sums fused otherwise by XLA;
 * signatures: bit-equal where no activation lies within rounding of tau
   (the case for these inputs), counted flips otherwise;
 * the bucketed ``ops.signature`` on the same activations: bit-equal, by
@@ -39,9 +42,10 @@ from repro_torch.models.layers import activation_signature  # noqa: E402
 from repro_torch.runtime import Runtime  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
-ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b"]
+ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b",
+         "llama4-maverick-400b-a17b"]
 UNPORTED = ["whisper-medium", "gemma3-27b", "qwen2-vl-72b",
-            "llama4-maverick-400b-a17b", "deepseek-v2-236b"]
+            "deepseek-v2-236b"]
 
 
 def _configs(arch, window=None):
@@ -86,11 +90,11 @@ def test_unported_configs_raise(arch):
 
 
 @pytest.mark.parametrize("d_model", [None, 64])
-def test_jamba_config_matches_reference_and_moe_raises(d_model):
-    """jamba-v0.1-52b is ported without its MoE layers: the config equals
-    the reference's, full and reduced, and the reduced config, whose two
-    layers are ``(mamba, dense)`` and ``(mamba, moe)``, raises at its MoE
-    layer."""
+def test_jamba_config_matches_reference(d_model):
+    """jamba-v0.1-52b: the config equals the reference's, full and
+    reduced; the reduced config's two layers, ``(mamba, dense)`` and
+    ``(mamba, moe)``, give the reference's logits, loss and ``moe_aux`` in
+    both modes (training's capacity and the prefill's generous one)."""
     jc, tc = j_get_config("jamba-v0.1-52b"), get_config("jamba-v0.1-52b")
     if d_model is not None:
         jc, tc = j_reduced(jc, d_model=d_model), reduced(tc, d_model=d_model)
@@ -98,8 +102,30 @@ def test_jamba_config_matches_reference_and_moe_raises(d_model):
     if d_model is None:
         return
     assert [s.ffn for s in tc.layer_specs()] == ["dense", "moe"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init_params(torch.Generator().manual_seed(0), tc)
+    np_params = _weights(jc)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    j_params = jax.tree_util.tree_map(jnp.asarray, np_params)
+    params = params_from_numpy(np_params, "cpu")
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(labels)}
+    j_batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    for mode in ("train", "prefill"):
+        j_logits, j_aux, _ = j_tfm.forward(j_params, j_batch, jc, mode=mode)
+        with torch.no_grad():
+            logits, aux = tfm.forward(params, batch, tc, mode=mode)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                                   rtol=0, atol=2e-5)
+        assert float(aux["moe_aux"]) > 0.0
+        assert float(aux["moe_aux"]) == pytest.approx(
+            float(j_aux["moe_aux"]), rel=1e-5)
+    j_loss, j_loss_aux = j_tfm.loss_fn(j_params, j_batch, jc)
+    with torch.no_grad():
+        loss, loss_aux = tfm.loss_fn(params, batch, tc)
+    assert abs(float(loss) - float(j_loss)) <= 1e-5
+    assert float(loss_aux["moe_aux"]) == pytest.approx(
+        float(j_loss_aux["moe_aux"]), rel=1e-5)
 
 
 def test_full_width_cut_config_size():
@@ -182,8 +208,9 @@ def test_forward_loss_signature_match_reference(arch, window, kernels):
     j_logits, j_aux, _ = j_tfm.forward(j_params,
                                        {"tokens": jnp.asarray(tokens)}, jc,
                                        j_rt)
-    j_loss, _ = j_tfm.loss_fn(j_params, {"tokens": jnp.asarray(tokens),
-                                         "labels": jnp.asarray(labels)}, jc)
+    j_loss, j_loss_aux = j_tfm.loss_fn(j_params,
+                                       {"tokens": jnp.asarray(tokens),
+                                        "labels": jnp.asarray(labels)}, jc)
     params = params_from_numpy(np_params, "cpu")
     rt = Runtime(use_kernels=kernels, want_signature=True)
     with torch.no_grad():
@@ -195,7 +222,11 @@ def test_forward_loss_signature_match_reference(arch, window, kernels):
     np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
                                rtol=0, atol=2e-5)
     assert abs(float(loss) - float(j_loss)) <= 1e-5
-    assert float(loss_aux["moe_aux"]) == 0.0
+    if jc.moe is None:
+        assert float(loss_aux["moe_aux"]) == 0.0
+    else:
+        assert float(loss_aux["moe_aux"]) == pytest.approx(
+            float(j_loss_aux["moe_aux"]), rel=1e-5)
     sig, j_sig = aux["signature"].numpy(), np.asarray(j_aux["signature"])
     assert sig.shape == (64,)
     assert np.array_equal(sig, j_sig), np.flatnonzero(sig != j_sig)
