@@ -19,8 +19,11 @@ Phases, each printing one JSON line:
    the LM and hybrid paths' shapes and the hybrid cohort leg's batch of
    4 (each from separate (B,S,H,hd)
    tensors and from views into one fused qkv), at every shape of the
-   reference's FLASH_CASES in float32 and bfloat16, and at head_dim 256
-   with a window and a soft-cap: every bfloat16 case on the Hopper kernel
+   reference's FLASH_CASES in float32 and bfloat16, at head_dim 256
+   with a window and a soft-cap, at MLA's head dim 192 on its path's
+   shape, at gemma3's 8,192 tokens with its window of 1,024 and without,
+   and at a ragged 4,100 tokens (the plain versions over every head, a
+   group of KV heads at a time): every bfloat16 case on the Hopper kernel
    (wgmma, TMA) within the reference's 2e-2 and within FLASH_TC_TOL of the
    plain version of its own arithmetic, every float32 case on the FMA
    kernel within 2e-5, each case's route read from the per-route counts;
@@ -118,12 +121,13 @@ Phases, each printing one JSON line:
    internlm2 (4 layers), the Jamba cut and xlstm-125m, with the launch
    counts set to 0 just before and read just after (one prefill: each
    kernel once a layer of its kind, flash on the sm90 route, no plain
-   version): prefill and decode times, decode tokens/s, peak memory and
-   the decode step's weight-read bound; then the same weights and prompts
-   in float32 compute, each step's logits within the reference's 2e-2 of
-   a teacher-forced full forward, the greedy tokens its argmax wherever
-   the top-2 gap exceeds twice the error, every attention cache grown by
-   64 slots; the bfloat16 readings beside it;
+   version): prefill and decode times, decode tokens/s, peak memory (5 GB
+   of the card left free) and the decode step's weight-read bound; then
+   the same weights and prompts in float32 compute, each step's logits
+   within the reference's 2e-2 of a teacher-forced full forward, the
+   greedy tokens its argmax wherever the top-2 gap exceeds twice the
+   error, every attention cache grown by 64 slots; the bfloat16 readings
+   beside it;
 14. the serving path: ``DagAflCoordinator`` with serving on, over the CNN
    path's world and the LM path's (cadence a quarter of the path's
    simulated time, 12 expected queries over it, batch 8; the LM queries
@@ -151,8 +155,40 @@ Phases, each printing one JSON line:
    launch a step, the peak leaving 5 GB of the card free; the choices
    the capacity dropped each step); ``moe_serve``, the serve leg above
    at this config (the steps whose tokens the serve run and the
-   teacher-forced forward route to other experts are reported and left
-   out of the float32 comparison).
+   teacher-forced forward route to other experts, or whose choices one
+   run's capacity dropped, are reported and left out of the float32
+   comparison);
+16. the attention variants (``attention_variants_path``), each leg with
+   the launch counts set to 0 just before and read just after and its
+   peak leaving 5 GB of the card free:
+   ``gemma3_backend``, gemma3-27b at full width cut to one published
+   period (5 local layers of window 1,024, then a global one;
+   3,886,616,832 parameters): ``LMBackend.evaluate`` and ``signature`` at
+   batch 2 x 8,192 (flash 6 times a forward, all sm90; one signature
+   launch a signature call, on vec; flash launches by window counted
+   where they launch and gated against the layers'), then the kernel
+   forward against the plain forward (banded for the local layers,
+   chunked for the global one, each counted) in float32 (logits within
+   2e-2) and bfloat16 (reported); ``gemma3_train``, one warm-up step and
+   then 2 steps of ``train_local`` at batch 1 x 4,096 tokens with 5 GB of
+   the card free (the banded and chunked paths and the chunked
+   cross-entropy under autograd, counted; no kernel), the mean loss below
+   the start's and no allocator retry in the counted steps; ``gemma3_serve``,
+   the serve leg of phase 13 at batch 2, an 8,192-token prompt and 32 new
+   tokens (decode over the windowed cache); ``mla_backend``,
+   deepseek-v2-236b cut to its dense prologue and one MoE layer (160
+   experts top-6, 2 shared; 5,193,528,320 parameters) as phase 15's
+   backend leg at batch 8 x 512, flash at head dim 192 twice a forward;
+   ``mla_serve``, the serve leg (absorbed MLA decode over the ``ckv`` and
+   ``krope`` caches); ``mla_train``, phase 15's train leg on the dense
+   prologue (1,221,411,840 parameters, bfloat16 moments); ``mrope`` and
+   ``mrope_train``, qwen2-vl-72b cut to one layer (3,369,109,504
+   parameters): the kernel forward at batch 8 x 512 over M-RoPE positions
+   laid out as Qwen2-VL lays out an image (text, a 16 x 24 patch grid,
+   text), the float32 kernel forward against the plain one within 2e-2,
+   the same batch at text-only positions moving the logits past the grid
+   (and not before it), then 5 AdamW steps at two microbatches with the
+   grid positions (one signature launch a microbatch).
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -166,6 +202,7 @@ of the repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -182,9 +219,14 @@ BF16_OPS_PER_S = 989e12        # dense, tensor cores
 MAIN_SHAPE = (128, 1024, 64)   # VGG16 conv 1 at 32x32, 128 samples
 RAGGED_SHAPE = (3, 1000, 63)
 # the LM-family paths' final-norm outputs, bfloat16, batch 8 of 512
-# positions, at each model's width: xlstm-125m, internlm2-1.8b, jamba
+# positions, at each model's width: xlstm-125m, internlm2-1.8b, jamba, and
+# the attention variants' widths
 SIG_WIDTHS = {"xlstm": (1, 8 * 512, 768), "lm": (1, 8 * 512, 2048),
-              "hybrid": (1, 8 * 512, 4096)}
+              "hybrid": (1, 8 * 512, 4096),
+              # the attention variants: gemma3-27b at batch 2 x 8,192,
+              # deepseek-v2 and qwen2-vl-72b at 8 x 512
+              "gemma3": (1, 2 * 8192, 5376), "mla": (1, 8 * 512, 5120),
+              "mrope": (1, 8 * 512, 8192)}
 # d % 64 != 0 (on the vec route), and d % 8 != 0 (on the strided route)
 LM_SIG_RAGGED = [(2, 300, 1000), (3, 257, 100)]
 # the LM cohort legs' per-sample rows: one launch over a client's (B, S, d)
@@ -260,7 +302,24 @@ XLSTM_PARAMS = 134_421_576           # the reference's tree, leaf by leaf
 # router (the reference's tree, leaf by leaf)
 MOE_PARAMS = 3_678_941_184
 MOE_ROUTED_ALIKE_MIN = 0.999         # tokens routed alike by two forwards
-MOE_FREE_BYTES_MIN = 5e9             # the train leg's peak leaves this free
+MOE_FREE_BYTES_MIN = 5e9             # every MoE and variant leg's peak
+#                                      leaves this much of the card free
+# the attention variants: the reference's trees, leaf by leaf (jax.eval_shape)
+GEMMA3_PARAMS = 3_886_616_832        # gemma3-27b, one published period
+MLA_PARAMS = 5_193_528_320           # deepseek-v2: dense prologue + 1 MoE
+MLA_PROLOGUE_PARAMS = 1_221_411_840  # deepseek-v2's dense prologue alone
+MROPE_PARAMS = 3_369_109_504         # qwen2-vl-72b, one layer
+GEMMA3_BATCH, GEMMA3_SEQ, GEMMA3_NEW = 2, 8192, 32
+# gemma3's local training, batch 1: the peak (73.9 GB on an 85.0 GB card)
+# leaves MOE_FREE_BYTES_MIN free; running out of memory fails the phase
+GEMMA3_TRAIN_SEQ = 4096
+# Qwen2-VL's layout of one image in a 512-token row: text, a 16 x 24
+# patch grid, text (arXiv:2409.12191 §2.1)
+MROPE_LAYOUT = (64, 16, 24, 64)
+MROPE_TRAIN_STEPS = 5
+FLASH_GEMMA3 = (2, 32, 16, 8192, 128)    # windows 1,024 (local), -1
+FLASH_MLA = (8, 128, 128, 512, 192)      # MLA: 128 nope + 64 rope
+FLASH_RAGGED_LONG = (1, 4, 2, 4100, 128)  # past 4,096, ragged
 
 
 def emit(**fields) -> None:
@@ -270,6 +329,16 @@ def emit(**fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def check_free(leg: str, peak: int) -> int:
+    """A leg's peak (bytes) must leave MOE_FREE_BYTES_MIN of the card
+    free; returns the card's bytes."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(total - peak >= MOE_FREE_BYTES_MIN, f"{leg}: peak {peak} of "
+          f"{total} bytes leaves less than {MOE_FREE_BYTES_MIN} free")
+    return total
 
 
 def run(cmd) -> str:
@@ -534,7 +603,11 @@ def phase_flash(fa, ops, dev) -> dict:
     max_err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_tc": 0.0}
     compared = []
 
-    def compare(q, k, v, causal, window, cap, what):
+    def compare(q, k, v, causal, window, cap, what, kv_heads=None):
+        """The kernel on all heads; the plain versions on every head, a
+        group of ``kv_heads`` KV heads and their query heads at a time
+        (all at once by default), where the whole (S, S) scores of every
+        head would not fit beside them."""
         dtype = str(q.dtype).split(".")[-1]
         want_route = "sm90" if q.dtype == torch.bfloat16 else "fma"
         before = (fa.launches_sm90, fa.launches_fma)
@@ -544,31 +617,47 @@ def phase_flash(fa, ops, dev) -> dict:
         check(routes == ((1, 0) if want_route == "sm90" else (0, 1)),
               f"flash at {what} {dtype}: launches by route (sm90, fma) "
               f"{routes}, expected the {want_route} route")
-        bhsd = [t.transpose(1, 2) for t in (q, k, v)]
-        want = fa.flash_attention_plain(
-            *bhsd, causal=causal, window=window, softcap=cap).transpose(1, 2)
         torch.cuda.synchronize()
         check(got.is_cuda and got.shape == q.shape and got.dtype == q.dtype
               and got.is_contiguous(), f"flash output at {what}")
-        diff = (got.float() - want.float()).abs()
+        K = k.shape[2]
+        group = K if kv_heads is None else kv_heads
+        per = q.shape[2] // K                  # query heads a KV head
         tol = FLASH_TOL[dtype]
-        err = diff.max().item()
-        max_err[dtype] = max(max_err[dtype], err)
-        check(bool((diff <= tol + tol * want.float().abs()).all()),
-              f"flash kernel != plain at {what} {dtype}: max |diff| {err}")
-        case = {"case": what, "dtype": dtype, "route": want_route,
-                "max_abs_err": err}
-        if want_route == "sm90":
-            tc = fa.flash_attention_tc_plain(
+        err = tc_err = 0.0
+        for g0 in range(0, K, group):
+            heads = slice(g0 * per, (g0 + group) * per)
+            kv = slice(g0, g0 + group)
+            bhsd = [t.transpose(1, 2) for t in (q[:, :, heads], k[:, :, kv],
+                                                v[:, :, kv])]
+            part = got[:, :, heads].float()
+            want = fa.flash_attention_plain(
                 *bhsd, causal=causal, window=window,
                 softcap=cap).transpose(1, 2).float()
-            diff = (got.float() - tc).abs()
-            err = diff.max().item()
-            max_err["bfloat16_tc"] = max(max_err["bfloat16_tc"], err)
-            check(bool((diff <= FLASH_TC_TOL["atol"]
-                        + FLASH_TC_TOL["rtol"] * tc.abs()).all()),
-                  f"flash kernel != tc plain at {what}: max |diff| {err}")
-            case["max_abs_err_tc"] = err
+            diff = (part - want).abs()
+            err = max(err, diff.max().item())
+            check(bool((diff <= tol + tol * want.abs()).all()),
+                  f"flash kernel != plain at {what} {dtype}, KV heads "
+                  f"{g0}-{g0 + group - 1}: max |diff| {err}")
+            del want, diff
+            if want_route == "sm90":
+                tc = fa.flash_attention_tc_plain(
+                    *bhsd, causal=causal, window=window,
+                    softcap=cap).transpose(1, 2).float()
+                diff = (part - tc).abs()
+                tc_err = max(tc_err, diff.max().item())
+                check(bool((diff <= FLASH_TC_TOL["atol"]
+                            + FLASH_TC_TOL["rtol"] * tc.abs()).all()),
+                      f"flash kernel != tc plain at {what}, KV heads "
+                      f"{g0}-{g0 + group - 1}: max |diff| {tc_err}")
+                del tc, diff
+            del part
+        max_err[dtype] = max(max_err[dtype], err)
+        case = {"case": what, "dtype": dtype, "route": want_route,
+                "max_abs_err": err, "heads_compared": q.shape[2]}
+        if want_route == "sm90":
+            max_err["bfloat16_tc"] = max(max_err["bfloat16_tc"], tc_err)
+            case["max_abs_err_tc"] = tc_err
         compared.append(case)
 
     # the paths' shapes: 512 (LM), 1,024 (hybrid) and 512 (hybrid cohort,
@@ -597,8 +686,30 @@ def phase_flash(fa, ops, dev) -> dict:
             q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev)
                        .to(dtype) for n in (h, kh, kh))
             compare(q, k, v, causal, window, cap, list(case))
+    # the attention variants: MLA's head dim 192 at its path's shape on
+    # both routes (the float32 check runs its prefill on the FMA kernel);
+    # gemma3's 8,192 tokens with its local window and without (the plain
+    # versions one KV head and its query heads at a time); a ragged S past
+    # 4,096
+    for shape, window, dtypes, kv_heads in (
+            (FLASH_MLA, -1, (torch.bfloat16, torch.float32), 32),
+            (FLASH_GEMMA3, 1024, (torch.bfloat16,), 1),
+            (FLASH_GEMMA3, -1, (torch.bfloat16,), 1),
+            (FLASH_RAGGED_LONG, 1024, (torch.bfloat16, torch.float32), None),
+            (FLASH_RAGGED_LONG, -1, (torch.bfloat16, torch.float32), None)):
+        B, H, K, S, hd = shape
+        for dtype in dtypes:
+            q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                       .to(dtype) for n in (H, K, K))
+            compare(q, k, v, True, window, 0.0,
+                    f"{list(shape)} window {window}", kv_heads)
+            del q, k, v
 
-    def timed(shape):
+    def timed(shape, window=-1, reps=60, slow_reps=10):
+        """The kernel's time at ``shape`` (causal, ``window``) beside the
+        FMA kernel's on the same bfloat16 inputs, the plain version's and
+        the library's scaled_dot_product_attention (with an explicit mask
+        for a window); the slower ones over ``slow_reps`` calls."""
         B, H, K, S, hd = shape
         sets = [tuple(torch.randn((B, S, n, hd), generator=g, device=dev)
                       .to(torch.bfloat16) for n in (H, K, K))
@@ -608,26 +719,45 @@ def phase_flash(fa, ops, dev) -> dict:
 
         def fma(a):                    # the FMA kernel on the same inputs
             return fa._dispatch(*a, torch.empty_like(a[0]), "fma", True,
-                                -1, 0.0)
+                                window, 0.0)
 
-        ms = device_ms(lambda a: ops.flash_attention(*a), sets)
-        fma_ms = device_ms(fma, bhsd)
-        plain_ms = device_ms(lambda a: fa.flash_attention_plain(*a), bhsd)
-        library_ms = device_ms(lambda a: F.scaled_dot_product_attention(
-            *a, is_causal=True, enable_gqa=True), packed)
+        if window > 0:
+            rows = torch.arange(S, device=dev)[:, None]
+            cols = torch.arange(S, device=dev)[None, :]
+            mask = (rows >= cols) & (rows - cols < window)
+
+            def library(a):
+                return F.scaled_dot_product_attention(
+                    *a, attn_mask=mask, enable_gqa=True)
+        else:
+            def library(a):
+                return F.scaled_dot_product_attention(
+                    *a, is_causal=True, enable_gqa=True)
+
+        ms = device_ms(lambda a: ops.flash_attention(*a, window=window),
+                       sets, reps)
+        fma_ms = device_ms(fma, bhsd, slow_reps)
+        plain_ms = device_ms(lambda a: fa.flash_attention_plain(
+            *a, window=window), bhsd[:1], slow_reps)
+        library_ms = device_ms(library, packed, slow_reps)
         bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
             + sets[0][0].numel() * 2
-        pairs = S * (S + 1) // 2              # causal (row, col) pairs
-        flops = 2 * 2 * hd * pairs * B * H    # QK^T and PV, 2 per MAC
+        w = S if window <= 0 else min(window, S)
+        pairs = w * (w + 1) // 2 + (S - w) * w   # (row, col) pairs kept
+        flops = 2 * 2 * hd * pairs * B * H       # QK^T and PV, 2 per MAC
         bound_ms, bound_by = bound(bytes_moved, flops, peak=BF16_OPS_PER_S)
+        del sets, bhsd, packed
         return {"timed_shape": list(shape), "timed_dtype": "bfloat16",
-                "ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "bytes": bytes_moved,
-                "flops": flops}
+                "window": window, "ms": ms, "fma_ms": fma_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+                "bytes": bytes_moved, "flops": flops}
 
     main = timed(FLASH_MAIN)
     hybrid = timed(FLASH_HYBRID)
+    variants = {"gemma3_local": timed(FLASH_GEMMA3, 1024, 20, 3),
+                "gemma3_global": timed(FLASH_GEMMA3, -1, 20, 3),
+                "mla": timed(FLASH_MLA, -1, 20, 5)}
     record = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -639,7 +769,9 @@ def phase_flash(fa, ops, dev) -> dict:
               **{k: v for k, v in main.items()
                  if k not in ("bytes", "flops")},
               "hybrid": {k: v for k, v in hybrid.items()
-                         if k not in ("bytes", "flops")}}
+                         if k not in ("bytes", "flops")},
+              **{name: {k: v for k, v in t.items() if k != "bytes"}
+                 for name, t in variants.items()}}
     # the float32-core floor is derived, not measured: it stays out of the
     # kernels line and is printed only with this phase
     emit(phase="flash_vs_plain", compared=len(compared), cases=compared,
@@ -2069,7 +2201,8 @@ def profile_lm_round(backend, params, stream) -> dict:
 
 def tree_param_count(cfg) -> int:
     """Parameters of the port's tree for a config of attention blocks
-    without biases, Mamba, mLSTM and sLSTM blocks, with dense or MoE
+    (GQA with or without QKV biases, or MLA), Mamba, mLSTM and sLSTM
+    blocks, with dense or MoE
     feed-forward layers or none, counted leaf by leaf from its shapes
     (``ArchConfig.param_count()`` counts a Mamba layer's small leaves and
     most of an xLSTM layer's leaves otherwise, and leaves out the
@@ -2101,8 +2234,20 @@ def tree_param_count(cfg) -> int:
             total += (cfg.xlstm.s_conv * d + d                # conv
                       + 2 * d * 4 * d + 4 * d                 # W, R, b
                       + d * 2 * d_up + d_up * d + d)    # up, down, norm
+        elif spec.kind == "attn" and cfg.mla is not None:
+            m, H = cfg.mla, cfg.n_heads
+            q_head = m.qk_nope_dim + m.qk_rope_dim
+            total += (d * m.q_lora_rank + m.q_lora_rank              # wq_a
+                      + m.q_lora_rank * H * q_head                   # wq_b
+                      if m.q_lora_rank else d * H * q_head)          # wq
+            total += (d * (m.kv_lora_rank + m.qk_rope_dim)          # wkv_a
+                      + m.kv_lora_rank                              # norm
+                      + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+                      + H * m.v_head_dim * d)                       # wo
         elif spec.kind == "attn":
             total += 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+            if cfg.qkv_bias:
+                total += cfg.q_dim + 2 * cfg.kv_dim
         else:
             mc = cfg.mamba
             d_in = mc.expand * d
@@ -2943,11 +3088,11 @@ class RoutingMeter:
     """While entered, records each MoE routing (every call of
     ``models.moe.topk_dispatch``): its greedy top-k choices (G, S_g, k),
     the reference's rule (the first largest probability, then the first
-    largest of the rest), and the choices its capacity dropped; restores
-    the function on exit."""
+    largest of the rest), the choices its capacity dropped, and which
+    tokens kept all k choices (G, S_g); restores the function on exit."""
 
     def __init__(self):
-        self.choices, self.dropped = [], []
+        self.choices, self.dropped, self.kept = [], [], []
 
     def __enter__(self):
         import torch
@@ -2964,6 +3109,7 @@ class RoutingMeter:
                 self.choices.append(torch.stack(picks, -1))
                 self.dropped.append(k * probs.shape[0] * probs.shape[1]
                                     - dispatch.sum())
+                self.kept.append(dispatch.any(-1).sum(-1) == k)
             return gates, dispatch
 
         moe.topk_dispatch = routed
@@ -2972,12 +3118,14 @@ class RoutingMeter:
     def __exit__(self, *exc):
         self.moe.topk_dispatch = self.inner
 
-    def tokens(self, calls, batch: int, seq: int):
+    def tokens(self, calls, batch: int, seq: int, record=None):
         """The choices of ``calls`` (indices into the record) as (layers,
-        batch, seq, k): each call's groups cut back to the batch's rows."""
+        batch, seq, k), or with ``record=self.kept`` whether each token
+        kept them all (layers, batch, seq, 1): each call's groups cut
+        back to the batch's rows."""
         import torch
-        return torch.stack([self.choices[i].reshape(-1, self.choices[i]
-                                                    .shape[-1])
+        record = self.choices if record is None else record
+        return torch.stack([record[i].reshape(-1, *record[i].shape[2:])
                             [:batch * seq].reshape(batch, seq, -1)
                             for i in calls])
 
@@ -2998,6 +3146,7 @@ def reset_launches(kern) -> None:
     for key in ("sig", "fa", "ss", "ml", "sl"):
         kern[key].launches = 0
     kern["fa"].launches_sm90 = kern["fa"].launches_fma = 0
+    kern["fa"].launches_by_window.clear()
     kern["sig"].launches_vec = kern["sig"].launches_strided = 0
 
 
@@ -3009,6 +3158,7 @@ def read_launches(kern) -> dict:
                          "slstm": kern["sl"].launches},
             "flash_routes": {"sm90": fa.launches_sm90,
                              "fma": fa.launches_fma},
+            "flash_windows": dict(sorted(fa.launches_by_window.items())),
             "signature_routes": {"vec": sig.launches_vec,
                                  "strided": sig.launches_strided}}
 
@@ -3026,6 +3176,20 @@ def expected_prefill_launches(cfg, prefills: int, signatures: int = 0,
             "slstm": kinds.count("slstm") * n}
 
 
+def expected_flash_windows(cfg, seq_len: int, forwards: int) -> dict:
+    """Flash launches by sliding window (-1 for none) of ``forwards``
+    forwards over ``seq_len`` tokens: one an attention layer, at the
+    window the model resolves for it."""
+    from repro_torch.models.transformer import resolve_window
+    want = {}
+    for spec in cfg.layer_specs():
+        if spec.kind == "attn":
+            w = resolve_window(cfg, spec, seq_len)
+            w = w if w > 0 else -1
+            want[w] = want.get(w, 0) + forwards
+    return dict(sorted(want.items()))
+
+
 def attn_cache_lens(cfg, caches) -> list:
     """The sequence length of every attention layer's cache entries."""
     from repro_torch.models.attention import cache_seq_axis
@@ -3038,15 +3202,20 @@ def attn_cache_lens(cfg, caches) -> list:
     return lens
 
 
-def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
+def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
+              batch: int = SERVE_BATCH, prompt_len: int = SERVE_PROMPT,
+              new_tokens: int = SERVE_NEW,
+              phase: str = "serve_path") -> dict:
     """``launch.serve.serve`` at full width: weights and prompts from seed
-    0, batch 8, a 512-token prompt, 64 new tokens, in ``cfg``'s compute
-    type, with the launch counts set to 0 just before and read just after
-    (a warm-up call first).  Then the same weights and prompts in float32
-    compute, each step's logits held against a teacher-forced full forward
-    (the models' own plain forms) within the reference's 2e-2, and the
-    greedy tokens against its argmax where the top-2 gap exceeds twice the
-    largest error; the bfloat16 run's readings beside it."""
+    0, by default batch 8, a 512-token prompt and 64 new tokens, in
+    ``cfg``'s compute type, with the launch counts set to 0 just before
+    and read just after (a warm-up call first).  Then the same weights and
+    prompts in float32 compute, each step's logits held against a
+    teacher-forced full forward (the models' own plain forms) within the
+    reference's 2e-2 on the steps that every MoE layer routed alike and
+    kept whole in both runs, and the greedy tokens against its argmax
+    where the top-2 gap exceeds twice the largest error; the bfloat16
+    run's readings beside it."""
     import dataclasses
     import gc
 
@@ -3062,23 +3231,24 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     t_leg = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tfm.init_params(gen, cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
     n_params = sum(p.numel() for p in tree_leaves(params))
     check(n_params == tree_param_count(cfg) == expected_params,
           f"{leg}: {n_params} parameters, expected {expected_params}")
     # warm-up outside the counted run: cuBLAS handles, allocator pools
-    launch.serve(cfg, SERVE_BATCH, SERVE_PROMPT, 2, device=dev,
+    launch.serve(cfg, batch, prompt_len, 2, device=dev,
                  params=params, prompts=prompts)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with PlainMeter(kern) as plain:
         reset_launches(kern)                       # counts start here
-        r = launch.serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+        r = launch.serve(cfg, batch, prompt_len, new_tokens,
                          seed=0, device=dev, keep_logits=True)
         torch.cuda.synchronize()
         counted = read_launches(kern)              # and are read here
     peak = torch.cuda.max_memory_allocated()
+    check_free(leg, peak)
     expected = expected_prefill_launches(cfg, prefills=1)
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(r["params"]),
                                                 tree_leaves(params)))
@@ -3089,13 +3259,16 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
           f"for one prefill")
     check(counted["flash_routes"] == {"sm90": expected["flash"], "fma": 0},
           f"{leg}: flash launches by route {counted['flash_routes']}")
+    windows = expected_flash_windows(cfg, prompt_len, 1)
+    check(counted["flash_windows"] == windows, f"{leg}: flash launches by "
+          f"window {counted['flash_windows']}, expected {windows}")
     check(not any(plain.calls.values()),
           f"{leg}: the serve path ran a plain version: {plain.calls}")
-    total = SERVE_PROMPT + SERVE_NEW
+    total = prompt_len + new_tokens
     lens = attn_cache_lens(cfg, r["caches"])
     check(all(n == total for n in lens),
           f"{leg}: attention caches of {lens} slots, expected {total}")
-    check(r["tokens"].shape == (SERVE_BATCH, SERVE_NEW)
+    check(r["tokens"].shape == (batch, new_tokens)
           and bool(torch.isfinite(r["logits"]).all()),
           f"{leg}: tokens {tuple(r['tokens'].shape)} or non-finite logits")
     bf16_logits, bf16_tokens = r["logits"], r["tokens"]
@@ -3108,12 +3281,12 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
                                 cache_dtype="float32")
     with RoutingMeter() as served:
-        r32 = launch.serve(cfg32, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW,
+        r32 = launch.serve(cfg32, batch, prompt_len, new_tokens,
                            device=dev, params=params, prompts=prompts,
                            keep_logits=True)
     logits32, tokens32 = r32["logits"], r32["tokens"]
     check(all(n == total for n in attn_cache_lens(cfg32, r32["caches"])),
-          f"{leg}: float32 caches did not grow by {SERVE_NEW}")
+          f"{leg}: float32 caches did not grow by {new_tokens}")
     del r32
     full_tokens = torch.cat([prompts, tokens32[:, :-1].long()], dim=1)
     with torch.inference_mode(), RoutingMeter() as forced:
@@ -3121,28 +3294,38 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
                                   Runtime(), mode="prefill")
         # the positions whose logits the prefill and the decode steps gave:
         # (steps, B, V)
-        full = unembed(params["embed"], h[:, SERVE_PROMPT - 1:],
+        full = unembed(params["embed"], h[:, prompt_len - 1:],
                        torch.float32, cfg32.final_softcap).transpose(0, 1)
         del h
-        alike = served_routed_alike(served, forced, cfg,
-                                    *full_tokens.shape, logits32.device)
+        routed, kept = served_routed_alike(served, forced, cfg,
+                                           *full_tokens.shape,
+                                           logits32.device, prompt_len,
+                                           new_tokens)
+        alike = routed & kept
         err = (logits32 - full).abs().amax(-1)          # (steps, B)
-        max_err = err[alike].max().item()
+        max_err = err[alike].max().item() if alike.any() else math.inf
         top2 = full.topk(2, dim=-1).values
         decided = alike & ((top2[..., 0] - top2[..., 1]) > 2 * max_err)
         agree = tokens32.transpose(0, 1).long() == full.argmax(-1)
         mismatched = int((decided & ~agree).sum())
         excluded = int((~decided).sum())
-        routed_apart = int((~alike).sum())
-        routed_apart_err = (err[~alike].max().item() if routed_apart
+        routed_apart = int((~routed).sum())
+        routed_apart_err = (err[~routed].max().item() if routed_apart
                             else None)
+        dropped_apart = int((routed & ~kept).sum())
+        dropped_apart_err = (err[routed & ~kept].max().item()
+                             if dropped_apart else None)
         bf16_err = (bf16_logits - full).abs().max().item()
         bf16_token_agree = (bf16_tokens == tokens32).float().mean().item()
     del full, logits32, bf16_logits
+    check(bool(alike.any()), f"{leg}: every step routed apart or dropped "
+          f"by one run's capacity: nothing to compare")
     check(max_err <= SERVE_LOGIT_TOL,
           f"{leg}: float32 prefill/decode logits differ from the full "
           f"forward by {max_err} (bound {SERVE_LOGIT_TOL}) on the steps "
-          f"routed alike ({routed_apart} of them routed apart)")
+          f"routed alike and kept in both runs ({routed_apart} routed "
+          f"apart, {dropped_apart} with a choice one run's capacity "
+          f"dropped)")
     check(mismatched == 0, f"{leg}: {mismatched} greedy tokens differ from "
           f"the full forward's argmax where its top-2 gap exceeds "
           f"{2 * max_err}")
@@ -3150,12 +3333,12 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     # the batch's rows): float32 masters over the card's memory rate
     weight_bytes = 4 * (n_params - (0 if cfg.tie_embeddings
                                     else cfg.vocab_size * cfg.d_model))
-    decode_ms = 1e3 * timings["decode_s"] / (SERVE_NEW - 1)
+    decode_ms = 1e3 * timings["decode_s"] / (new_tokens - 1)
     record = dict(
-        phase="serve_path", leg=leg, model=cfg.name,
+        phase=phase, leg=leg, model=cfg.name,
         layers=[spec.kind for spec in cfg.layer_specs()],
         compute_dtype=cfg.compute_dtype, n_params=n_params,
-        batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
         prefill_ms=1e3 * timings["prefill_s"],
         decode_ms_per_token=decode_ms,
         decode_tokens_per_s=timings["decode_tok_per_s"],
@@ -3163,10 +3346,13 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
         decode_weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
         peak_bytes=peak, cache_lens=sorted(set(lens)),
         float32_max_abs_err=max_err, float32_bound=SERVE_LOGIT_TOL,
-        float32_steps_compared=SERVE_NEW * SERVE_BATCH,
+        float32_steps_compared=new_tokens * batch,
         float32_steps_excluded=excluded,
         float32_steps_routed_apart=routed_apart,
         float32_routed_apart_max_abs_err=routed_apart_err,
+        float32_steps_compared_alike=int(alike.sum()),
+        float32_steps_dropped_in_one_run=dropped_apart,
+        float32_dropped_in_one_run_max_abs_err=dropped_apart_err,
         float32_dropped_choices={"serve": served.dropped_total(),
                                  "full_forward": forced.dropped_total()},
         bfloat16_max_abs_err_vs_float32_forward=bf16_err,
@@ -3178,23 +3364,38 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     return record
 
 
-def served_routed_alike(served, forced, cfg, B: int, S: int, device):
-    """(steps, B) bool: the steps of a serve run whose tokens every MoE
-    layer routed as the teacher-forced full forward did (all steps for a
-    model without MoE layers).  ``served`` recorded the prefill (one call
-    a MoE layer), then each decode step (one call a layer); ``forced`` the
-    full forward.  Step 0's logits come from the prompt's last position,
-    step i's from position SERVE_PROMPT - 1 + i."""
+def served_routed_alike(served, forced, cfg, B: int, S: int, device,
+                        prompt_len: int = SERVE_PROMPT,
+                        new_tokens: int = SERVE_NEW):
+    """Two (steps, B) bool masks over a serve run's steps: the tokens that
+    every MoE layer routed as the teacher-forced full forward did, and
+    those that kept all their choices in both runs (all steps for a model
+    without MoE layers).  A token the capacity drops in one run and not in
+    the other (groups of 512 tokens in a prefill or full forward, of B
+    tokens in a decode step) has another function of its input there, as
+    in the reference.  ``served`` recorded the prefill (one call a MoE
+    layer), then each decode step (one call a layer); ``forced`` the full
+    forward.  Step 0's logits come from the prompt's last position, step
+    i's from position prompt_len - 1 + i."""
     import torch
     n = moe_layers(cfg)
     if not n:
-        return torch.ones((SERVE_NEW, B), dtype=torch.bool, device=device)
-    prompt = served.tokens(range(n), B, SERVE_PROMPT)[:, :, -1:]
-    steps = [served.tokens(range(n + i * n, 2 * n + i * n), B, 1)
-             for i in range(SERVE_NEW - 1)]
-    got = torch.cat([prompt] + steps, dim=2)             # (n, B, steps, k)
-    want = forced.tokens(range(n), B, S)[:, :, SERVE_PROMPT - 1:]
-    return (got == want).all(-1).all(0).transpose(0, 1)
+        every = torch.ones((new_tokens, B), dtype=torch.bool, device=device)
+        return every, every
+
+    def steps(record):
+        prompt = served.tokens(range(n), B, prompt_len, record)[:, :, -1:]
+        decode = [served.tokens(range(n + i * n, 2 * n + i * n), B, 1,
+                                record) for i in range(new_tokens - 1)]
+        return torch.cat([prompt] + decode, dim=2)     # (n, B, steps, k)
+
+    def forced_steps(record):
+        return forced.tokens(range(n), B, S, record)[:, :, prompt_len - 1:]
+
+    alike = (steps(None) == forced_steps(None)).all(-1).all(0)
+    kept = (steps(served.kept).all(-1).all(0)
+            & forced_steps(forced.kept).all(-1).all(0))
+    return alike.transpose(0, 1), kept.transpose(0, 1)
 
 
 def profile_decode(launch, cfg, params, prompts, steps: int = 8) -> dict:
@@ -3415,7 +3616,7 @@ def phase_serving_path(kern, dev, cnn_sim_time: float,
 
 
 def moe_forward_check(tfm, cfg, backend, params, stream, compute: str,
-                      checked: bool) -> dict:
+                      checked: bool, leg: str = "moe_backend") -> dict:
     """The kernel forward (flash attention, the selective scan) against
     the plain forward (dense attention, the model's chunked scan) of
     ``params`` in ``mode="prefill"``, the backend's tip-selection
@@ -3457,13 +3658,13 @@ def moe_forward_check(tfm, cfg, backend, params, stream, compute: str,
     check(bool(torch.isfinite(k_logits).all()), f"non-finite MoE logits "
           f"({compute})")
     if checked:
-        check(share >= MOE_ROUTED_ALIKE_MIN, f"moe_backend: {share} of the "
+        check(share >= MOE_ROUTED_ALIKE_MIN, f"{leg}: {share} of the "
               f"tokens routed alike by the kernel and plain forwards "
               f"({compute}), below {MOE_ROUTED_ALIKE_MIN}")
-        check(logit_err <= SERVE_LOGIT_TOL, f"moe_backend: kernel logits "
+        check(logit_err <= SERVE_LOGIT_TOL, f"{leg}: kernel logits "
               f"differ from the plain forward's by {logit_err} on the "
               f"tokens routed alike ({compute})")
-        check(sig_err <= LM_SIG_TOL, f"moe_backend: kernel signature "
+        check(sig_err <= LM_SIG_TOL, f"{leg}: kernel signature "
               f"differs from plain by {sig_err} ({compute})")
     return {"compute_dtype": compute, "checked": checked,
             "routed_alike_share": share,
@@ -3477,37 +3678,16 @@ def moe_forward_check(tfm, cfg, backend, params, stream, compute: str,
             "routed_choices": routed_choices(cfg, B * S)}
 
 
-def moe_backend_leg(kern, dev, cfg) -> dict:
-    """``LMBackend.evaluate`` and ``signature`` (the tip-selection forwards,
-    ``mode="prefill"``) on one full-width MoE model at batch 8 x 512, with
-    the launch counts set to 0 just before and read just after (one flash
-    and one scan launch a forward, all flash on sm90; one signature launch
-    a signature call, on the vec route; no plain call); then the kernel
-    forward against the plain forward in float32 (checked) and bfloat16
-    (reported)."""
-    import gc
-
+def backend_calls(kern, leg: str, cfg, backend, params, streams) -> tuple:
+    """``LMBackend.evaluate`` and ``signature`` once a stream (the
+    tip-selection forwards, ``mode="prefill"``), after one warm-up call of
+    each, with the launch counts set to 0 just before and read just after:
+    one launch a layer of each kernel's kind a forward, all flash on sm90,
+    one signature launch a signature call on vec, no plain call; the
+    accuracies and signatures in range.  Returns (counts, seconds by
+    call, accuracies, peak bytes, plain calls)."""
     import numpy as np
     import torch
-    from repro_torch.core.aggregate import tree_leaves
-    from repro_torch.fl.backend import LMBackend
-    from repro_torch.models import transformer as tfm
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_leg = time.perf_counter()
-    streams, global_test = lm_streams(2)
-    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=8,
-                        seq_len=512)
-    check(backend.device.type == "cuda", "moe_backend: backend is not on "
-          "the card")
-    t0 = time.perf_counter()
-    params = backend.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    check(n_params == tree_param_count(cfg) == MOE_PARAMS,
-          f"moe_backend: {n_params} parameters, expected {MOE_PARAMS}")
     backend.evaluate(params, streams[0])       # warm-up, outside the count
     backend.signature(params, streams[0])
     torch.cuda.synchronize()
@@ -3526,49 +3706,93 @@ def moe_backend_leg(kern, dev, cfg) -> dict:
         torch.cuda.synchronize()
         counted = read_launches(kern)              # and are read here
     peak = torch.cuda.max_memory_allocated()
+    check_free(leg, peak)
     calls = len(streams)
     expected = expected_prefill_launches(cfg, prefills=0, signatures=calls,
                                          forwards=2 * calls)
-    check(counted["launches"] == expected, f"moe_backend: launches "
+    check(counted["launches"] == expected, f"{leg}: launches "
           f"{counted['launches']}, expected {expected} for {calls} evaluate "
           f"and {calls} signature calls")
     check(counted["flash_routes"] == {"sm90": expected["flash"], "fma": 0},
-          f"moe_backend: flash launches by route {counted['flash_routes']}")
+          f"{leg}: flash launches by route {counted['flash_routes']}")
+    windows = expected_flash_windows(cfg, backend.seq_len, 2 * calls)
+    check(counted["flash_windows"] == windows, f"{leg}: flash launches by "
+          f"window {counted['flash_windows']}, expected {windows}")
     check(counted["signature_routes"] == {"vec": calls, "strided": 0},
-          f"moe_backend: signature launches by route "
+          f"{leg}: signature launches by route "
           f"{counted['signature_routes']}")
     check(not any(plain.calls.values()),
-          f"moe_backend: the path ran a plain version: {plain.calls}")
+          f"{leg}: the path ran a plain version: {plain.calls}")
     check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs)
           and all(s.shape == (64,) and np.all((s >= 0) & (s <= 1))
-                  for s in sigs), f"moe_backend: accuracies {accs} or "
+                  for s in sigs), f"{leg}: accuracies {accs} or "
           f"signatures out of range")
+    seconds = {k: [1e3 * t for t in v] for k, v in seconds.items()}
+    return counted, seconds, accs, peak, plain.calls
+
+
+def moe_backend_leg(kern, dev, cfg, leg: str = "moe_backend",
+                    phase: str = "moe_path",
+                    expected_params: int = MOE_PARAMS) -> dict:
+    """``LMBackend.evaluate`` and ``signature`` (the tip-selection forwards,
+    ``mode="prefill"``) on one full-width MoE model at batch 8 x 512, with
+    the launch counts set to 0 just before and read just after (one flash
+    and one scan launch a forward, all flash on sm90; one signature launch
+    a signature call, on the vec route; no plain call); then the kernel
+    forward against the plain forward in float32 (checked) and bfloat16
+    (reported)."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    streams, global_test = lm_streams(2)
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=8,
+                        seq_len=512)
+    check(backend.device.type == "cuda", f"{leg}: backend is not on the "
+          f"card")
+    t0 = time.perf_counter()
+    params = backend.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{leg}: {n_params} parameters, expected {expected_params}")
+    counted, seconds, accs, peak, plain_calls = backend_calls(
+        kern, leg, cfg, backend, params, streams)
     checks = {c: moe_forward_check(tfm, cfg, backend, params, global_test,
-                                   c, checked=c == "float32")
+                                   c, checked=c == "float32", leg=leg)
               for c in ("float32", "bfloat16")}
     record = dict(
-        phase="moe_path", leg="moe_backend", model=cfg.name,
+        phase=phase, leg=leg, model=cfg.name,
         layers=[[spec.kind, spec.ffn] for spec in cfg.layer_specs()],
         experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
         d_expert=cfg.moe.d_expert, n_params=n_params, batch=8, seq_len=512,
         data_vocab=LM_DATA_VOCAB, init_s=init_s,
-        evaluate_ms=[1e3 * t for t in seconds["evaluate"]],
-        signature_ms=[1e3 * t for t in seconds["signature"]],
-        accuracies=accs, peak_bytes=peak, plain_calls=plain.calls,
+        evaluate_ms=seconds["evaluate"], signature_ms=seconds["signature"],
+        accuracies=accs, peak_bytes=peak, plain_calls=plain_calls,
         forward_check=checks, leg_s=time.perf_counter() - t_leg, **counted)
     emit(**record)
     del params, backend
     return record
 
 
-def moe_train_leg(kern, dev, cfg) -> dict:
-    """``launch/train.train_single`` on the MoE cut: TRAIN_STEPS AdamW steps
-    with Jamba's bfloat16 moments (clip 1.0, the signature in the metrics)
-    over a TokenPipeline of the LM paths' sub-vocabulary, batch 8 x 512,
-    with the launch counts set to 0 just before and read just after: a
-    finite ``moe_aux`` above 0 at every step, the last 3 steps' mean loss
-    below step 0's, one signature launch a step and no other kernel, and
-    the peak leaving MOE_FREE_BYTES_MIN of the card free."""
+def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
+                  phase: str = "moe_path") -> dict:
+    """``launch/train.train_single`` on a full-width cut: TRAIN_STEPS AdamW
+    steps with the config's moments (Jamba's and deepseek-v2's bfloat16;
+    clip 1.0, the signature in the metrics) over a TokenPipeline of the LM
+    paths' sub-vocabulary, batch 8 x 512, with the launch counts set to 0
+    just before and read just after: the last 3 steps' mean loss below
+    step 0's, one signature launch a step and no other kernel, and the
+    peak leaving MOE_FREE_BYTES_MIN of the card free; with MoE layers, a
+    finite ``moe_aux`` above 0 at every step and the choices the capacity
+    dropped."""
     import argparse
     import gc
 
@@ -3596,7 +3820,6 @@ def moe_train_leg(kern, dev, cfg) -> dict:
         counted = read_launches(kern)              # and are read here
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
-    total = torch.cuda.get_device_properties(0).total_memory
     del params
     losses = [h["loss"] for h in history]
     aux = [h["moe_aux"] for h in history]
@@ -3604,39 +3827,43 @@ def moe_train_leg(kern, dev, cfg) -> dict:
     dropped = [sum(int(d) for d in routes.dropped[i * n:(i + 1) * n])
                for i in range(len(history))]
     check(len(history) == TRAIN_STEPS and all(np.isfinite(losses)),
-          f"moe_train: losses {losses}")
-    check(all(np.isfinite(a) and a > 0 for a in aux),
-          f"moe_train: moe_aux {aux}")
-    check(float(np.mean(losses[-3:])) < losses[0], f"moe_train: the mean "
+          f"{leg}: losses {losses}")
+    if n:
+        check(all(np.isfinite(a) and a > 0 for a in aux),
+              f"{leg}: moe_aux {aux}")
+    else:
+        check(all(a == 0.0 for a in aux), f"{leg}: moe_aux {aux} without "
+              f"MoE layers")
+    check(float(np.mean(losses[-3:])) < losses[0], f"{leg}: the mean "
           f"loss of the last 3 steps {np.mean(losses[-3:])} is not below "
           f"step 0's {losses[0]}")
     expected = {"signature": TRAIN_STEPS, "flash": 0, "scan": 0, "mlstm": 0,
                 "slstm": 0}
     check(counted["launches"] == expected and not any(plain.calls.values()),
-          f"moe_train: launches {counted['launches']} (plain {plain.calls})"
+          f"{leg}: launches {counted['launches']} (plain {plain.calls})"
           f": one signature launch a step and nothing else")
     check(counted["signature_routes"] == {"vec": TRAIN_STEPS, "strided": 0},
-          f"moe_train: signature launches by route "
+          f"{leg}: signature launches by route "
           f"{counted['signature_routes']}")
-    check(len(routes.dropped) == n * TRAIN_STEPS, f"moe_train: "
+    check(len(routes.dropped) == n * TRAIN_STEPS, f"{leg}: "
           f"{len(routes.dropped)} routings for {TRAIN_STEPS} steps")
-    check(total - peak >= MOE_FREE_BYTES_MIN, f"moe_train: peak {peak} of "
-          f"{total} bytes leaves less than {MOE_FREE_BYTES_MIN} free")
+    total = check_free(leg, peak)
     step_s = [h["seconds"] for h in history]
     ms = 1e3 * float(np.mean(step_s[1:]))
     record = dict(
-        phase="moe_path", leg="moe_train", model=cfg.name, optimizer="adamw",
+        phase=phase, leg=leg, model=cfg.name, optimizer="adamw",
         moment_dtype=cfg.moment_dtype, clip_norm=1.0, batch=8, seq_len=512,
         microbatches=1, data_vocab=LM_DATA_VOCAB, steps=TRAIN_STEPS,
         losses=losses, moe_aux=aux,
         grad_norms=[h["grad_norm"] for h in history],
-        dropped_choices=dropped,
-        routed_choices_per_step=routed_choices(cfg, 8 * 512),
         step_ms=[1e3 * t for t in step_s], ms_per_step=ms,
         tokens_per_s=8 * 512 / (ms / 1e3), wall_s=wall, peak_bytes=peak,
         peak_reserved_bytes=reserved, card_bytes=total,
         plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
         **counted)
+    if n:
+        record.update(dropped_choices=dropped,
+                      routed_choices_per_step=routed_choices(cfg, 8 * 512))
     emit(**record)
     return record
 
@@ -3651,6 +3878,455 @@ def phase_moe_path(kern, dev) -> dict:
             "moe_serve": serve_leg(kern, dev, "moe_serve", cfg, MOE_PARAMS)}
     emit(phase="moe_path_done", seconds=time.perf_counter() - t0)
     return legs
+
+
+class ScoreMeter:
+    """Counts, while entered, the calls of the attention module's plain
+    score paths (banded, chunked, dense) and of the loss's cross-entropy
+    chunks, and the head dims and windows of the flash launches that the
+    models ask for; restores every function on exit."""
+    PATHS = ("_banded_attn", "_chunked_attn", "_dense_attn")
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        from repro_torch.models import transformer as tfm
+        self.mods = [(A, name) for name in self.PATHS] + [(tfm, "_ce_part")]
+        self.calls = {name: 0 for _, name in self.mods}
+        self.flash = []
+        self.inner = {name: getattr(mod, name) for mod, name in self.mods}
+        for mod, name in self.mods:
+            def counted(*a, _fn=self.inner[name], _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
+        self.ops, self.flash_fn = A.ops, A.ops.flash_attention
+
+        def flash(q, k, v, **kw):
+            self.flash.append((q.shape[-1], kw.get("window", -1)))
+            return self.flash_fn(q, k, v, **kw)
+        A.ops.flash_attention = flash
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.mods:
+            setattr(mod, name, self.inner[name])
+        self.ops.flash_attention = self.flash_fn
+
+
+def chunked_logit_err(params, cfg, h_a, h_b, rows: int = 1024) -> float:
+    """The largest |logit| difference of two hidden states (B, S, d),
+    unembedded ``rows`` positions at a time: the whole (B, S, V) float32
+    logits of gemma3-27b at 2 x 8,192 take 17 GB."""
+    from repro_torch.models.layers import torch_dtype, unembed
+    err = 0.0
+    for i in range(0, h_a.shape[1], rows):
+        la, lb = (unembed(params["embed"], h[:, i:i + rows],
+                          torch_dtype(cfg.compute_dtype), cfg.final_softcap)
+                  for h in (h_a, h_b))
+        err = max(err, (la - lb).abs().max().item())
+    return err
+
+
+def long_forward_check(tfm, cfg, params, tokens, compute: str,
+                       checked: bool, leg: str) -> dict:
+    """The kernel forward (flash attention at any length) against the
+    plain forward of ``params`` (past 2,048 tokens: the banded path for the
+    local layers and the chunked path for the global ones) on ``tokens``
+    with the products in ``compute``: logits within SERVE_LOGIT_TOL (the
+    reference's 2e-2) and the signature within LM_SIG_TOL, when
+    ``checked``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.runtime import Runtime
+    c = dataclasses.replace(cfg, compute_dtype=compute)
+    runs = {}
+    for name, kernels in (("kernel", True), ("plain", False)):
+        with torch.inference_mode(), ScoreMeter() as meter:
+            h, aux = tfm.forward_hidden(params, {"tokens": tokens}, c,
+                                        Runtime(use_kernels=kernels,
+                                                want_signature=True),
+                                        mode="prefill")
+        runs[name] = (h, aux["signature"], meter.calls)
+    (kh, k_sig, k_calls), (ph, p_sig, p_calls) = runs["kernel"], runs["plain"]
+    with torch.inference_mode():
+        logit_err = chunked_logit_err(params, c, kh, ph)
+        sig_err = (k_sig - p_sig).abs().max().item()
+    windows = [spec.window for spec in cfg.layer_specs()]
+    want = {"_banded_attn": sum(w > 0 for w in windows),
+            "_chunked_attn": sum(w <= 0 for w in windows), "_dense_attn": 0}
+    check(all(k_calls[n] == 0 for n in want) and all(
+        p_calls[n] == want[n] for n in want), f"{leg}: score paths "
+          f"{p_calls} of the plain forward, {k_calls} of the kernel "
+          f"forward, expected {want} and none")
+    check(bool(torch.isfinite(kh).all()), f"{leg}: non-finite hidden "
+          f"states ({compute})")
+    if checked:
+        check(logit_err <= SERVE_LOGIT_TOL, f"{leg}: kernel logits differ "
+              f"from the plain forward's by {logit_err} ({compute})")
+        check(sig_err <= LM_SIG_TOL, f"{leg}: kernel signature differs "
+              f"from plain by {sig_err} ({compute})")
+    del runs, kh, ph
+    return {"compute_dtype": compute, "checked": checked,
+            "logits_max_abs_err": logit_err, "signature_max_abs_err": sig_err,
+            "plain_score_paths": {k[1:]: v for k, v in p_calls.items()}}
+
+
+def gemma3_backend_leg(kern, dev) -> list:
+    """gemma3-27b, one published period (5 local layers of window 1,024,
+    then one global) at full width: ``LMBackend.evaluate`` and
+    ``signature`` at batch 2 x 8,192 (flash 6 times a forward on sm90,
+    the local layers' kv loops from the window's first live tile), the
+    kernel forward against the plain forward (banded and chunked) in
+    float32 (checked) and bfloat16 (reported); then, after one warm-up
+    step, 2 steps of ``train_local`` at batch 1 x GEMMA3_TRAIN_SEQ
+    through the banded and chunked paths and the chunked cross-entropy
+    under autograd: the mean loss below the start's, no allocator retry.
+    Returns the backend and training records."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    cfg = gemma3_config()
+    streams, global_test = lm_streams(2)
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2,
+                        batch_size=GEMMA3_BATCH, seq_len=GEMMA3_SEQ)
+    check(backend.device.type == "cuda", "gemma3_backend: backend is not "
+          "on the card")
+    gen = torch.Generator(device=dev)
+    params = backend.init(gen.manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == GEMMA3_PARAMS,
+          f"gemma3_backend: {n_params} parameters, expected {GEMMA3_PARAMS}")
+    with ScoreMeter() as shapes:
+        counted, seconds, accs, peak, plain_calls = backend_calls(
+            kern, "gemma3_backend", cfg, backend, params, streams)
+    windows = sorted(set(shapes.flash))
+    check(windows == [(cfg.head_dim, -1), (cfg.head_dim, 1024)],
+          f"gemma3_backend: flash asked for (head_dim, window) {windows}")
+    tokens = backend._batch(backend._sample(
+        global_test, np.random.default_rng(3), 1)[0])["tokens"]
+    checks = {c: long_forward_check(tfm, cfg, params, tokens, c,
+                                    checked=c == "float32",
+                                    leg="gemma3_backend")
+              for c in ("float32", "bfloat16")}
+    tokens_per_s = GEMMA3_BATCH * GEMMA3_SEQ / (
+        np.mean(seconds["evaluate"]) / 1e3)
+    record = dict(
+        phase="attention_variants_path", leg="gemma3_backend",
+        model=cfg.name, windows=[s.window for s in cfg.layer_specs()],
+        n_params=n_params, batch=GEMMA3_BATCH, seq_len=GEMMA3_SEQ,
+        data_vocab=LM_DATA_VOCAB, evaluate_ms=seconds["evaluate"],
+        signature_ms=seconds["signature"],
+        evaluate_tokens_per_s=tokens_per_s, accuracies=accs,
+        peak_bytes=peak, plain_calls=plain_calls, forward_check=checks,
+        leg_s=time.perf_counter() - t_leg, **counted)
+    emit(**record)
+
+    # local training: the caller's tree goes in and is dropped, so that
+    # train_local's copy, its gradients and SGD's momentum (3 x 15.55 GB)
+    # are what the card holds.  One step first, outside the count, from
+    # the fresh weights: first use of the backward's kernels and the
+    # allocator's pools at this peak; then 2 steps from its result, with
+    # the counts set to 0 just before and read just after
+    seq, steps = GEMMA3_TRAIN_SEQ, 2
+    learner = LMBackend(cfg, lr=3e-3, local_steps=steps, batch_size=1,
+                        seq_len=seq)
+    held = [params]
+    del params
+
+    def run(epochs: int):
+        """train_local from the held tree, which it consumes: (loss, s,
+        the allocator's retries after a failed cudaMalloc, each of which
+        frees the cache and synchronises the card)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t0 = time.perf_counter()
+        trained, loss = learner.train_local(held.pop(), streams[0],
+                                            epochs=epochs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        held.append(trained)
+        return loss, wall, torch.cuda.memory_stats().get(
+            "num_alloc_retries", 0) - retries
+
+    torch.cuda.reset_peak_memory_stats()
+    warm_loss, warm_s, warm_retries = run(1)
+    with torch.no_grad():              # the loss of train_local's 1st batch
+        first = learner._batch(learner._sample(
+            streams[0], np.random.default_rng(0), steps)[0])
+        initial_loss = float(tfm.loss_fn(held[0], first, cfg)[0])
+        del first
+    with PlainMeter(kern) as plain, ScoreMeter() as meter:
+        reset_launches(kern)                       # counts start here
+        loss, wall, retries = run(None)
+        train_counted = read_launches(kern)        # and are read here
+    train_peak = torch.cuda.max_memory_allocated()
+    held.clear()
+    total = check_free("gemma3_train", train_peak)
+    layers = cfg.layer_specs()
+    want = {"_banded_attn": steps * sum(s.window > 0 for s in layers),
+            "_chunked_attn": steps * sum(s.window <= 0 for s in layers),
+            "_dense_attn": 0,
+            # each chunk's forward, and again in its checkpoint's backward
+            "_ce_part": steps * 2 * (seq // tfm._ce_chunk(cfg, 1, seq))}
+    check(meter.calls == want, f"gemma3_train: score paths and CE chunks "
+          f"{meter.calls}, expected {want}")
+    check(not any(train_counted["launches"].values())
+          and not any(plain.calls.values()), f"gemma3_train: launches "
+          f"{train_counted['launches']} (plain {plain.calls}): training "
+          f"runs no kernel")
+    check(np.isfinite(loss) and loss < initial_loss, f"gemma3_train: mean "
+          f"loss {loss} of {steps} steps, from {initial_loss} at the start")
+    check(retries == 0, f"gemma3_train: {retries} allocator retries in the "
+          f"counted steps: their time would measure the allocator")
+    train_record = dict(
+        phase="attention_variants_path", leg="gemma3_train", model=cfg.name,
+        optimizer="sgd", momentum=0.9, batch=1, seq_len=seq, steps=steps,
+        mean_loss=loss, initial_loss=initial_loss, warmup_loss=warm_loss,
+        warmup_ms=1e3 * warm_s, warmup_alloc_retries=warm_retries,
+        ms_per_step=1e3 * wall / steps, tokens_per_s=steps * seq / wall,
+        peak_bytes=train_peak, card_bytes=total, alloc_retries=retries,
+        score_path_calls={k[1:]: v for k, v in meter.calls.items()},
+        plain_calls=plain.calls, **train_counted)
+    emit(**train_record)
+    del backend
+    return [record, train_record]
+
+
+def mrope_positions(B: int, device):
+    """(3, B, 512) M-RoPE ids of MROPE_LAYOUT: text 0..63, the 16 x 24
+    grid at (t, h, w) = (64, 64 + row, 64 + col), then text from the
+    grid's largest id + 1 (88) on."""
+    import torch
+    text, rows, cols, tail = MROPE_LAYOUT
+    r, c = torch.meshgrid(torch.arange(rows), torch.arange(cols),
+                          indexing="ij")
+    head = torch.arange(text)[None].expand(3, text)
+    grid = torch.stack([torch.full((rows * cols,), text),
+                        text + r.reshape(-1), text + c.reshape(-1)])
+    start = text + max(rows, cols)
+    after = torch.arange(start, start + tail)[None].expand(3, tail)
+    pos = torch.cat([head, grid, after], dim=1).to(torch.int32)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous().to(device)
+
+
+def mrope_leg(kern, dev) -> list:
+    """qwen2-vl-72b, one layer at full width: the kernel forward at batch
+    8 x 512 over image-grid M-RoPE positions (one flash and one signature
+    launch, counted), the float32 kernel forward against the plain one,
+    the same batch at text-only positions giving other logits (the
+    sections act), then MROPE_TRAIN_STEPS AdamW steps at
+    ``microbatches=2`` with the grid positions (``_split`` on axis 1).
+    Returns the forward and training records."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    cfg = mrope_config()
+    B = 8
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == MROPE_PARAMS,
+          f"mrope: {n_params} parameters, expected {MROPE_PARAMS}")
+    pipe = TokenPipeline(LM_DATA_VOCAB, B, 512, seed=0)
+    it = iter(pipe)
+    first = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_dict(next(it)).items()}
+    pos = mrope_positions(B, dev)
+    grid = {"tokens": first["tokens"], "positions": pos}
+    rt = Runtime(use_kernels=True, want_signature=True)
+    with torch.inference_mode():
+        tfm.forward(params, grid, cfg, rt, mode="prefill")   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainMeter(kern) as plain:
+            reset_launches(kern)                   # counts start here
+            t0 = time.perf_counter()
+            logits, aux = tfm.forward(params, grid, cfg, rt, mode="prefill")
+            torch.cuda.synchronize()
+            forward_s = time.perf_counter() - t0
+            counted = read_launches(kern)          # and are read here
+    expected = expected_prefill_launches(cfg, prefills=0, signatures=1,
+                                         forwards=1)
+    check(counted["launches"] == expected and counted["flash_routes"]
+          == {"sm90": 1, "fma": 0} and counted["signature_routes"]
+          == {"vec": 1, "strided": 0} and not any(plain.calls.values()),
+          f"mrope: launches {counted} (plain {plain.calls}), expected "
+          f"{expected} on sm90 and vec")
+    check(bool(torch.isfinite(logits).all()), "mrope: non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    check_free("mrope", peak)
+    del logits, aux
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        k32, _ = tfm.forward(params, grid, cfg32, rt, mode="prefill")
+        p32, _ = tfm.forward(params, grid, cfg32, Runtime(want_signature=True),
+                             mode="prefill")
+        err = (k32 - p32).abs().max().item()
+        del p32
+        text, _ = tfm.forward(params, {"tokens": first["tokens"]}, cfg32, rt,
+                              mode="prefill")
+        moved = (text - k32).abs().max().item()
+        moved_rows = (text - k32).abs().amax(-1)[0] > SERVE_LOGIT_TOL
+        del text, k32
+    check(err <= SERVE_LOGIT_TOL, f"mrope: float32 kernel logits differ "
+          f"from the plain forward's by {err}")
+    text_len = MROPE_LAYOUT[0]
+    check(moved > 10 * SERVE_LOGIT_TOL and not bool(
+        moved_rows[:text_len].any()), f"mrope: text-only positions move "
+          f"the logits by {moved}, and the leading text's rows "
+          f"{int(moved_rows[:text_len].sum())} (should be 0): the sections "
+          f"do not act as laid out")
+    record = dict(
+        phase="attention_variants_path", leg="mrope", model=cfg.name,
+        mrope_sections=list(cfg.mrope_sections), layout=list(MROPE_LAYOUT),
+        n_params=n_params, batch=B, seq_len=512, forward_ms=1e3 * forward_s,
+        peak_bytes=peak,
+        tokens_per_s=B * 512 / forward_s, float32_max_abs_err=err,
+        float32_bound=SERVE_LOGIT_TOL, text_positions_max_abs_change=moved,
+        rows_moved=int(moved_rows.sum()), plain_calls=plain.calls,
+        leg_s=time.perf_counter() - t_leg, **counted)
+    emit(**record)
+
+    # training at two microbatches over the grid positions
+    t_leg = time.perf_counter()
+    step, opt = make_train_step(cfg, runtime=Runtime(want_signature=True),
+                                microbatches=2)
+    opt_state = opt.init(params)
+    batches = [first] + [{k: torch.from_numpy(v).to(dev) for k, v in
+                          pipe.batch_dict(next(it)).items()}
+                         for _ in range(MROPE_TRAIN_STEPS - 1)]
+    history = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMeter(kern) as plain:
+        reset_launches(kern)                       # counts start here
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state,
+                                        dict(batch, positions=pos))
+            history.append((float(m["loss"]), time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        train_counted = read_launches(kern)        # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt_state
+    losses = [h[0] for h in history]
+    signatures = 2 * MROPE_TRAIN_STEPS            # one a microbatch
+    check(all(np.isfinite(losses)) and float(np.mean(losses[-3:]))
+          < losses[0], f"mrope_train: losses {losses}")
+    check(train_counted["launches"] == {"signature": signatures, "flash": 0,
+                                        "scan": 0, "mlstm": 0, "slstm": 0}
+          and train_counted["signature_routes"] == {"vec": signatures,
+                                                    "strided": 0}
+          and not any(plain.calls.values()), f"mrope_train: launches "
+          f"{train_counted} (plain {plain.calls})")
+    total = check_free("mrope_train", peak)
+    step_s = [h[1] for h in history]
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    train_record = dict(
+        phase="attention_variants_path", leg="mrope_train", model=cfg.name,
+        optimizer="adamw", moment_dtype=cfg.moment_dtype, microbatches=2,
+        batch=B, seq_len=512, steps=MROPE_TRAIN_STEPS, losses=losses,
+        step_ms=[1e3 * t for t in step_s], ms_per_step=ms,
+        tokens_per_s=B * 512 / (ms / 1e3), peak_bytes=peak, card_bytes=total,
+        plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
+        **train_counted)
+    emit(**train_record)
+    return [record, train_record]
+
+
+def phase_attention_variants_path(kern, dev) -> dict:
+    """The attention variants at full width: gemma3-27b's sliding windows
+    past 2,048 tokens (backend, local training, serving), deepseek-v2's
+    MLA over MoE (backend and serving, and the dense prologue's training)
+    and qwen2-vl-72b's M-RoPE (forwards and training)."""
+    t0 = time.perf_counter()
+    legs = {}
+    for record in gemma3_backend_leg(kern, dev):
+        legs[record["leg"]] = record
+    legs["gemma3_serve"] = serve_leg(
+        kern, dev, "gemma3_serve", gemma3_config(), GEMMA3_PARAMS,
+        batch=GEMMA3_BATCH, prompt_len=GEMMA3_SEQ, new_tokens=GEMMA3_NEW,
+        phase="attention_variants_path")
+    with ScoreMeter() as shapes:
+        legs["mla_backend"] = moe_backend_leg(
+            kern, dev, mla_config(), leg="mla_backend",
+            phase="attention_variants_path", expected_params=MLA_PARAMS)
+    head_dims = sorted(set(hd for hd, _ in shapes.flash))
+    check(head_dims == [192], f"mla_backend: flash asked for head dims "
+          f"{head_dims}, expected MLA's 192")
+    legs["mla_backend"]["flash_head_dims"] = head_dims
+    legs["mla_serve"] = serve_leg(kern, dev, "mla_serve", mla_config(),
+                                  MLA_PARAMS,
+                                  phase="attention_variants_path")
+    legs["mla_train"] = moe_train_leg(kern, dev, mla_prologue_config(),
+                                      leg="mla_train",
+                                      phase="attention_variants_path")
+    for record in mrope_leg(kern, dev):
+        legs[record["leg"]] = record
+    emit(phase="attention_variants_path_done",
+         seconds=time.perf_counter() - t0)
+    return legs
+
+
+def gemma3_config():
+    """gemma3-27b at full width, depth cut to one published period: five
+    local layers of window 1,024, then one global layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    cfg = get_config("gemma3-27b")
+    return dataclasses.replace(cfg, n_layers=6,
+                               stages=(Stage(cfg.stages[0].pattern, 1),))
+
+
+def mla_config():
+    """deepseek-v2-236b at full width, depth cut to its dense prologue
+    layer and one MoE layer (160 experts top-6, 2 shared), both MLA."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    cfg = get_config("deepseek-v2-236b")
+    return dataclasses.replace(cfg, n_layers=2, stages=tuple(
+        Stage(st.pattern, 1) for st in cfg.stages))
+
+
+def mla_prologue_config():
+    """deepseek-v2-236b's dense prologue alone: MLA and a dense FFN."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-236b")
+    return dataclasses.replace(cfg, n_layers=1, stages=cfg.stages[:1])
+
+
+def mrope_config():
+    """qwen2-vl-72b at full width, depth cut to one layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    cfg = get_config("qwen2-vl-72b")
+    return dataclasses.replace(cfg, n_layers=1,
+                               stages=(Stage(cfg.stages[0].pattern, 1),))
 
 
 def lm_config():
@@ -3745,8 +4421,9 @@ def main() -> None:
     serving = phase_serving_path(kern, dev, cnn["sim_time"],
                                  lm["sim_time"])
     moe = phase_moe_path(kern, dev)
+    variants = phase_attention_variants_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe}
+             **serving, **moe, **variants}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -3772,6 +4449,14 @@ def main() -> None:
     flash_record["launches_by_route"] = {
         name: p["flash_routes"] for name, p in paths.items()
         if p["launches"]["flash"]}
+    # the variants' shapes: gemma3's launches by the window they ran at
+    # (each leg gates them against its layers), MLA's every launch
+    for row, legs, window in (("gemma3_local", "gemma3_", 1024),
+                              ("gemma3_global", "gemma3_", -1),
+                              ("mla", "mla_", -1)):
+        flash_record[row]["launches"] = sum(
+            p["flash_windows"].get(window, 0) for name, p in paths.items()
+            if name.startswith(legs))
     for width in sig_record["widths"]:
         # every CNN path signs at the CNN width, the MoE legs at Jamba's
         prefixes = (width["path"],) + (("moe",) if width["path"] == "hybrid"

@@ -2,14 +2,20 @@
 
 ``get_config(arch_id)`` returns the configs whose every feature the port's
 transformer runs: the dense GQA decoders ``internlm2-1.8b``, ``qwen2-7b``
-(QKV bias) and ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
-embeddings, GeLU), the recurrent ``xlstm-125m`` (mLSTM and sLSTM blocks,
-layer norms with biases, no feed-forward sublayer), the hybrid
-``jamba-v0.1-52b`` (Mamba and attention blocks, dense and mixture-of-experts
-feed-forward layers), and ``llama4-maverick-400b-a17b`` (dense and MoE
-layers interleaved, 128 routed experts top-1 and a shared expert).  The
-reference's other arch ids raise ``NotImplementedError`` naming the blocks
-the port lacks for them.
+(QKV bias), ``gemma2-2b`` (soft-caps, sliding windows, tied and scaled
+embeddings, GeLU) and ``gemma3-27b`` (five local layers of window 1,024 to
+one global, the sliding-window and chunked score paths past 2,048 tokens),
+``qwen2-vl-72b`` (M-RoPE over (temporal, height, width) positions; its
+vision tower is a stub in the reference), the recurrent ``xlstm-125m``
+(mLSTM and sLSTM blocks, layer norms with biases, no feed-forward
+sublayer), the hybrid ``jamba-v0.1-52b`` (Mamba and attention blocks,
+dense and mixture-of-experts feed-forward layers),
+``llama4-maverick-400b-a17b`` (dense and MoE layers interleaved, 128
+routed experts top-1 and a shared expert) and ``deepseek-v2-236b`` (MLA
+attention, a dense prologue layer, then 160 routed experts top-6 and 2
+shared).  The configs are the reference's as they are, with what they
+leave out of the published models.  ``whisper-medium`` raises
+``NotImplementedError`` naming the blocks the port lacks for it.
 """
 from __future__ import annotations
 
@@ -26,14 +32,13 @@ _ARCH_MODULES = {
     "jamba-v0.1-52b": "jamba_v01_52b",
     "xlstm-125m": "xlstm_125m",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "gemma3-27b": "gemma3_27b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 _UNPORTED = {
     "whisper-medium": "the audio encoder and decoder cross-attention",
-    "gemma3-27b": "the banded sliding-window path beyond 2048 tokens "
-                  "(its config is not copied yet)",
-    "qwen2-vl-72b": "M-RoPE",
-    "deepseek-v2-236b": "MLA attention",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -3,12 +3,13 @@
 ``CNNBackend`` is the paper-faithful path: VGG-family clients on image data
 with exact Eq. 3 zero-count signatures, which go through the signature
 kernel on the card.  ``LMBackend`` federates a transformer on token
-streams (the dense GQA decoders, Jamba's hybrid of Mamba and attention
+streams (the dense GQA decoders, with sliding windows past 2,048 tokens
+or M-RoPE, MLA over MoE layers, Jamba's hybrid of Mamba and attention
 blocks, or xLSTM's mLSTM and sLSTM blocks): its eval and signature
 forwards run the flash attention, selective scan, chunkwise mLSTM, sLSTM
 and bucketed signature kernels on the card, and its local training runs
-under autograd on the plain attention and the models' own scans (the
-kernels have no gradient, as in the reference).
+under autograd on the plain attention paths and the models' own scans
+(the kernels have no gradient, as in the reference).
 
 Both run on the CUDA card unless ``device`` says otherwise, and raise where
 there is no card and no device was given.  Batches are drawn with the

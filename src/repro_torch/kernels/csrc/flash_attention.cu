@@ -38,7 +38,8 @@
 //   - Blocks are launched last query tile first: under a causal mask those
 //     have the longest kv loops, and starting them first shortens the tail.
 // Shared memory: (3 * 64 * (hd + 4) + 64 * 68) * 4 bytes: 116 KB at hd 128,
-// 212 KB at hd 256, so one block (8 warps) per SM.  Both exceed the 48 KB
+// 164 KB at hd 192 (MLA's 128 + 64), 212 KB at hd 256, so one block
+// (8 warps) per SM.  Both exceed the 48 KB
 // default, so the host code raises the limit with cudaFuncSetAttribute once
 // per instantiation.
 //
@@ -188,7 +189,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int OC = HD / 16;         // output columns per thread
   constexpr int W = OC >= 4 ? 4 : OC; // floats per output chunk
   constexpr int NC = OC / W;          // output chunks per thread
-  static_assert(HD % 32 == 0 && OC % W == 0, "head_dim 32, 64, 128 or 256");
+  static_assert(HD % 32 == 0 && OC % W == 0,
+                "head_dim 32, 64, 128, 192 or 256");
 
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -196,8 +198,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + BK * RS;
   float* Ps = Vs + BK * RS;
 
-  // 16-byte loads with the next tile in flight; at head_dim 256 the
-  // registers that takes are not there, and the loads go one by one
+  // 16-byte loads with the next tile in flight; at head_dim 192 and 256
+  // the registers that takes are not there, and the loads go one by one
   aligned = aligned && HD <= 128;
   // the last query tiles (the longest causal kv loops) start first
   const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -403,6 +405,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                            window, softcap, aligned, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, K, S, strides, scale, causal,
+                            window, softcap, aligned, stream);
+    case 192:
+      return launch<T, 192>(q, k, v, o, B, H, K, S, strides, scale, causal,
                             window, softcap, aligned, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, H, K, S, strides, scale, causal,

@@ -31,11 +31,11 @@
 //   - a producer (setmaxnreg down to 40 registers) whose one thread issues
 //     every TMA load: each item's Q (128 x hd) into one of two Q buffers
 //     (one at hd 256), so the next item's Q arrives while this one runs;
-//     K and V tiles of BN keys (128; 64 at hd 256) through two rings of
-//     their own, 2 stages each, on full/empty mbarriers.  4-D tensor maps
-//     over (hd, heads, S, B) with byte strides, boxes of 64 columns (32 at
-//     hd 32) and the matching 128-byte (64-byte) swizzle; rows past S
-//     arrive as zeros and the masks do the rest.
+//     K and V tiles of BN keys (128; 64 at hd 192 and 256) through two
+//     rings of their own, 2 stages each, on full/empty mbarriers.  4-D
+//     tensor maps over (hd, heads, S, B) with byte strides, boxes of 64
+//     columns (32 at hd 32) and the matching 128-byte (64-byte) swizzle;
+//     rows past S arrive as zeros and the masks do the rest.
 //   - two consumers (setmaxnreg up to 232) of 64 query rows each.  S = Q K^T
 //     is wgmma m64nBNk16 f32 += bf16 . bf16 with Q and K from shared memory
 //     (both K-major).  The softmax runs in registers in the accumulator's
@@ -59,7 +59,10 @@
 //     (rows past S are dropped); then the Q buffer goes back to the
 //     producer.
 // Shared memory: 2 x Q 32 KB + 2 x K 32 KB + 2 x V 32 KB = 192 KB at
-// hd 128, 192 KB at hd 256: one block per SM, above the 48 KB default.
+// hd 128; at hd 192 (MLA: 128 nope + 64 rope, v padded to 192) 2 x Q
+// 48 KB + 2 x K 24 KB + 2 x V 24 KB = 192 KB, three 64-column TMA boxes a
+// row and one m64n192k16 product per 16 keys of P V; 192 KB at hd 256
+// (one Q buffer): one block per SM, above the 48 KB default.
 //
 // Where bfloat16 rounding enters: q, k and v are bfloat16, and their
 // products are exact in float32; P is rounded to bfloat16 before P.V (at
@@ -84,7 +87,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  static constexpr int BN = HD == 256 ? 64 : 128;   // keys per kv tile
+  static constexpr int BN = HD >= 192 ? 64 : 128;   // keys per kv tile
   static constexpr int STAGES = 2;                  // K ring and V ring
   static constexpr int Q_BUFS = HD == 256 ? 1 : 2;  // Q tiles in flight
   static constexpr int CB = HD < 64 ? HD : 64;      // columns per TMA box
@@ -379,6 +382,55 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 192] += A[64 x 16] . B[16 x 192], A from registers (four bf16 pairs
+// a thread, in the accumulator's layout), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (four bf16 pairs
 // a thread, in the accumulator's layout), B from shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -472,6 +524,8 @@ __device__ __forceinline__ void pv_product(
                                   T::LAYOUT, T::BN * T::ROW);
     if constexpr (HD == 256)
       wgmma_rs_n256(acc, p[kk], dv);
+    else if constexpr (HD == 192)
+      wgmma_rs_n192(acc, p[kk], dv);
     else if constexpr (HD == 128)
       wgmma_rs_n128(acc, p[kk], dv);
     else if constexpr (HD == 64)
@@ -891,6 +945,9 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                         window, softcap, s);
     case 128:
       return launch<128>(q, k, v, o, B, H, K, S, strides, scale, causal,
+                         window, softcap, s);
+    case 192:
+      return launch<192>(q, k, v, o, B, H, K, S, strides, scale, causal,
                          window, softcap, s);
     case 256:
       return launch<256>(q, k, v, o, B, H, K, S, strides, scale, causal,

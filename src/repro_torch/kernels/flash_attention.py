@@ -26,7 +26,8 @@ contiguous), so a ``(B, S, H, hd)`` tensor viewed as ``(B, H, S, hd)`` goes
 in without a copy, and the output has the strides of q.  There is no
 gradient: the wrapper raises when grad mode is on and an input requires
 grad.  ``launches`` counts kernel launches, ``launches_sm90`` and
-``launches_fma`` those of each route.
+``launches_fma`` those of each route, and ``launches_by_window`` those of
+each sliding window (-1 for none).
 """
 from __future__ import annotations
 
@@ -42,10 +43,11 @@ from repro_torch.kernels import build
 launches = 0
 launches_sm90 = 0
 launches_fma = 0
+launches_by_window: dict = {}
 
 _NEG = -2.0e9
 _LOG2E = float(np.float32(1.4426950408889634))
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)   # 192: MLA's nope 128 + rope 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -238,6 +240,8 @@ def _dispatch(q, k, v, out, which: str, causal: bool, window: int,
                            "failed: "
                            + lib.repro_cuda_error_string(err).decode())
     launches += 1
+    w = int(window) if window > 0 else -1
+    launches_by_window[w] = launches_by_window.get(w, 0) + 1
     if which == "sm90":
         launches_sm90 += 1
     else:

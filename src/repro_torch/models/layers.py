@@ -11,9 +11,8 @@ Conventions, as in the reference:
   softmax, norms and losses run in float32.
 
 Means whose value the reference computes under ``jax.jit`` (the RMS norm's
-variance, the loss, the signature's buckets) multiply a float32 sum by the
+variance, the signature's buckets) multiply a float32 sum by the
 float32 reciprocal of the count (:func:`repro_torch.core.aggregate.f32_mean`).
-M-RoPE is not ported.
 """
 from __future__ import annotations
 
@@ -144,12 +143,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, int, int]] = None
                ) -> torch.Tensor:
     """Rotary embedding.  x: (..., S, n_heads, head_dim); positions: (B, S)
-    integers (or (3, B, S), whose first row a text stream uses)."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported")
+    integers, or (3, B, S) for M-RoPE (temporal, height and width ids;
+    without sections the first row is used).
+
+    M-RoPE (Qwen2-VL): section i of the half-dim frequencies (16, 24 and
+    24 of qwen2-vl-72b's 64) turns with position row i; (B, S) positions
+    (a text-only stream) turn all three alike, which is plain RoPE."""
     inv = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
-    pos = positions if positions.dim() == 2 else positions[0]
-    ang = pos[..., None].float() * inv                      # (B, S, half)
+    if mrope_sections is None:
+        pos = positions if positions.dim() == 2 else positions[0]
+        ang = pos[..., None].float() * inv                  # (B, S, half)
+    else:
+        if positions.dim() == 2:                            # text only
+            positions = positions[None].expand(3, *positions.shape)
+        parts, start = [], 0
+        for sec, p in zip(mrope_sections, positions):
+            parts.append(p[..., None].float() * inv[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                      # (B, S, half)
     ang = torch.cat([ang, ang], dim=-1)                     # (B, S, hd)
     cos = torch.cos(ang)[..., None, :]                      # (B, S, 1, hd)
     sin = torch.sin(ang)[..., None, :]
@@ -182,24 +193,6 @@ def unembed(params, x: torch.Tensor, compute_dtype,
     else:
         logits = xc @ params["embedding"].to(compute_dtype).T
     return softcap(logits.float(), final_cap)
-
-
-# ---------------------------------------------------------------------------
-# losses
-# ---------------------------------------------------------------------------
-
-
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token CE in f32. logits (B,S,V), labels (B,S) integers."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
-    if mask is None:
-        return f32_mean(nll)
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Staged decoder assembled from an ArchConfig (port of
-``repro.models.transformer``: the dense GQA path, Jamba's hybrid of
-Mamba and attention blocks, and xLSTM's mLSTM and sLSTM blocks).
+``repro.models.transformer``: the dense GQA path with sliding windows past
+2,048 tokens and M-RoPE, MLA attention, Jamba's hybrid of Mamba and
+attention blocks, and xLSTM's mLSTM and sLSTM blocks).
 
 The layer stack is organised as *stages*, as in the reference: each stage
 is a repeating pattern of blocks whose parameters are stacked along a
@@ -34,6 +35,7 @@ place: ``decode_step`` returns the caches it was given.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.aggregate import tree_map
@@ -42,10 +44,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
-                                       embed_tokens, init_embedding,
-                                       init_mlp, init_norm, torch_dtype,
-                                       unembed)
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+                                       init_embedding, init_mlp, init_norm,
+                                       torch_dtype, unembed)
 from repro_torch.runtime import DEFAULT, Runtime
 
 
@@ -248,6 +249,17 @@ def _embed(params, tokens, cfg: ArchConfig):
     return x
 
 
+def _positions_for(cfg: ArchConfig, batch, B: int, S: int, device):
+    """The batch's positions, else 0..S-1 for every row: (B, S), or
+    (3, B, S) for M-RoPE (a text stream's three ids alike)."""
+    if batch.get("positions") is not None:
+        return batch["positions"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
 def forward_hidden(params, batch, cfg: ArchConfig,
                    runtime: Runtime = DEFAULT, collect_cache: bool = False,
                    mode: str = "train"):
@@ -263,10 +275,7 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
+    positions = _positions_for(cfg, batch, B, S, tokens.device)
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
@@ -306,15 +315,55 @@ def forward(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT,
     return logits, aux
 
 
+def _ce_chunk(cfg: ArchConfig, B: int, S: int) -> int:
+    """The reference's sequence chunk of the cross-entropy: float32 logits
+    of about 32 GB or less over the whole batch, a power of two from 64 to
+    1,024 that divides S (halved until it does, down to 1)."""
+    c = int(32e9 / (4.0 * B * cfg.vocab_size))
+    c = max(64, min(1024, 1 << (c.bit_length() - 1) if c > 0 else 64))
+    while S % c:
+        c //= 2
+        if c < 1:
+            return S
+    return c
+
+
+def _ce_part(embed, h, labels, mask, cfg: ArchConfig):
+    """One sequence chunk's masked CE sum and mask count, float32: the
+    unembedding, the logsumexp and the label's logit."""
+    logits = unembed(embed, h, torch_dtype(cfg.compute_dtype),
+                     cfg.final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((logz - ll) * mask).sum(), mask.sum()
+
+
 def loss_fn(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
     """Mean next-token cross-entropy over the (optionally masked) labels.
 
-    The reference runs the unembedding and the cross-entropy per sequence
-    chunk to bound its float32 logits; at the port's sizes the whole
-    (B,S,V) float32 logits fit, so they are formed at once (1.5 GB at
-    internlm2's 92,544 tokens, batch 8, 512 positions)."""
-    logits, aux = forward(params, batch, cfg, runtime)
-    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    As in the reference, the unembedding and the cross-entropy run per
+    sequence chunk (``_ce_chunk``), each under ``torch.utils.checkpoint``
+    under autograd where there are several, so the whole (B,S,V) float32
+    logits never exist: at gemma3-27b's 262,144-token vocabulary they take
+    4.3 GB a 4,096-token row before their gradient.  (One chunk's logits
+    are held at the backward's peak either way, so a single chunk runs
+    without the recompute.)  The loss is the masked sum over the count,
+    ``tot / max(cnt, 1)``, plus the MoE layers' router losses."""
+    h, aux = forward_hidden(params, batch, cfg, runtime)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    mask = torch.ones(labels.shape, device=h.device) if mask is None \
+        else mask.float()
+    C = _ce_chunk(cfg, *h.shape[:2])
+    track = torch.is_grad_enabled() and h.requires_grad and C < h.shape[1]
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, h.shape[1], C):
+        args = (params["embed"], h[:, c:c + C], labels[:, c:c + C],
+                mask[:, c:c + C], cfg)
+        t, n = (checkpoint(_ce_part, *args, use_reentrant=False) if track
+                else _ce_part(*args))
+        tot, cnt = tot + t, cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
     aux = dict(aux)
     aux["ce_loss"] = loss
     return loss + aux["moe_aux"], aux
@@ -360,7 +409,8 @@ def decode_step(params, token, caches, pos: int, cfg: ArchConfig,
 def _cache_seq_len(stage_cache, pattern, cfg: ArchConfig) -> int:
     """The sequence length a stage's attention caches were built for (0
     for a stage without attention)."""
+    key = "ckv" if cfg.mla is not None else "k"
     for j, spec in enumerate(pattern):
         if spec.kind == "attn":
-            return stage_cache[f"l{j}"]["k"].shape[2]
+            return stage_cache[f"l{j}"][key].shape[2]
     return 0

@@ -19,10 +19,12 @@ reference's update and ``apply_updates``):
   (an explicit ``fmadd``) and its CUDA kernel (contracted by nvcc)
   compute with one rounding: ``p + (-lr) * d``, ``g + wd * p``,
   ``mu * momentum + g``, ``d + wd * p`` and the moments.  Which product
-  XLA fuses depends on the program: the stored AdamW moments take
-  ``fma(m, b1, (1 - b1) * g)``, and with bfloat16 moments the update
-  recomputes them as ``fma(g, 1 - b1, m * b1)`` from the unrounded
-  inputs (read from the optimized HLO and confirmed bit for bit);
+  XLA fuses depends on the moments' type: float32 moments take
+  ``fma(m, b1, (1 - b1) * g)``, bfloat16 ones ``fma(g, 1 - b1, m * b1)``,
+  both in the update and in the stored moments, which are that float32
+  value rounded once to bfloat16 (the optimized HLO holds the same
+  ``m * b1 + g * (1 - b1)`` for both; LLVM's contraction picks the
+  product, confirmed bit for bit);
 - XLA rewrites ``mhat / (sqrt(vhat) + eps)`` as ``m / (bc1 * (sqrt(v /
   bc2) + eps))``; the divisions are true divisions by a tensor (on the
   card PyTorch divides by a host scalar as a multiply by its
@@ -201,18 +203,17 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             g = g.float()
             g2 = g.square()
             m32, v32 = m.float(), v.float()
-            m_new = (g * (1 - b1)).add_(m32, alpha=b1)
-            v_new = (g2 * (1 - b2)).add_(v32, alpha=b2)
             if narrow:
-                # the update's own fusion of the unrounded moments
-                m_use = (m32 * b1).add_(g, alpha=1 - b1)
-                v_use = (v32 * b2).add_(g2, alpha=1 - b2)
+                # XLA fuses the other product of each moment
+                m_new = (m32 * b1).add_(g, alpha=1 - b1)
+                v_new = (v32 * b2).add_(g2, alpha=1 - b2)
             else:
-                m_use, v_use = m_new, v_new
+                m_new = (g * (1 - b1)).add_(m32, alpha=b1)
+                v_new = (g2 * (1 - b2)).add_(v32, alpha=b2)
             m.copy_(m_new)
             v.copy_(v_new)
-            denom = _sqrt(_div(v_use, bc2)).add_(eps).mul_(bc1)
-            d = m_use.div_(denom)
+            denom = _sqrt(_div(v_new, bc2)).add_(eps).mul_(bc1)
+            d = m_new.div_(denom)
             return d.add_(p.float(), alpha=weight_decay) if weight_decay \
                 else d
 

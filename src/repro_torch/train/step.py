@@ -38,11 +38,14 @@ def default_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
 
 
 def _split(leaf: torch.Tensor, n: int):
-    """A batch leaf cut into ``n`` microbatches along its batch axis."""
-    if leaf.shape[0] % n:
-        raise ValueError(f"batch {leaf.shape[0]} does not split into {n} "
-                         f"microbatches")
-    return leaf.chunk(n)
+    """A batch leaf cut into ``n`` microbatches along its batch axis: axis
+    1 of M-RoPE's (3, B, S) positions, as the reference reads them (a
+    3-D leaf of 3 rows), else axis 0."""
+    axis = 1 if leaf.dim() == 3 and leaf.shape[0] == 3 else 0
+    if leaf.shape[axis] % n:
+        raise ValueError(f"batch {leaf.shape[axis]} does not split into "
+                         f"{n} microbatches")
+    return leaf.chunk(n, dim=axis)
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
@@ -52,8 +55,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
     returns (params, opt_state, metrics) with ``loss``, ``ce_loss``,
     ``moe_aux``, ``grad_norm`` and, with ``runtime.want_signature``,
     ``signature``.  ``microbatches > 1`` splits the batch and accumulates
-    the gradients in float32, as the reference's scan does, and takes
-    their mean by the float32 reciprocal, as its jitted ``/ n``."""
+    the gradients in float32 (the masters' ``.grad``, in place), as the
+    reference's scan does, and takes their mean by the float32
+    reciprocal, as its jitted ``/ n``."""
     opt = optimizer or default_optimizer(cfg)
     compute = torch_dtype(cfg.compute_dtype)
 
@@ -64,41 +68,46 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
                         if a.is_floating_point() and a.dtype != compute
                         else a, p)
 
-    def grads_of(params, batch):
-        for p in tree_leaves(params):
-            p.grad = None
+    def backward(params, batch):
+        """The batch's loss backward: its float32 gradient added into the
+        float32 masters' ``.grad``."""
         loss, aux = tfm.loss_fn(cast_params(params), batch, cfg, runtime)
         loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def take_grads(params):
         grads = tree_map(lambda p: p.grad, params)
         for p in tree_leaves(params):
             p.grad = None          # held by the tree alone: freed once used
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+        return grads
 
     def train_step(params, opt_state, batch):
         for p in tree_leaves(params):
             p.requires_grad_(True)
+            p.grad = None
         if microbatches == 1:
-            loss, aux, grads = grads_of(params, batch)
+            loss, aux = backward(params, batch)
+            grads = take_grads(params)
         else:
+            # each microbatch's gradient is added into ``.grad`` in place,
+            # the reference's float32 ``gsum + g`` without a second tree
             pieces = {k: _split(v, microbatches) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, device=p.device),
-                             params)
             loss = torch.zeros((), device=tree_leaves(params)[0].device)
             aux_sum = {"ce_loss": torch.zeros_like(loss),
                        "moe_aux": torch.zeros_like(loss)}
             sigs = []
             for i in range(microbatches):
                 mb = {k: v[i] for k, v in pieces.items()}
-                mb_loss, mb_aux, g = grads_of(params, mb)
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                mb_loss, mb_aux = backward(params, mb)
                 loss = loss + mb_loss
                 aux_sum = {k: aux_sum[k] + mb_aux[k] for k in aux_sum}
                 if "signature" in mb_aux:
                     sigs.append(mb_aux["signature"])
+            grads = take_grads(params)
             # the jitted reference's ``/ n`` is a multiply by the float32
             # reciprocal of n
             inv = float(np.float32(1) / np.float32(microbatches))
-            grads = tree_map(lambda g: g * inv, grads)
+            grads = tree_map(lambda g: g.mul_(inv), grads)
             loss = loss * inv
             aux = {k: v * inv for k, v in aux_sum.items()}
             if sigs and runtime.want_signature:

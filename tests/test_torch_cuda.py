@@ -142,6 +142,16 @@ FLASH_CASES = [
     (2, 4, 2, 192, 64, True, -1, 0.0, torch.bfloat16),
     (1, 2, 1, 300, 256, True, 256, 50.0, torch.bfloat16),
     (8, 16, 8, 512, 128, True, -1, 0.0, torch.bfloat16),
+    # MLA's head dim (128 nope + 64 rope), one KV head per query head
+    (2, 4, 4, 300, 192, True, -1, 0.0, torch.float32),
+    (1, 4, 2, 260, 192, True, 48, 30.0, torch.float32),
+    (2, 4, 4, 300, 192, True, -1, 0.0, torch.bfloat16),
+    # past the dense path's 2,048 tokens, ragged, with gemma3's window of
+    # 1,024 and without
+    (1, 4, 2, 4100, 128, True, 1024, 0.0, torch.float32),
+    (1, 4, 2, 4100, 128, True, -1, 0.0, torch.float32),
+    (1, 4, 2, 4100, 128, True, 1024, 0.0, torch.bfloat16),
+    (1, 4, 2, 4100, 128, True, -1, 0.0, torch.bfloat16),
 ]
 
 
@@ -171,6 +181,9 @@ FLASH_TC_TOL = {"atol": 2e-3, "rtol": 2 ** -7}     # as chip_smoke.py's
 SM90_CASES = [c[:8] for c in FLASH_CASES if c[8] == torch.bfloat16] + [
     (1, 4, 2, 300, 128, True, -1, 0.0),            # ragged S
     (2, 4, 4, 77, 32, False, -1, 0.0),             # S under one tile
+    (1, 4, 2, 260, 192, True, 48, 30.0),           # hd 192: window, cap
+    (1, 2, 2, 100, 192, False, -1, 0.0),
+    (2, 128, 128, 512, 192, True, -1, 0.0),        # MLA's shape, batch 2
 ]
 
 
@@ -217,7 +230,8 @@ def test_flash_sm90_kernel_reads_the_fused_qkv_view(card):
 def test_flash_route_counters(card):
     """float32 and bfloat16 views that TMA cannot address (a base moved by
     2 bytes) take the FMA kernel; aligned bfloat16 the Hopper kernel; each
-    launch moves its route's counter and the total."""
+    launch moves its route's counter and the total, and its window's (-1
+    for none, a window of 0 among them)."""
     g = torch.Generator(device=card).manual_seed(11)
     raw = torch.randn((1, 128, 6, 72), generator=g, device=card)
     views = {"sm90": raw[..., :64].to(torch.bfloat16),
@@ -238,16 +252,25 @@ def test_flash_route_counters(card):
         tol = 2e-2 if x.dtype == torch.bfloat16 else 2e-5
         torch.testing.assert_close(got.float(), want_out.float(), rtol=tol,
                                    atol=tol)
+    q, k, v = (views["sm90"][:, :, i:j] for i, j in ((0, 4), (4, 5), (5, 6)))
+    before = dict(fa.launches_by_window)
+    for window in (16, 0, -1, 16):
+        ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    moved = {w: n - before.get(w, 0) for w, n in
+             fa.launches_by_window.items()}
+    assert {w: n for w, n in moved.items() if n} == {16: 2, -1: 2}
 
 
 def test_flash_sm90_build_has_no_spills(card):
     """nvcc's -Xptxas -v report for the Hopper kernel: every head_dim's
-    instantiation without spills, and setmaxnreg not ignored."""
+    instantiation (32, 64, 128, 192, 256) without spills, and setmaxnreg
+    not ignored."""
     from repro_torch.kernels import build
     build.build(["flash_attention_sm90"])
     log = build.log_path("flash_attention_sm90").read_text()
     spills = [line for line in log.splitlines() if "spill" in line]
-    assert len(spills) == 4, log
+    assert len(spills) == len(fa.HEAD_DIMS) == 5, log
     assert all("0 bytes spill stores, 0 bytes spill loads" in line
                for line in spills), log
     assert "setmaxnreg ignored" not in log, log
@@ -263,6 +286,76 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     r = torch.zeros((1, 2, 8, 32), device=card, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         fa.flash_attention_bhsd(r, r, r)
+
+
+@pytest.mark.parametrize("path", ["banded", "chunked"])
+def test_long_attention_paths_on_card_equal_cpu(card, path):
+    """The plain score paths past 2,048 tokens in float32 on the card
+    against the CPU's at S = 2,500 (ragged: a padded query block, a
+    padded KV chunk): within the reference's 2e-5 between paths (float32
+    sums in another order)."""
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2500, n, 64))
+                                .astype(np.float32)) for n in (4, 2, 2))
+    pos = torch.arange(2500, dtype=torch.int32)
+    out = []
+    for dev in ("cpu", card):
+        args = [t.to(dev) for t in (q, k, v, pos, pos)]
+        with torch.no_grad():
+            out.append(A._banded_attn(*args, 1024, 0.0) if path == "banded"
+                       else A._chunked_attn(*args, True, 0.0))
+    assert out[1].is_cuda and out[1].shape == (1, 2500, 4, 64)
+    torch.testing.assert_close(out[1].cpu(), out[0], rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("path", ["banded", "chunked"])
+def test_long_attention_path_gradients_on_card_equal_cpu(card, path):
+    """The plain score paths' backward past 2,048 tokens (each query block
+    or KV chunk under its checkpoint, as training runs them) in float32
+    on the card against the CPU's at S = 2,500: the output and the
+    gradients of q, k and v of a weighted sum, within 1e-4 (float32 sums
+    over up to 2,500 keys, and over the query heads of a KV head, in
+    another order)."""
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2500, n, 64))
+                                .astype(np.float32)) for n in (4, 2, 2))
+    w = torch.from_numpy(rng.standard_normal((1, 2500, 4, 64))
+                         .astype(np.float32))
+    pos = torch.arange(2500, dtype=torch.int32)
+    got = []
+    for dev in ("cpu", card):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (q, k, v)]
+        args = (*leaves, pos.to(dev), pos.to(dev))
+        out = (A._banded_attn(*args, 1024, 0.0) if path == "banded"
+               else A._chunked_attn(*args, True, 0.0))
+        (out * w.to(dev)).sum().backward()
+        got.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got[1], got[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4, msg=name)
+
+
+def test_gemma3_cut_plain_forward_on_card_equals_cpu(card):
+    """A reduced gemma3 of one local (window 1,024) and one global layer
+    at S = 2,500 in float32: the banded and chunked paths, the card's
+    logits within 1e-4 of the CPU's (two layers of float32 products in
+    another order)."""
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(
+        reduced(get_config("gemma3-27b"), d_model=64),
+        stages=(Stage((LayerSpec(window=1024), LayerSpec()), 1),))
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 2500)).astype(np.int32))
+    out = []
+    for dev in ("cpu", card):
+        with torch.no_grad():
+            logits, _ = tfm.forward(tree_map(lambda a: a.to(dev), params),
+                                    {"tokens": tokens.to(dev)}, cfg)
+        out.append(logits.cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=0, atol=1e-4)
 
 
 def test_lm_backend_signature_launches_both_kernels(card):
@@ -1033,9 +1126,10 @@ def test_serve_prefill_kernels_equal_plain_on_card(card, family):
                                   "adamw_bf16"])
 def test_optimizer_steps_on_card_equal_cpu(card, name):
     """Four optimizer steps on 4,096 float32 parameters on the card equal
-    the same steps on the CPU bit for bit (the CPU's equal the jitted
-    reference's, ``test_torch_train.py``): CUDA's ``add`` with ``alpha``
-    is one fused multiply-add, as the CPU kernel's."""
+    the same steps on the CPU bit for bit, the parameters and the stored
+    moments (float32, and bfloat16 with ``adamw_bf16``; the CPU's equal
+    the jitted reference's, ``test_torch_train.py``): CUDA's ``add`` with
+    ``alpha`` is one fused multiply-add, as the CPU kernel's."""
     from repro_torch.optim import optimizers as topt
     make = {"sgd": lambda: topt.sgd(0.05),
             "sgd_momentum": lambda: topt.sgd(0.05, 0.9, 0.01),
@@ -1053,8 +1147,15 @@ def test_optimizer_steps_on_card_equal_cpu(card, name):
         for g in grads:
             upd, state = opt.update(g.to(device), state, p)
             topt.apply_updates(p, upd)
-        out.append(p.cpu())
-    assert torch.equal(out[0], out[1])
+        out.append((p.cpu(), {k: v.cpu() for k, v in state.items()
+                              if isinstance(v, torch.Tensor)}))
+    (p_cpu, s_cpu), (p_card, s_card) = out
+    assert torch.equal(p_cpu, p_card)
+    # the stored moments too (bfloat16 with ``adamw_bf16``)
+    assert sorted(s_cpu) == sorted(s_card)
+    for key in s_cpu:
+        assert s_card[key].dtype == s_cpu[key].dtype
+        assert torch.equal(s_cpu[key], s_card[key]), key
 
 
 @pytest.mark.parametrize("generous", [False, True])

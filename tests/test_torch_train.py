@@ -12,10 +12,11 @@ reasons:
   torch's, a unit apart, and ``1 + cos`` near the end of a cosine cancels;
 * clipping: 1e-6 -- float32 sums of squares in another order;
 * optimizer updates against the jitted reference (its fused multiply-adds
-  and its divisions): bit for bit at a constant learning rate; 1e-6
-  through the warm-up cosine schedule, whose float32 ``cos`` is another
-  implementation than torch's; bfloat16 moments: one bfloat16 unit where
-  the float32 value before the cast sits on a rounding boundary;
+  and its divisions): bit for bit at a constant learning rate, with
+  float32 and with bfloat16 moments; 1e-6 through the warm-up cosine
+  schedule, whose float32 ``cos`` is another implementation than torch's,
+  and there bfloat16 moments one bfloat16 unit apart where the float32
+  value before the cast sits on a rounding boundary;
 * three train steps of reduced internlm2 in float32 (microbatches 1, 2
   and 3), and of the reduced MoE configs (microbatches 1 and 3):
   loss and ``grad_norm`` within 1e-5, parameters within 1e-5 (internlm2)
@@ -243,6 +244,33 @@ def test_adamw_equals_jitted_reference_bits(moments, weight_decay):
     for key in ("m", "v"):
         assert np.array_equal(ts[key].float().numpy(),
                               np.asarray(js[key].astype(jnp.float32)))
+
+
+def test_adamw_bfloat16_moments_equal_jitted_reference_bits():
+    """The stored bfloat16 moments are the float32 ``fma(g, 1 - b, m * b)``
+    rounded once, as XLA:CPU contracts the moments of a bfloat16-moment
+    program: on leaves of 4,096 and 6,000 parameters over 4 steps, every
+    stored ``m`` and ``v`` and every parameter bit for bit (the other
+    product, ``fma(m, b1, (1 - b1) * g)``, put ``m`` of ``b`` at index
+    5,374 one bfloat16 unit off after step 4)."""
+    def tree(seed, scale=1.0):
+        r = np.random.default_rng(seed)
+        return {"a": (r.standard_normal(4096) * scale).astype(np.float32),
+                "b": (r.standard_normal(6000) * scale).astype(np.float32)}
+
+    jp, js, tp, ts = _run_optimizer(
+        lambda: jopt.adamw(1e-2, weight_decay=0.1, moment_dtype=jnp.bfloat16),
+        lambda: topt.adamw(1e-2, weight_decay=0.1,
+                           moment_dtype=torch.bfloat16),
+        params=tree(5), grads=lambda i: tree(10 + i, 0.5))
+    for a, b in zip(_tnp(tp), _np(jp)):
+        assert np.array_equal(a, b)
+    for key in ("m", "v"):
+        for leaf in ("a", "b"):
+            got, want = ts[key][leaf], js[key][leaf]
+            assert got.dtype == torch.bfloat16
+            assert np.array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
