@@ -22,10 +22,12 @@ Phases, each printing one JSON line:
    reference's FLASH_CASES in float32 and bfloat16, at head_dim 256
    with a window and a soft-cap, at MLA's head dim 192 on its path's
    shape, at gemma3's 8,192 tokens with its window of 1,024 and without,
-   and at a ragged 4,100 tokens (the plain versions over every head, a
-   group of KV heads at a time): every bfloat16 case on the Hopper kernel
-   (wgmma, TMA) within the reference's 2e-2 and within FLASH_TC_TOL of the
-   plain version of its own arithmetic, every float32 case on the FMA
+   at a ragged 4,100 tokens, and at whisper's decoder prefill (16 query
+   over 16 KV heads of 64, 384 tokens; the plain versions over every
+   head, a group of KV heads at a time): every bfloat16 case on the
+   Hopper kernel (wgmma, TMA) within the reference's 2e-2 and within
+   FLASH_TC_TOL of the plain version of its own arithmetic, every float32
+   case on the FMA
    kernel within 2e-5, each case's route read from the per-route counts;
    the selective scan kernel
    within the reference's 1e-5 of both its plain versions (the reference's
@@ -188,7 +190,22 @@ Phases, each printing one JSON line:
    text), the float32 kernel forward against the plain one within 2e-2,
    the same batch at text-only positions moving the logits past the grid
    (and not before it), then 5 AdamW steps at two microbatches with the
-   grid positions (one signature launch a microbatch).
+   grid positions (one signature launch a microbatch);
+17. the whisper path (``whisper_path``): whisper-medium at full width and
+   depth (24 encoder layers over 1,500 frames, 24 decoder layers with
+   cross-attention; 959,329,280 parameters, counted leaf by leaf), each
+   leg with the launch counts set to 0 just before and read just after
+   and its peak leaving 5 GB of the card free: ``whisper_serve``, the
+   serve leg of phase 13 at batch 8, a 384-token prompt and 64 new
+   tokens, frame embeddings N(0, 1) * 0.1 from seed 0 (flash 24 times a
+   prefill, all sm90 at window -1, none inside the encoder, whose
+   non-causal attention takes the dense scores; the cross caches bit for
+   bit across the decode steps); ``whisper_query``, one
+   ``LMQueryDriver.decode_prompts`` call (zero frame embeddings) whose
+   tokens equal ``greedy_decode``'s on the same prompts bit for bit;
+   ``whisper_train``, 10 AdamW steps of ``train_single`` at batch 4 x
+   448 tokens with the launcher's zero frame embeddings (one signature
+   launch a step on vec, no flash, no allocator retry, the loss falling).
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -226,7 +243,9 @@ SIG_WIDTHS = {"xlstm": (1, 8 * 512, 768), "lm": (1, 8 * 512, 2048),
               # the attention variants: gemma3-27b at batch 2 x 8,192,
               # deepseek-v2 and qwen2-vl-72b at 8 x 512
               "gemma3": (1, 2 * 8192, 5376), "mla": (1, 8 * 512, 5120),
-              "mrope": (1, 8 * 512, 8192)}
+              "mrope": (1, 8 * 512, 8192),
+              # whisper-medium's training at batch 4 x 448
+              "whisper": (1, 4 * 448, 1024)}
 # d % 64 != 0 (on the vec route), and d % 8 != 0 (on the strided route)
 LM_SIG_RAGGED = [(2, 300, 1000), (3, 257, 100)]
 # the LM cohort legs' per-sample rows: one launch over a client's (B, S, d)
@@ -320,6 +339,11 @@ MROPE_TRAIN_STEPS = 5
 FLASH_GEMMA3 = (2, 32, 16, 8192, 128)    # windows 1,024 (local), -1
 FLASH_MLA = (8, 128, 128, 512, 192)      # MLA: 128 nope + 64 rope
 FLASH_RAGGED_LONG = (1, 4, 2, 4100, 128)  # past 4,096, ragged
+FLASH_WHISPER = (8, 16, 16, 384, 64)     # whisper's decoder, its prefill
+WHISPER_PARAMS = 959_329_280             # whisper-medium, leaf by leaf
+WHISPER_SERVE = (8, 384, 64)             # batch, prompt, new tokens: 448
+WHISPER_TRAIN = (4, 448)                 # batch, tokens: its text context
+WHISPER_QUERY = (8, 384, 16)             # batch, prompt, new tokens
 
 
 def emit(**fields) -> None:
@@ -693,6 +717,7 @@ def phase_flash(fa, ops, dev) -> dict:
     # 4,096
     for shape, window, dtypes, kv_heads in (
             (FLASH_MLA, -1, (torch.bfloat16, torch.float32), 32),
+            (FLASH_WHISPER, -1, (torch.bfloat16, torch.float32), None),
             (FLASH_GEMMA3, 1024, (torch.bfloat16,), 1),
             (FLASH_GEMMA3, -1, (torch.bfloat16,), 1),
             (FLASH_RAGGED_LONG, 1024, (torch.bfloat16, torch.float32), None),
@@ -757,7 +782,8 @@ def phase_flash(fa, ops, dev) -> dict:
     hybrid = timed(FLASH_HYBRID)
     variants = {"gemma3_local": timed(FLASH_GEMMA3, 1024, 20, 3),
                 "gemma3_global": timed(FLASH_GEMMA3, -1, 20, 3),
-                "mla": timed(FLASH_MLA, -1, 20, 5)}
+                "mla": timed(FLASH_MLA, -1, 20, 5),
+                "whisper": timed(FLASH_WHISPER)}
     record = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2201,19 +2227,26 @@ def profile_lm_round(backend, params, stream) -> dict:
 
 def tree_param_count(cfg) -> int:
     """Parameters of the port's tree for a config of attention blocks
-    (GQA with or without QKV biases, or MLA), Mamba, mLSTM and sLSTM
-    blocks, with dense or MoE
-    feed-forward layers or none, counted leaf by leaf from its shapes
+    (GQA with or without QKV biases and cross-attention, or MLA), Mamba,
+    mLSTM and sLSTM blocks, with dense or MoE feed-forward layers or none,
+    and an encoder, counted leaf by leaf from its shapes
     (``ArchConfig.param_count()`` counts a Mamba layer's small leaves and
     most of an xLSTM layer's leaves otherwise, and leaves out the
     norms)."""
+    from repro_torch.configs.base import LayerSpec
     d, total = cfg.d_model, cfg.vocab_size * cfg.d_model
     if not cfg.tie_embeddings:
         total += cfg.d_model * cfg.vocab_size
     norm = d if cfg.norm == "rmsnorm" else 2 * d         # scale (and bias)
     total += norm                                        # final norm
-    for spec in cfg.layer_specs():
+    specs = list(cfg.layer_specs())
+    if cfg.encoder is not None:                          # its final norm,
+        total += norm                                    # and its layers
+        specs += [LayerSpec(kind="attn", ffn="dense")] * cfg.encoder.n_layers
+    for spec in specs:
         total += norm                                    # norm1
+        if spec.cross_attn:                              # xnorm, xw{q,k,v,o}
+            total += norm + 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
         if spec.ffn == "dense" and cfg.d_ff > 0:
             total += norm + 3 * d * cfg.d_ff             # norm2, ffn
         elif spec.ffn == "moe":
@@ -3191,15 +3224,25 @@ def expected_flash_windows(cfg, seq_len: int, forwards: int) -> dict:
 
 
 def attn_cache_lens(cfg, caches) -> list:
-    """The sequence length of every attention layer's cache entries."""
-    from repro_torch.models.attention import cache_seq_axis
+    """The sequence length of every attention layer's self-attention
+    cache entries (not the cross caches ``xk``, ``xv`` over the
+    encoder's frames)."""
+    from repro_torch.models.attention import (KV_CACHE_TRAILING_DIMS,
+                                              cache_seq_axis)
     lens = []
     for si, stage in enumerate(cfg.stages):
         for j, spec in enumerate(stage.pattern):
             if spec.kind == "attn":
                 for key, a in caches[si][f"l{j}"].items():
-                    lens.append(a.shape[cache_seq_axis(key, a.dim())])
+                    if key in KV_CACHE_TRAILING_DIMS:
+                        lens.append(a.shape[cache_seq_axis(key, a.dim())])
     return lens
+
+
+def cross_caches(caches) -> list:
+    """Every cross-attention layer's ``xk`` and ``xv``, in layer order."""
+    return [a for stage in caches for layer in stage.values()
+            for key, a in sorted(layer.items()) if key in ("xk", "xv")]
 
 
 def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
@@ -3215,7 +3258,12 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     reference's 2e-2 on the steps that every MoE layer routed alike and
     kept whole in both runs, and the greedy tokens against its argmax
     where the top-2 gap exceeds twice the largest error; the bfloat16
-    run's readings beside it."""
+    run's readings beside it.  A config with an encoder also draws its
+    frame embeddings from seed 0 (after the prompts, as ``serve`` does)
+    and feeds them to every run and forward (the flash count, one a
+    decoder attention layer, leaves none to the encoder), and its decode
+    profile holds the cross caches bit for bit across the decode
+    steps."""
     import dataclasses
     import gc
 
@@ -3233,12 +3281,16 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     params = tfm.init_params(gen, cfg)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
+    enc = None if cfg.encoder is None else torch.randn(
+        (batch, cfg.encoder.n_ctx, cfg.d_model), generator=gen,
+        device=dev) * 0.1
+    extra = {} if enc is None else {"enc_embed": enc}
     n_params = sum(p.numel() for p in tree_leaves(params))
     check(n_params == tree_param_count(cfg) == expected_params,
           f"{leg}: {n_params} parameters, expected {expected_params}")
     # warm-up outside the counted run: cuBLAS handles, allocator pools
     launch.serve(cfg, batch, prompt_len, 2, device=dev,
-                 params=params, prompts=prompts)
+                 params=params, prompts=prompts, enc_embed=enc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with PlainMeter(kern) as plain:
@@ -3252,8 +3304,10 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     expected = expected_prefill_launches(cfg, prefills=1)
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(r["params"]),
                                                 tree_leaves(params)))
-          and torch.equal(r["prompts"], prompts),
-          f"{leg}: serve drew other weights or prompts from seed 0")
+          and torch.equal(r["prompts"], prompts)
+          and (enc is None or torch.equal(r["enc_embed"], enc)),
+          f"{leg}: serve drew other weights, prompts or frame embeddings "
+          f"from seed 0")
     check(counted["launches"] == expected,
           f"{leg}: launches {counted['launches']}, expected {expected} "
           f"for one prefill")
@@ -3274,8 +3328,12 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     bf16_logits, bf16_tokens = r["logits"], r["tokens"]
     timings = {k: r[k] for k in ("prefill_s", "decode_s",
                                  "decode_tok_per_s")}
+    cross_bytes = sum(a.numel() * a.element_size()
+                      for a in cross_caches(r["caches"]))
     del r
-    profile = profile_decode(launch, cfg, params, prompts)
+    profile = profile_decode(launch, cfg, params, prompts, extra=extra)
+    check(profile["cross_caches_unchanged"] is not False,
+          f"{leg}: a decode step wrote the cross caches xk, xv")
 
     # float32 compute, the same weights and prompts
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
@@ -3283,15 +3341,15 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     with RoutingMeter() as served:
         r32 = launch.serve(cfg32, batch, prompt_len, new_tokens,
                            device=dev, params=params, prompts=prompts,
-                           keep_logits=True)
+                           enc_embed=enc, keep_logits=True)
     logits32, tokens32 = r32["logits"], r32["tokens"]
     check(all(n == total for n in attn_cache_lens(cfg32, r32["caches"])),
           f"{leg}: float32 caches did not grow by {new_tokens}")
     del r32
     full_tokens = torch.cat([prompts, tokens32[:, :-1].long()], dim=1)
     with torch.inference_mode(), RoutingMeter() as forced:
-        h, _ = tfm.forward_hidden(params, {"tokens": full_tokens}, cfg32,
-                                  Runtime(), mode="prefill")
+        h, _ = tfm.forward_hidden(params, {"tokens": full_tokens, **extra},
+                                  cfg32, Runtime(), mode="prefill")
         # the positions whose logits the prefill and the decode steps gave:
         # (steps, B, V)
         full = unembed(params["embed"], h[:, prompt_len - 1:],
@@ -3329,10 +3387,14 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     check(mismatched == 0, f"{leg}: {mismatched} greedy tokens differ from "
           f"the full forward's argmax where its top-2 gap exceeds "
           f"{2 * max_err}")
-    # a decode step reads every weight once (the input embedding only for
-    # the batch's rows): float32 masters over the card's memory rate
-    weight_bytes = 4 * (n_params - (0 if cfg.tie_embeddings
-                                    else cfg.vocab_size * cfg.d_model))
+    # a decode step reads every decoder weight once (the input embedding
+    # only for the batch's rows): float32 masters over the card's memory
+    # rate; and the cross caches, where there are some
+    encoder_params = sum(p.numel() for p in tree_leaves(
+        params.get("encoder", {})))
+    weight_bytes = 4 * (n_params - encoder_params
+                        - (0 if cfg.tie_embeddings
+                           else cfg.vocab_size * cfg.d_model))
     decode_ms = 1e3 * timings["decode_s"] / (new_tokens - 1)
     record = dict(
         phase=phase, leg=leg, model=cfg.name,
@@ -3342,8 +3404,9 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
         prefill_ms=1e3 * timings["prefill_s"],
         decode_ms_per_token=decode_ms,
         decode_tokens_per_s=timings["decode_tok_per_s"],
-        decode_weight_bytes=weight_bytes,
-        decode_weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_weight_bytes=weight_bytes, decode_cross_cache_bytes=cross_bytes,
+        decode_weight_read_bound_ms=(weight_bytes + cross_bytes)
+        / HBM_BYTES_PER_S * 1e3,
         peak_bytes=peak, cache_lens=sorted(set(lens)),
         float32_max_abs_err=max_err, float32_bound=SERVE_LOGIT_TOL,
         float32_steps_compared=new_tokens * batch,
@@ -3398,15 +3461,19 @@ def served_routed_alike(served, forced, cfg, B: int, S: int, device,
     return alike.transpose(0, 1), kept.transpose(0, 1)
 
 
-def profile_decode(launch, cfg, params, prompts, steps: int = 8) -> dict:
-    """``steps`` decode steps after a prefill of ``prompts`` under
-    torch.profiler (after as many that let it start up): the device's
-    busy time a token against the host's, and the device kernels that
-    took the most time.  Outside the counted run."""
+def profile_decode(launch, cfg, params, prompts, steps: int = 8,
+                   extra=None) -> dict:
+    """``steps`` decode steps after a prefill of ``prompts`` (and the
+    batch's ``extra`` entries) under torch.profiler (after as many that
+    let it start up): the device's busy time a token against the host's,
+    and the device kernels that took the most time; with cross caches,
+    whether they are bit-equal after the steps to the prefill's.  Outside
+    the counted run."""
     import torch
     prefill, decode = launch.make_serving_fns(cfg)
-    last, caches = prefill(params, {"tokens": prompts})
+    last, caches = prefill(params, {"tokens": prompts, **(extra or {})})
     caches = launch.extend_caches(caches, cfg, steps)
+    before = [a.clone() for a in cross_caches(caches)]
     tok = last.argmax(-1).to(torch.int32)[:, None]
 
     def run():
@@ -3418,7 +3485,11 @@ def profile_decode(launch, cfg, params, prompts, steps: int = 8) -> dict:
 
     traced, wall = profiled(run)
     busy_us, spans, top = device_busy(traced)
+    after = cross_caches(caches)
+    unchanged = (all(torch.equal(a, b) for a, b in zip(before, after))
+                 if before else None)
     return {"steps": steps, "wall_ms_per_token": 1e3 * wall / steps,
+            "cross_caches_unchanged": unchanged,
             "device_busy_ms_per_token": busy_us / 1e3 / steps,
             "device_idle_share": (1.0 - busy_us / 1e6 / wall
                                   if spans else None),
@@ -3783,44 +3854,57 @@ def moe_backend_leg(kern, dev, cfg, leg: str = "moe_backend",
 
 
 def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
-                  phase: str = "moe_path") -> dict:
+                  phase: str = "moe_path", batch: int = 8, seq: int = 512,
+                  expected_params=None, enc_embed=None) -> dict:
     """``launch/train.train_single`` on a full-width cut: TRAIN_STEPS AdamW
     steps with the config's moments (Jamba's and deepseek-v2's bfloat16;
     clip 1.0, the signature in the metrics) over a TokenPipeline of the LM
-    paths' sub-vocabulary, batch 8 x 512, with the launch counts set to 0
-    just before and read just after: the last 3 steps' mean loss below
-    step 0's, one signature launch a step and no other kernel, and the
-    peak leaving MOE_FREE_BYTES_MIN of the card free; with MoE layers, a
-    finite ``moe_aux`` above 0 at every step and the choices the capacity
-    dropped."""
+    paths' sub-vocabulary, by default batch 8 x 512 (a config with an
+    encoder gets ``enc_embed``, else the launcher's zero frames), with the
+    launch
+    counts set to 0 just before and read just after: the last 3 steps'
+    mean loss below step 0's, one signature launch a step and no other
+    kernel, and the peak leaving MOE_FREE_BYTES_MIN of the card free; with
+    MoE layers, a finite ``moe_aux`` above 0 at every step and the choices
+    the capacity dropped; with ``expected_params``, the trained tree's
+    count and no allocator retry in the run."""
     import argparse
     import gc
 
     import numpy as np
     import torch
+    from repro_torch.core.aggregate import tree_leaves
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import train as launch
 
     gc.collect()
     torch.cuda.empty_cache()
     t_leg = time.perf_counter()
-    pipe = TokenPipeline(LM_DATA_VOCAB, 8, 512, seed=0)
-    args = argparse.Namespace(steps=TRAIN_STEPS, batch=8, seq=512, seed=0,
-                              device=str(dev), log_every=TRAIN_STEPS,
-                              checkpoint="")
+    pipe = TokenPipeline(LM_DATA_VOCAB, batch, seq, seed=0)
+    args = argparse.Namespace(steps=TRAIN_STEPS, batch=batch, seq=seq,
+                              seed=0, device=str(dev),
+                              log_every=TRAIN_STEPS, checkpoint="")
     history = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     with PlainMeter(kern) as plain, RoutingMeter() as routes:
         reset_launches(kern)                       # counts start here
         t0 = time.perf_counter()
-        params = launch.train_single(cfg, args, pipe=pipe, history=history)
+        params = launch.train_single(cfg, args, pipe=pipe, history=history,
+                                     enc_embed=enc_embed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counted = read_launches(kern)              # and are read here
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
+    n_params = sum(p.numel() for p in tree_leaves(params))
     del params
+    if expected_params is not None:
+        check(n_params == tree_param_count(cfg) == expected_params,
+              f"{leg}: {n_params} parameters, expected {expected_params}")
+        check(retries == 0, f"{leg}: {retries} allocator retries")
     losses = [h["loss"] for h in history]
     aux = [h["moe_aux"] for h in history]
     n = moe_layers(cfg)
@@ -3852,18 +3936,22 @@ def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
     ms = 1e3 * float(np.mean(step_s[1:]))
     record = dict(
         phase=phase, leg=leg, model=cfg.name, optimizer="adamw",
-        moment_dtype=cfg.moment_dtype, clip_norm=1.0, batch=8, seq_len=512,
-        microbatches=1, data_vocab=LM_DATA_VOCAB, steps=TRAIN_STEPS,
-        losses=losses, moe_aux=aux,
+        frames=None if cfg.encoder is None else (
+            "zeros" if enc_embed is None else "given"),
+        moment_dtype=cfg.moment_dtype, clip_norm=1.0, batch=batch,
+        seq_len=seq, microbatches=1, data_vocab=LM_DATA_VOCAB,
+        steps=TRAIN_STEPS, n_params=n_params, losses=losses, moe_aux=aux,
         grad_norms=[h["grad_norm"] for h in history],
         step_ms=[1e3 * t for t in step_s], ms_per_step=ms,
-        tokens_per_s=8 * 512 / (ms / 1e3), wall_s=wall, peak_bytes=peak,
+        tokens_per_s=batch * seq / (ms / 1e3), wall_s=wall, peak_bytes=peak,
         peak_reserved_bytes=reserved, card_bytes=total,
+        alloc_retries=retries,
         plain_calls=plain.calls, leg_s=time.perf_counter() - t_leg,
         **counted)
     if n:
         record.update(dropped_choices=dropped,
-                      routed_choices_per_step=routed_choices(cfg, 8 * 512))
+                      routed_choices_per_step=routed_choices(cfg,
+                                                             batch * seq))
     emit(**record)
     return record
 
@@ -4289,6 +4377,158 @@ def phase_attention_variants_path(kern, dev) -> dict:
     return legs
 
 
+def whisper_query_leg(kern, dev, cfg) -> dict:
+    """The consensus-serving query driver on the served weights (seed 0):
+    one ``LMQueryDriver.decode_prompts`` call (zero frame embeddings, as
+    the reference's ``LMQueryDriver``) with the launch counts set to 0
+    just before and read just after (one prefill on the kernels), its
+    tokens bit-equal to ``launch.serve.greedy_decode`` on the same prompts
+    with zero frame embeddings."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.fl.serving import LMQueryDriver
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    batch, prompt_len, new_tokens = WHISPER_QUERY
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len))
+    driver = LMQueryDriver(cfg, query_batch=batch, prompt_len=prompt_len,
+                           new_tokens=new_tokens)
+    driver.decode_prompts(params, prompts[:, :16])        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMeter(kern) as plain:
+        reset_launches(kern)                       # counts start here
+        t0 = time.perf_counter()
+        tokens = driver.decode_prompts(params, prompts)
+        wall = time.perf_counter() - t0
+        counted = read_launches(kern)              # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    check_free("whisper_query", peak)
+    expected = expected_prefill_launches(cfg, prefills=1)
+    check(counted["launches"] == expected and not any(plain.calls.values())
+          and counted["flash_routes"] == {"sm90": expected["flash"],
+                                          "fma": 0},
+          f"whisper_query: launches {counted['launches']} by route "
+          f"{counted['flash_routes']} (plain {plain.calls}), expected "
+          f"{expected}")
+    prefill, decode = launch.make_serving_fns(cfg)
+    want = launch.greedy_decode(prefill, decode, cfg, params, {
+        "tokens": torch.as_tensor(prompts, device=dev),
+        "enc_embed": torch.zeros((batch, cfg.encoder.n_ctx, cfg.d_model),
+                                 device=dev)}, new_tokens)["tokens"]
+    want = want.cpu().numpy()
+    check(tokens.shape == (batch, new_tokens) and np.array_equal(tokens,
+                                                                 want),
+          f"whisper_query: LMQueryDriver's tokens differ from "
+          f"greedy_decode's at {int((tokens != want).sum())} of "
+          f"{want.size}")
+    # one prefill of the query batch under the profiler: where its time
+    # goes (the encoder's dense float32 scores against the products)
+    query = driver.make_batch(prompts, dev)
+
+    def one_prefill():
+        prefill(params, query)
+        torch.cuda.synchronize()
+
+    traced, prefill_wall = profiled(one_prefill)
+    busy_us, spans, top = device_busy(traced)
+    del params
+    record = dict(
+        phase="whisper_path", leg="whisper_query", model=cfg.name,
+        batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
+        query_ms=1e3 * wall, tokens_equal_greedy_decode=True,
+        prefill_profile={
+            "wall_ms": 1e3 * prefill_wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1.0 - busy_us / 1e6 / prefill_wall
+                                  if spans else None),
+            "device_kernels": len(spans),
+            "top_device_ms": [[k[:90], ms, n] for k, ms, n in top[:12]]},
+        peak_bytes=peak, plain_calls=plain.calls,
+        leg_s=time.perf_counter() - t_leg,
+        **counted)
+    emit(**record)
+    return record
+
+
+def whisper_zero_frames_step(dev, cfg) -> dict:
+    """One step of ``train_single`` with the reference's zero frame
+    embeddings at full depth: the layer norms of the zero rows scale the
+    backward by 1/sqrt(eps) each, so over 24 encoder layers the gradient
+    overflows (the reference's own function, ROADMAP Queue 3): its norm
+    must come out non-finite, and the loss before the update finite."""
+    import argparse
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch, seq = WHISPER_TRAIN
+    args = argparse.Namespace(steps=1, batch=batch, seq=seq, seed=0,
+                              device=str(dev), log_every=1, checkpoint="")
+    history = []
+    params = launch.train_single(
+        cfg, args, pipe=TokenPipeline(LM_DATA_VOCAB, batch, seq, seed=0),
+        history=history)
+    del params
+    loss, gnorm = history[0]["loss"], history[0]["grad_norm"]
+    check(np.isfinite(loss) and not np.isfinite(gnorm),
+          f"whisper_zero_frames: loss {loss}, grad norm {gnorm}: expected "
+          f"the reference's overflow (a non-finite grad norm)")
+    record = dict(phase="whisper_path", leg="whisper_zero_frames",
+                  loss=loss, grad_norm=str(gnorm), batch=batch, seq_len=seq)
+    emit(**record)
+    return record
+
+
+def phase_whisper_path(kern, dev) -> dict:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, 959,329,280 parameters) through the reference's entry points:
+    the serve launcher, the consensus-serving query driver and the
+    single-stream trainer (one step on the reference's zero frames, whose
+    gradient overflows, then 10 steps on frames drawn from seed 1)."""
+    import torch
+    t0 = time.perf_counter()
+    cfg = whisper_config()
+    batch, prompt_len, new_tokens = WHISPER_SERVE
+    train_batch, train_seq = WHISPER_TRAIN
+    legs = {"whisper_serve": serve_leg(
+                kern, dev, "whisper_serve", cfg, WHISPER_PARAMS, batch=batch,
+                prompt_len=prompt_len, new_tokens=new_tokens,
+                phase="whisper_path"),
+            "whisper_query": whisper_query_leg(kern, dev, cfg)}
+    zero = whisper_zero_frames_step(dev, cfg)
+    frames = torch.randn((train_batch, cfg.encoder.n_ctx, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev) * 0.1
+    legs["whisper_train"] = moe_train_leg(
+        kern, dev, cfg, leg="whisper_train", phase="whisper_path",
+        batch=train_batch, seq=train_seq, expected_params=WHISPER_PARAMS,
+        enc_embed=frames)
+    legs["whisper_train"]["zero_frames_step"] = zero
+    del frames
+    emit(phase="whisper_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
+def whisper_config():
+    """whisper-medium as published in the reference: full width and
+    depth, 24 encoder layers over 1,500 frames, 24 decoder layers."""
+    from repro_torch.configs import get_config
+    return get_config("whisper-medium")
+
+
 def gemma3_config():
     """gemma3-27b at full width, depth cut to one published period: five
     local layers of window 1,024, then one global layer."""
@@ -4422,8 +4662,9 @@ def main() -> None:
                                  lm["sim_time"])
     moe = phase_moe_path(kern, dev)
     variants = phase_attention_variants_path(kern, dev)
+    whisper = phase_whisper_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe, **variants}
+             **serving, **moe, **variants, **whisper}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -4453,7 +4694,8 @@ def main() -> None:
     # (each leg gates them against its layers), MLA's every launch
     for row, legs, window in (("gemma3_local", "gemma3_", 1024),
                               ("gemma3_global", "gemma3_", -1),
-                              ("mla", "mla_", -1)):
+                              ("mla", "mla_", -1),
+                              ("whisper", "whisper_", -1)):
         flash_record[row]["launches"] = sum(
             p["flash_windows"].get(window, 0) for name, p in paths.items()
             if name.startswith(legs))

@@ -13,9 +13,10 @@ dense and mixture-of-experts feed-forward layers),
 ``llama4-maverick-400b-a17b`` (dense and MoE layers interleaved, 128
 routed experts top-1 and a shared expert) and ``deepseek-v2-236b`` (MLA
 attention, a dense prologue layer, then 160 routed experts top-6 and 2
-shared).  The configs are the reference's as they are, with what they
-leave out of the published models.  ``whisper-medium`` raises
-``NotImplementedError`` naming the blocks the port lacks for it.
+shared) and the encoder-decoder ``whisper-medium`` (24 non-causal
+encoder layers over 1,500 stub frame embeddings, and 24 decoder layers with
+cross-attention to them).  The configs are the reference's as they are,
+with what they leave out of the published models.
 """
 from __future__ import annotations
 
@@ -35,22 +36,16 @@ _ARCH_MODULES = {
     "gemma3-27b": "gemma3_27b",
     "qwen2-vl-72b": "qwen2_vl_72b",
     "deepseek-v2-236b": "deepseek_v2_236b",
-}
-
-_UNPORTED = {
-    "whisper-medium": "the audio encoder and decoder cross-attention",
+    "whisper-medium": "whisper_medium",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"{name} is not ported: the port lacks {_UNPORTED[name]}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{sorted(_ARCH_MODULES) + sorted(_UNPORTED)}")
+                       f"{sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG

@@ -272,9 +272,14 @@ class LMQueryDriver:
         self.tokens_generated = 0
 
     def make_batch(self, prompts: np.ndarray, device=None) -> Dict:
+        """The prompts as a batch; a config with an encoder gets zero
+        float32 frame embeddings (B, n_ctx, d), as in the reference."""
+        b = {"tokens": torch.as_tensor(prompts, device=device)}
         if self.cfg.encoder is not None:
-            raise NotImplementedError("encoders are not ported")
-        return {"tokens": torch.as_tensor(prompts, device=device)}
+            b["enc_embed"] = torch.zeros(
+                (prompts.shape[0], self.cfg.encoder.n_ctx, self.cfg.d_model),
+                dtype=torch.float32, device=device)
+        return b
 
     def decode_prompts(self, params, prompts: np.ndarray) -> np.ndarray:
         """Greedy continuation tokens for explicit prompts (also the parity

@@ -37,7 +37,9 @@ def extend_caches(caches, cfg, extra: int):
     (:data:`repro_torch.models.attention.KV_CACHE_TRAILING_DIMS`, counted
     from the trailing end), not hardcoded: prefill-collected caches carry
     a leading stacked-layer axis, per-layer caches do not, and both
-    layouts must extend correctly.  Other entries are passed through."""
+    layouts must extend correctly.  Other entries are passed through:
+    the recurrent states, and the cross-attention layers' ``xk`` and
+    ``xv``, which hold the encoder's frames, not the decoded tokens."""
     out = []
     for si, stage in enumerate(cfg.stages):
         d = {}
@@ -108,15 +110,15 @@ def greedy_decode(prefill_fn, decode_fn, cfg, params, batch,
 
 
 def serve(cfg, batch: int, prompt_len: int, new_tokens: int, seed: int = 0,
-          device=None, params=None, prompts=None, keep_logits: bool = False):
-    """Prefill and greedy-decode one batch of prompts.  Weights and
-    prompts are drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (default: the CUDA card) unless ``params`` / ``prompts``
-    are given.  Returns the timings, ``decode_tok_per_s``, the tokens,
-    the caches, the params and prompts used (and the logits with
-    ``keep_logits``)."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoders are not ported")
+          device=None, params=None, prompts=None, enc_embed=None,
+          keep_logits: bool = False):
+    """Prefill and greedy-decode one batch of prompts.  Weights, prompts
+    and, for a config with an encoder, its input ``enc_embed`` (B, n_ctx,
+    d) ~ N(0, 1) * 0.1 are drawn in that order from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (default: the CUDA card) unless
+    given.  Returns the timings, ``decode_tok_per_s``, the tokens, the
+    caches, the params, prompts and ``enc_embed`` used (None without an
+    encoder), and the logits with ``keep_logits``."""
     device = resolve_device(device)
     prefill, decode = make_serving_fns(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -125,10 +127,18 @@ def serve(cfg, batch: int, prompt_len: int, new_tokens: int, seed: int = 0,
     if prompts is None:
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=gen, device=device)
-    r = greedy_decode(prefill, decode, cfg, params, {"tokens": prompts},
-                      new_tokens, keep_logits=keep_logits)
+    b = {"tokens": prompts}
+    if cfg.encoder is not None:
+        if enc_embed is None:
+            enc_embed = torch.randn(
+                (batch, cfg.encoder.n_ctx, cfg.d_model), generator=gen,
+                device=device) * 0.1
+        b["enc_embed"] = enc_embed
+    r = greedy_decode(prefill, decode, cfg, params, b, new_tokens,
+                      keep_logits=keep_logits)
     r.update(decode_tok_per_s=batch * (new_tokens - 1)
-             / max(r["decode_s"], 1e-9), params=params, prompts=prompts)
+             / max(r["decode_s"], 1e-9), params=params, prompts=prompts,
+             enc_embed=enc_embed)
     return r
 
 

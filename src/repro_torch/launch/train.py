@@ -15,6 +15,9 @@ The token streams are the reference's (``make_lm_dataset`` at the model's
 vocabulary), whose vocab x vocab transition matrix takes 68.5 GB at
 internlm2's 92,544 tokens; a caller at full width passes ``pipe=`` a
 :class:`~repro_torch.data.pipeline.TokenPipeline` over a sub-vocabulary.
+Likewise the reference's zero frame embeddings for an encoder make the
+gradient overflow at whisper-medium's depth; a caller passes
+``enc_embed=`` frames of its own.
 """
 from __future__ import annotations
 
@@ -32,11 +35,17 @@ from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.step import make_train_step
 
 
-def train_single(cfg, args, pipe=None, history=None):
+def train_single(cfg, args, pipe=None, history=None, enc_embed=None):
     """``args.steps`` AdamW steps of one model on one token stream; returns
     the trained parameters.  ``pipe`` replaces the default pipeline;
     ``history``, a list, receives each step's metrics as numbers and its
-    seconds (each step then ends in a host copy)."""
+    seconds (each step then ends in a host copy).  A config with an
+    encoder gets zero float32 frame embeddings (B, n_ctx, d) every step,
+    as in the reference, unless ``enc_embed`` gives others: at
+    whisper-medium's 24 encoder layers zero frames overflow the gradient
+    (each layer norm of a zero row scales its backward by 1/sqrt(eps)),
+    and the first step turns every parameter into NaN, in the reference
+    as here."""
     device = resolve_device(args.device)
     step, opt = make_train_step(cfg, runtime=Runtime(want_signature=True))
     params = tfm.init_params(torch.Generator(device=device)
@@ -50,6 +59,11 @@ def train_single(cfg, args, pipe=None, history=None):
         t_step = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in pipe.batch_dict(next(it)).items()}
+        if cfg.encoder is not None:
+            batch["enc_embed"] = enc_embed if enc_embed is not None \
+                else torch.zeros((batch["tokens"].shape[0],
+                                  cfg.encoder.n_ctx, cfg.d_model),
+                                 dtype=torch.float32, device=device)
         params, opt_state, m = step(params, opt_state, batch)
         if history is not None:
             record = {k: (v.cpu().tolist() if v.dim() else float(v))

@@ -36,7 +36,12 @@ entries are written into the cache in place: the serving loop owns its
 caches (``launch.serve.greedy_decode``), and the reference's functional
 update gives the same values.
 
-Not ported (it raises ``NotImplementedError``): cross-attention.
+Cross-attention (whisper's decoder): ``cross_kv`` projects the encoder's
+output to keys and values and rounds them to ``cfg.cache_dtype`` (the
+decoder's ``xk`` and ``xv`` caches, and the values the training forward
+attends to as well), and ``cross_attn_forward`` attends the decoder's
+queries to them through the dense scores with a zero bias, outside any
+kernel, as the reference does.
 """
 from __future__ import annotations
 
@@ -85,8 +90,6 @@ def init_attn(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
                                 dtype)
         p["wo"] = dense_init(generator, cfg.n_heads * m.v_head_dim, d, dtype)
         return p
-    if spec.cross_attn:
-        raise NotImplementedError("cross-attention is not ported")
     p = {
         "wq": dense_init(generator, d, cfg.q_dim, dtype),
         "wk": dense_init(generator, d, cfg.kv_dim, dtype),
@@ -98,6 +101,11 @@ def init_attn(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
         p["bq"] = torch.zeros((cfg.q_dim,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
+    if spec.cross_attn:
+        p["xwq"] = dense_init(generator, d, cfg.q_dim, dtype)
+        p["xwk"] = dense_init(generator, d, cfg.kv_dim, dtype)
+        p["xwv"] = dense_init(generator, d, cfg.kv_dim, dtype)
+        p["xwo"] = dense_init(generator, cfg.q_dim, d, dtype)
     return p
 
 
@@ -355,6 +363,38 @@ def attn_decode(params, x, cache, pos: int, *, cfg: ArchConfig,
     out = out.reshape(B, 1, cfg.q_dim)
     out = (out.to(compute) @ params["wo"].to(compute)).to(x.dtype)
     return out, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_forward(params, x, enc_k, enc_v, *, cfg: ArchConfig):
+    """The decoder's queries x (B,S,d) against the encoder's keys and
+    values (B,Sk,K,hd): dense scores, a zero (S, Sk) bias, no cap."""
+    compute = torch_dtype(cfg.compute_dtype)
+    B, S = x.shape[:2]
+    q = (x.to(compute) @ params["xwq"].to(compute)).reshape(
+        B, S, cfg.n_heads, cfg.head_dim)
+    bias = torch.zeros((S, enc_k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = _sdpa(q, enc_k, enc_v, bias, 0.0).reshape(B, S, cfg.q_dim)
+    return (out.to(compute) @ params["xwo"].to(compute)).to(x.dtype)
+
+
+def cross_kv(params, enc_out, *, cfg: ArchConfig):
+    """The encoder output's keys and values (B,Sk,K,hd), rounded to
+    ``cfg.cache_dtype`` right after the products (under autograd too)."""
+    compute = torch_dtype(cfg.compute_dtype)
+    B, S = enc_out.shape[:2]
+    e = enc_out.to(compute)
+    k = (e @ params["xwk"].to(compute)).reshape(B, S, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    v = (e @ params["xwv"].to(compute)).reshape(B, S, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    cache_dt = torch_dtype(cfg.cache_dtype)
+    return k.to(cache_dt), v.to(cache_dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Staged decoder assembled from an ArchConfig (port of
-``repro.models.transformer``: the dense GQA path with sliding windows past
-2,048 tokens and M-RoPE, MLA attention, Jamba's hybrid of Mamba and
-attention blocks, and xLSTM's mLSTM and sLSTM blocks).
+"""Staged decoder, and optional encoder, assembled from an ArchConfig
+(port of ``repro.models.transformer``: the dense GQA path with sliding
+windows past 2,048 tokens and M-RoPE, MLA attention, Jamba's hybrid of
+Mamba and attention blocks, xLSTM's mLSTM and sLSTM blocks, and whisper's
+encoder with the decoder's cross-attention).
 
 The layer stack is organised as *stages*, as in the reference: each stage
 is a repeating pattern of blocks whose parameters are stacked along a
@@ -14,7 +15,16 @@ Public API: init_params / init_cache / forward_hidden /
 per_sample_signature / forward / loss_fn / prefill / decode_step.
 Attention, Mamba, mLSTM and sLSTM blocks, with dense feed-forward layers,
 mixture-of-experts ones (``models.moe``) or none (``ffn="none"``, or
-``d_ff = 0``); encoders raise ``NotImplementedError``.
+``d_ff = 0``).
+
+With ``cfg.encoder`` set, ``batch["enc_embed"]`` (B, n_ctx, d) is the
+encoder's input (the frontend's frame embeddings, a stub in the
+reference): its layers (``params["encoder"]["layers"]``, stacked on a
+leading axis) run non-causal attention, which the flash kernel never takes
+(its dispatch needs causal attention), and each cross-attention layer of
+the decoder attends to the encoder's output after its self-attention.
+Prefill puts that layer's cross keys and values into its cache (``xk``,
+``xv``); a decode step reads them and never writes them.
 
 ``mode`` is the reference's: ``"train"`` (the default, and ``loss_fn``'s)
 gives the MoE layers Switch-style capacity, which drops tokens; any other
@@ -44,9 +54,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       init_embedding, init_mlp, init_norm,
-                                       torch_dtype, unembed)
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_norm, torch_dtype,
+                                       unembed)
 from repro_torch.runtime import DEFAULT, Runtime
 
 
@@ -75,15 +86,16 @@ def resolve_window(cfg: ArchConfig, spec: LayerSpec, seq_len: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
+_ENCODER_SPEC = LayerSpec(kind="attn", ffn="dense")
+
+
+def _check_supported(spec: LayerSpec) -> None:
     if spec.kind not in ("attn", "mamba", "mlstm", "slstm"):
         raise NotImplementedError(f"{spec.kind} blocks are not ported")
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoders are not ported")
 
 
 def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     device = generator.device
     p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, device)}
     if spec.kind == "attn":
@@ -94,6 +106,8 @@ def _init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
         p["core"] = xl.init_mlstm(generator, cfg, dtype)
     else:
         p["core"] = xl.init_slstm(generator, cfg, dtype)
+    if spec.cross_attn:
+        p["xnorm"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
     if spec.ffn == "dense" and cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, device)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
@@ -119,7 +133,19 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
                    for _ in range(stage.repeats)]
         params["stages"].append(
             tree_map(lambda *leaves: torch.stack(leaves), *periods))
+    if cfg.encoder is not None:
+        params["encoder"] = _init_encoder(generator, cfg, dtype)
     return params
+
+
+def _init_encoder(generator, cfg: ArchConfig, dtype) -> dict:
+    """The encoder's attention layers with dense feed-forward layers,
+    stacked on a leading axis as a stage's, and its final norm."""
+    layers = [_init_layer(generator, cfg, _ENCODER_SPEC, dtype)
+              for _ in range(cfg.encoder.n_layers)]
+    return {"layers": tree_map(lambda *leaves: torch.stack(leaves), *layers),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, dtype,
+                                    generator.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +171,15 @@ def _ffn(lp, x, cfg: ArchConfig, spec: LayerSpec,
 
 
 def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
-                   window: int, runtime: Runtime, mode: str = "train"):
-    """Full-sequence block.  Returns (x, cache, the MoE router losses or
-    None)."""
-    _check_supported(cfg, spec)
+                   window: int, runtime: Runtime, mode: str = "train",
+                   enc_out=None, causal: bool = True):
+    """Full-sequence block (an encoder layer with ``causal=False``).
+    Returns (x, cache, the MoE router losses or None)."""
+    _check_supported(spec)
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    if spec.kind == "attn":
+    if spec.kind == "attn" and not causal:
+        core, cache = _encoder_attn(lp["core"], h, cfg, positions, runtime)
+    elif spec.kind == "attn":
         core, cache = attn.attn_forward(lp["core"], h, cfg=cfg, spec=spec,
                                         positions=positions, window=window,
                                         runtime=runtime)
@@ -163,15 +192,44 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     else:
         core, cache = xl.slstm_forward(lp["core"], h, cfg=cfg,
                                        runtime=runtime)
-    x, aux = _ffn(lp, x + core, cfg, spec,
-                  generous_capacity=(mode != "train"))
+    x = x + core
+    if spec.cross_attn and enc_out is not None:
+        xk, xv = attn.cross_kv(lp["core"], enc_out, cfg=cfg)
+        x = _cross(lp, x, xk, xv, cfg)
+        cache = dict(cache, xk=xk, xv=xv)
+    x, aux = _ffn(lp, x, cfg, spec, generous_capacity=(mode != "train"))
     return x, cache, aux
+
+
+def _cross(lp, x, xk, xv, cfg: ArchConfig):
+    """The cross-attention sublayer against the encoder's keys and
+    values."""
+    h2 = apply_norm(lp["xnorm"], x, cfg.norm, cfg.norm_eps)
+    return x + attn.cross_attn_forward(lp["core"], h2, xk, xv, cfg=cfg)
+
+
+def _encoder_attn(params, h, cfg: ArchConfig, positions, runtime: Runtime):
+    """An encoder layer's self-attention: RoPE without M-RoPE sections,
+    then non-causal scores over the whole input (the dense path at
+    whisper's 1,500 frames: the flash kernel takes causal attention only).
+    Returns (out, {})."""
+    compute = torch_dtype(cfg.compute_dtype)
+    q, k, v = attn._project_qkv(params, h, cfg, compute)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    pos1d = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    out = attn.scaled_attention(q, k, v, pos1d, pos1d, causal=False,
+                                window=-1, cap=cfg.attn_softcap,
+                                runtime=runtime)
+    out = out.reshape(h.shape[0], h.shape[1], cfg.q_dim)
+    return (out.to(compute) @ params["wo"].to(compute)).to(h.dtype), {}
 
 
 def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
                   spec: LayerSpec, window: int, runtime: Runtime):
     """One-token block against its cache.  Returns (x, new cache)."""
-    _check_supported(cfg, spec)
+    _check_supported(spec)
     h = apply_norm(lp["norm1"], x, cfg.norm, cfg.norm_eps)
     if spec.kind == "attn":
         core, new_cache = attn.attn_decode(lp["core"], h, cache, pos,
@@ -183,13 +241,18 @@ def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
         core, new_cache = xl.mlstm_decode(lp["core"], h, cache, cfg=cfg)
     else:
         core, new_cache = xl.slstm_decode(lp["core"], h, cache, cfg=cfg)
+    x = x + core
+    if spec.cross_attn:
+        x = _cross(lp, x, cache["xk"], cache["xv"], cfg)
+        new_cache = dict(new_cache, xk=cache["xk"], xv=cache["xv"])
     # one token a row: a MoE layer's capacity is the generous one
-    return _ffn(lp, x + core, cfg, spec)[0], new_cache
+    return _ffn(lp, x, cfg, spec)[0], new_cache
 
 
 def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
                    positions, seq_len: int, runtime: Runtime,
-                   collect_cache: bool = False, mode: str = "train"):
+                   collect_cache: bool = False, mode: str = "train",
+                   enc_out=None):
     """The stage's periods in order.  Returns (x, aux, caches): aux the
     MoE layers' router losses added up in layer order, and with
     ``collect_cache`` each layer's cache stacked on the ``repeats`` axis,
@@ -203,7 +266,8 @@ def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
             lp = tree_map(lambda a: a[i], stage_params[f"l{j}"])
             x, c, a = _layer_forward(lp, x, cfg=cfg, spec=spec,
                                      positions=positions, window=windows[j],
-                                     runtime=runtime, mode=mode)
+                                     runtime=runtime, mode=mode,
+                                     enc_out=enc_out)
             if a is not None:
                 aux = aux + a
             caches[f"l{j}"] = c if collect_cache else {}
@@ -224,10 +288,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
         sc = {}
         lead = (stage.repeats,)
         for j, spec in enumerate(stage.pattern):
-            _check_supported(cfg, spec)
+            _check_supported(spec)
             if spec.kind == "attn":
                 c = attn.init_kv_cache(cfg, spec, batch, max_seq,
                                        leading=lead, device=device)
+                if spec.cross_attn:
+                    c["xk"] = torch.zeros(
+                        lead + (batch, cfg.encoder.n_ctx, cfg.n_kv_heads,
+                                cfg.head_dim),
+                        dtype=torch_dtype(cfg.cache_dtype), device=device)
+                    c["xv"] = torch.zeros_like(c["xk"])
             elif spec.kind == "mamba":
                 c = mam.init_mamba_state(cfg, batch, leading=lead,
                                          device=device)
@@ -260,6 +330,23 @@ def _positions_for(cfg: ArchConfig, batch, B: int, S: int, device):
     return pos
 
 
+def _encoder_forward(params, enc_embed, cfg: ArchConfig,
+                     runtime: Runtime):
+    """The encoder over ``enc_embed`` (B, S, d), cast to the compute
+    type: its layers in order, then its final norm."""
+    B, S = enc_embed.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=enc_embed.device)[None].expand(B, S)
+    x = enc_embed.to(torch_dtype(cfg.compute_dtype))
+    layers = params["encoder"]["layers"]
+    for i in range(cfg.encoder.n_layers):
+        x, _, _ = _layer_forward(tree_map(lambda a: a[i], layers), x,
+                                 cfg=cfg, spec=_ENCODER_SPEC, positions=pos,
+                                 window=-1, runtime=runtime, causal=False)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm,
+                      cfg.norm_eps)
+
+
 def forward_hidden(params, batch, cfg: ArchConfig,
                    runtime: Runtime = DEFAULT, collect_cache: bool = False,
                    mode: str = "train"):
@@ -267,7 +354,8 @@ def forward_hidden(params, batch, cfg: ArchConfig,
 
     Returns (h (B,S,d), aux dict), and with ``collect_cache`` the caches
     too: one dict per stage, each layer's cache stacked on the stage's
-    ``repeats`` axis (``prefill``).  ``aux["moe_aux"]`` is the MoE layers'
+    ``repeats`` axis (``prefill``).  With ``cfg.encoder`` the encoder runs
+    first, over ``batch["enc_embed"]``.  ``aux["moe_aux"]`` is the MoE layers'
     summed router losses (float32, 0 without MoE layers).  With
     ``runtime.want_signature``, ``aux["signature"]`` is the bucketed Eq. 3
     signature of ``h`` (``kernels.ops.signature``).
@@ -276,13 +364,17 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = _positions_for(cfg, batch, B, S, tokens.device)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = _encoder_forward(params, batch["enc_embed"], cfg, runtime)
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
         x, stage_aux, cache = _stage_forward(
             params["stages"][si], x, cfg=cfg, pattern=stage.pattern,
             repeats=stage.repeats, positions=positions, seq_len=S,
-            runtime=runtime, collect_cache=collect_cache, mode=mode)
+            runtime=runtime, collect_cache=collect_cache, mode=mode,
+            enc_out=enc_out)
         aux_total = aux_total + stage_aux
         caches.append(cache)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)

@@ -37,11 +37,13 @@ def default_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
                  moment_dtype=torch_dtype(cfg.moment_dtype))
 
 
-def _split(leaf: torch.Tensor, n: int):
+def _split(key: str, leaf: torch.Tensor, n: int):
     """A batch leaf cut into ``n`` microbatches along its batch axis: axis
-    1 of M-RoPE's (3, B, S) positions, as the reference reads them (a
-    3-D leaf of 3 rows), else axis 0."""
-    axis = 1 if leaf.dim() == 3 and leaf.shape[0] == 3 else 0
+    1 of M-RoPE's (3, B, S) ``positions``, else axis 0.  The reference
+    takes axis 1 of any 3-D leaf of 3 rows, so at batch 3 it would cut an
+    encoder's ``enc_embed`` (3, n_ctx, d) over its frames; the port
+    decides by the leaf's key."""
+    axis = 1 if key == "positions" and leaf.dim() == 3 else 0
     if leaf.shape[axis] % n:
         raise ValueError(f"batch {leaf.shape[axis]} does not split into "
                          f"{n} microbatches")
@@ -91,7 +93,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         else:
             # each microbatch's gradient is added into ``.grad`` in place,
             # the reference's float32 ``gsum + g`` without a second tree
-            pieces = {k: _split(v, microbatches) for k, v in batch.items()}
+            pieces = {k: _split(k, v, microbatches)
+                      for k, v in batch.items()}
             loss = torch.zeros((), device=tree_leaves(params)[0].device)
             aux_sum = {"ce_loss": torch.zeros_like(loss),
                        "moe_aux": torch.zeros_like(loss)}

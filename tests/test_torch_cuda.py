@@ -1122,6 +1122,57 @@ def test_serve_prefill_kernels_equal_plain_on_card(card, family):
         assert (steps[0] - steps[1]).abs().max().item() <= 1e-4
 
 
+def test_whisper_prefill_and_decode_on_card_equal_cpu(card):
+    """Reduced whisper-medium (2 encoder layers over 16 frames, 2 decoder
+    layers with cross-attention) in float32: the prefill on the kernels
+    and 4 greedy decode steps on the card against the same on the CPU
+    (the plain versions): every step's logits and the caches, the cross
+    caches among them, within 1e-4 (float32 products in another order),
+    the greedy tokens equal; flash once a decoder layer on the FMA route,
+    never in the encoder; the cross caches unchanged by the decode."""
+    from repro_torch.launch.serve import extend_caches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve_runtime
+    cfg = reduced(get_config("whisper-medium"))
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=gen),
+             "enc_embed": torch.randn((2, cfg.encoder.n_ctx, cfg.d_model),
+                                      generator=gen) * 0.1}
+    runs = []
+    for device in ("cpu", card):
+        p = tree_map(lambda a: a.to(device), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        fma = fa.launches_fma
+        with torch.inference_mode():
+            logits, caches, _ = tfm.prefill(p, b, cfg, serve_runtime())
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+                assert fa.launches_fma - fma == 2
+            cross = [c["l0"][key].clone() for c in caches
+                     for key in ("xk", "xv")]
+            caches = extend_caches(caches, cfg, 4)
+            steps, tokens = [logits], [logits.argmax(-1)]
+            for i in range(4):
+                logits, caches = tfm.decode_step(
+                    p, tokens[-1].to(torch.int32)[:, None], caches, 12 + i,
+                    cfg)
+                steps.append(logits)
+                tokens.append(logits.argmax(-1))
+        assert all(torch.equal(a, c["l0"][key]) for a, (c, key) in zip(
+            cross, [(c, key) for c in caches for key in ("xk", "xv")]))
+        runs.append((torch.stack(steps).cpu(), torch.stack(tokens).cpu(),
+                     [a.float().cpu() for c in caches
+                      for a in c["l0"].values()]))
+    (cpu_logits, cpu_tokens, cpu_caches), (got, tokens, caches) = runs
+    assert (got - cpu_logits).abs().max().item() <= 1e-4
+    assert torch.equal(tokens, cpu_tokens)
+    for a, b in zip(caches, cpu_caches):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adamw",
                                   "adamw_bf16"])
 def test_optimizer_steps_on_card_equal_cpu(card, name):

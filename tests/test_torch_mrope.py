@@ -216,13 +216,13 @@ def test_loss_gradient_under_grid_positions_matches_reference():
 def test_split_cuts_positions_on_axis_1():
     pos = torch.from_numpy(grid_positions(4, 2, 2, 2, 1))
     tokens = torch.zeros((4, pos.shape[-1]), dtype=torch.int32)
-    parts = tstep._split(pos, 2)
+    parts = tstep._split("positions", pos, 2)
     assert [tuple(p.shape) for p in parts] == [(3, 2, pos.shape[-1])] * 2
     assert torch.equal(torch.cat(parts, dim=1), pos)
-    assert [tuple(p.shape) for p in tstep._split(tokens, 2)] == \
+    assert [tuple(p.shape) for p in tstep._split("tokens", tokens, 2)] == \
         [(2, pos.shape[-1])] * 2
     with pytest.raises(ValueError, match="does not split"):
-        tstep._split(pos, 3)
+        tstep._split("positions", pos, 3)
 
 
 def test_train_step_at_two_microbatches_matches_reference():

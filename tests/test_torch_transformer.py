@@ -1,6 +1,8 @@
 """The port's transformer path against the JAX reference, from the same
-weights and tokens: the dense decoders, and the MoE decoders (llama4's
-dense/MoE interleave with a shared expert, Jamba's Mamba layers with MoE).
+weights and tokens: the dense decoders, the MoE decoders (llama4's
+dense/MoE interleave with a shared expert, Jamba's Mamba layers with MoE),
+and whisper's encoder-decoder (its frame embeddings from a seed; the rest
+of its cases are ``test_torch_whisper.py``'s).
 
 JAX weights are carried over with ``params_from_numpy`` (torch cannot
 reproduce JAX's PRNG bits).  The reduced configs run in float32 on both
@@ -34,8 +36,7 @@ from repro.models import transformer as j_tfm  # noqa: E402
 from repro.models.layers import activation_signature as j_act_sig  # noqa: E402
 from repro.runtime import Runtime as JRuntime  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.configs.base import (EncoderConfig, LayerSpec,  # noqa: E402
-                                      Stage)
+from repro_torch.configs.base import LayerSpec, Stage  # noqa: E402
 from repro_torch.core.aggregate import tree_leaves  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -45,8 +46,7 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b",
          "llama4-maverick-400b-a17b", "gemma3-27b", "qwen2-vl-72b",
-         "deepseek-v2-236b"]
-UNPORTED = ["whisper-medium"]
+         "deepseek-v2-236b", "whisper-medium"]
 
 
 def _configs(arch, window=None):
@@ -81,13 +81,6 @@ def test_configs_match_reference(arch):
     jc, tc = _configs(arch)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert tc.param_count() == jc.param_count()
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_configs_raise(arch):
-    j_get_config(arch)                    # known to the reference
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config(arch)
 
 
 @pytest.mark.parametrize("d_model", [None, 64])
@@ -203,23 +196,24 @@ def test_forward_loss_signature_match_reference(arch, window, kernels):
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
     labels = rng.integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    inputs = {"tokens": tokens}
+    if jc.encoder is not None:          # whisper: the frontend's frames
+        inputs["enc_embed"] = rng.normal(
+            0, 1, (2, jc.encoder.n_ctx, jc.d_model)).astype(np.float32)
+    j_inputs = {k: jnp.asarray(v) for k, v in inputs.items()}
+    t_inputs = {k: torch.from_numpy(v) for k, v in inputs.items()}
     j_params = jax.tree_util.tree_map(jnp.asarray, np_params)
     j_rt = JRuntime(use_pallas=kernels, want_signature=True,
                     kernel_policy="interpret" if kernels else "reference")
-    j_logits, j_aux, _ = j_tfm.forward(j_params,
-                                       {"tokens": jnp.asarray(tokens)}, jc,
-                                       j_rt)
-    j_loss, j_loss_aux = j_tfm.loss_fn(j_params,
-                                       {"tokens": jnp.asarray(tokens),
-                                        "labels": jnp.asarray(labels)}, jc)
+    j_logits, j_aux, _ = j_tfm.forward(j_params, j_inputs, jc, j_rt)
+    j_loss, j_loss_aux = j_tfm.loss_fn(
+        j_params, dict(j_inputs, labels=jnp.asarray(labels)), jc)
     params = params_from_numpy(np_params, "cpu")
     rt = Runtime(use_kernels=kernels, want_signature=True)
     with torch.no_grad():
-        logits, aux = tfm.forward(params, {"tokens": torch.from_numpy(tokens)},
-                                  tc, rt)
+        logits, aux = tfm.forward(params, t_inputs, tc, rt)
         loss, loss_aux = tfm.loss_fn(
-            params, {"tokens": torch.from_numpy(tokens),
-                     "labels": torch.from_numpy(labels)}, tc)
+            params, dict(t_inputs, labels=torch.from_numpy(labels)), tc)
     np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
                                rtol=0, atol=2e-5)
     assert abs(float(loss) - float(j_loss)) <= 1e-5
@@ -250,18 +244,3 @@ def test_loss_masks_labels():
                                for k, v in batch.items()}, tc)
     assert abs(float(loss) - float(j_loss)) <= 1e-5
 
-
-def test_unported_paths_raise():
-    """What the port still lacks, the encoder and the decoder's
-    cross-attention, raises; attention past 2,048 tokens and M-RoPE run
-    (``test_torch_long_context.py``, ``test_torch_mrope.py``)."""
-    _, tc = _configs("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        tfm.init_params(torch.Generator().manual_seed(0), dataclasses.replace(
-            tc, stages=(Stage((LayerSpec(cross_attn=True), LayerSpec()),
-                              1),)))
-    with pytest.raises(NotImplementedError, match="encoder"):
-        get_config("whisper-medium")
-    with pytest.raises(NotImplementedError, match="encoders"):
-        tfm.init_params(torch.Generator().manual_seed(0), dataclasses.replace(
-            tc, encoder=EncoderConfig(n_layers=2, n_ctx=16)))
