@@ -207,6 +207,32 @@ Phases, each printing one JSON line:
    448 tokens with the launcher's zero frame embeddings (one signature
    launch a step on vec, no flash, no allocator retry, the loss falling).
 
+18. the mesh path (``mesh_path``), the cohort engine and the sLSTM scan
+   over device meshes, each leg with the launch counts set to 0 just
+   before and read just after: ``mesh_auto``, the CNN engine at full
+   VGG16 width with ``mesh="auto"`` (on one card the single-device engine,
+   bit for bit against ``mesh=None``); ``mesh_cnn``, a 1-D mesh over
+   ``[cuda:0] * 2`` and a 2x2 mesh over ``[cuda:0] * 4`` at a ragged K of
+   3 and 5: ``train_cohort``, ``evaluate_cohort``, ``evaluate_shared``,
+   ``evaluate_many`` and ``signature_cohort`` against the single-device
+   engine (weights 5e-3, losses 5e-2, accuracies 1e-4, signatures 1e-2,
+   the reference's ``tests/test_cohort_mesh.py``), ``stacked_mean`` and
+   ``stacked_weighted`` at 1e-6; ``mesh_dag``, DAG-AFL (4 clients, 2
+   rounds) on the 2x2 mesh with ``chain_len == 1 + rounds`` and the DAG
+   verified, ``s_per_round`` with the mesh and without it; ``mesh_lm``,
+   internlm2-1.8b at full width and 2 layers, K = 2 on a 2x1 mesh (flash
+   and the signature launched per group and counted, every call against
+   the single-device engine); ``mesh_slstm``, xlstm-125m's forward with
+   ``Runtime(mesh=...)`` over 2 batch devices (the sLSTM kernel once a
+   shard and layer; each layer's sharded scan within the reference's
+   sLSTM tolerances of the unsharded scan on the same inputs, 1e-5 for
+   hs; the logits within LM_LOGIT_RTOL of the largest, their error and
+   whether they are bit-equal reported, in float32 and bfloat16) and one
+   backward: each layer's sharded scan's gate-weight gradients within
+   1e-5 of their scale, the whole loss's reported.  With
+   more than one card ``mesh_cnn`` and ``mesh_lm`` also run over distinct
+   cards; ``device_count`` is printed either way.
+
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
 with each kernel's launches on the main paths, its error against the
@@ -4522,6 +4548,482 @@ def phase_whisper_path(kern, dev) -> dict:
     return legs
 
 
+MESH_TOL = {"weights": 5e-3, "losses": 5e-2, "accuracy": 1e-4,
+            "signature": 1e-2, "aggregate": 1e-6}   # tests/test_cohort_mesh.py
+MESH_CNN_SIZES = (100, 160, 230, 130, 190)   # ragged shards, batch 64
+MESH_LM = (2, 4, 512)                        # clients, batch, positions
+MESH_SLSTM = {"forward": (8, 512), "backward": (4, 128)}   # batch, tokens
+MESH_SLSTM_TOL = 1e-5          # weight gradients, of their scale
+# the sharded float32 logits, of the largest logit: a shard's gate
+# projection is its own cuBLAS product (4.8e-6 off the whole batch's on
+# an H100), which left them 6.25e-5 of 3.19 apart (2.0e-5) after 12 layers;
+# the limit is 10 times that
+MESH_SLSTM_LOGIT_TOL = 2e-4
+
+
+def mesh_cnn_world():
+    """VGG16 at full width over the CNN world's pooled train set cut into
+    ragged shards of ``MESH_CNN_SIZES`` (every shard also its client's
+    validation set)."""
+    from repro_torch.data.synthetic import Dataset
+    cfg, client_data, test, pooled = cnn_world()
+    shards, start = [], 0
+    for n in MESH_CNN_SIZES:
+        shards.append(Dataset(pooled.x[start:start + n],
+                              pooled.y[start:start + n]))
+        start += n
+    return cfg, shards, client_data, test
+
+
+def mesh_lm_config():
+    """internlm2-1.8b at full width, 2 layers."""
+    import dataclasses
+    return dataclasses.replace(lm_config(), n_layers=2, stages=(
+        dataclasses.replace(lm_config().stages[0], repeats=2),))
+
+
+def tree_err(a, b) -> float:
+    """Largest absolute difference of two congruent trees."""
+    from repro_torch.core.aggregate import tree_leaves
+    return max(float((x.float() - y.float().to(x.device)).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def engine_against_single(leg, single, meshed, params, shards, seeds,
+                          sync) -> dict:
+    """Every engine call of ``meshed`` against ``single`` on the same
+    inputs, at ``MESH_TOL``; returns the largest errors and the meshed
+    calls' seconds."""
+    import numpy as np
+    out, seconds = {}, {}
+
+    def both(name, fn):
+        t = time.perf_counter()
+        got = fn(meshed)
+        sync()
+        seconds[name] = time.perf_counter() - t
+        return fn(single), got
+
+    (p1, l1), (p2, l2) = both("train_cohort", lambda e: e.train_cohort(
+        params, shards, seeds))
+    out["weights"] = max(tree_err(a, b) for a, b in zip(p1, p2))
+    out["losses"] = float(np.max(np.abs(np.subtract(l1, l2))))
+    a1, a2 = both("evaluate_cohort", lambda e: e.evaluate_cohort(p1, shards))
+    s1, s2 = both("evaluate_shared", lambda e: e.evaluate_shared(p1[0],
+                                                                 shards))
+    m1, m2 = both("evaluate_many", lambda e: e.evaluate_many(p1, shards[0]))
+    out["accuracy"] = float(np.max(np.abs(np.subtract(
+        a1 + s1 + m1, a2 + s2 + m2))))
+    g1, g2 = both("signature_cohort", lambda e: e.signature_cohort(p1,
+                                                                   shards))
+    out["signature"] = float(np.max(np.abs(g1 - g2)))
+    for key, err in out.items():
+        check(err <= MESH_TOL[key], f"{leg}: {key} differ by {err} > "
+              f"{MESH_TOL[key]} from the single-device engine")
+    out["bit_equal"] = {"weights": out["weights"] == 0.0,
+                        "signature": out["signature"] == 0.0}
+    return {"errors": out, "seconds": seconds}
+
+
+def mesh_auto_leg(kern, dev, cfg, backend, shards) -> dict:
+    """``mesh="auto"``: on one card the single-device engine, bit for bit
+    against ``mesh=None`` with ``cudnn.deterministic``.  Once before it
+    with cuDNN's default algorithms, reported: those are not
+    deterministic, and two runs of one program differ in training's last
+    bits."""
+    import torch
+    from repro_torch.fl.cohort import build_cohort_engine
+    auto = build_cohort_engine(backend, cohort_size=4, mesh="auto")
+    none = build_cohort_engine(backend, cohort_size=4, mesh=None)
+    params = [backend.init(torch.Generator().manual_seed(s))
+              for s in range(3)]
+    default = engine_against_single("mesh_auto", none, auto, params,
+                                    shards[:3], [11, 12, 13],
+                                    torch.cuda.synchronize)["errors"]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        reset_launches(kern)
+        res = engine_against_single("mesh_auto", none, auto, params,
+                                    shards[:3], [11, 12, 13],
+                                    torch.cuda.synchronize)
+        launches = read_launches(kern)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    one = torch.cuda.device_count() == 1
+    if one:
+        check(auto.mesh is None, "mesh_auto: one card built a mesh")
+        check(all(res["errors"]["bit_equal"].values())
+              and res["errors"]["accuracy"] == 0.0,
+              f"mesh_auto: not bit-equal to mesh=None {res['errors']}")
+    emit(phase="mesh_path", leg="mesh_auto", model=cfg.name,
+         mesh=None if auto.mesh is None else dict(auto.mesh.shape),
+         device_count=torch.cuda.device_count(), default_algorithms=default,
+         **res, **launches)
+    return launches
+
+
+def mesh_cnn_leg(kern, dev, cfg, backend, shards, devices, label) -> dict:
+    """A 1-D mesh of 2 devices and a 2x2 mesh of 4 over ``devices``, with
+    a ragged K of 3 and 5, against the single-device engine; the stacked
+    reductions over both meshes at 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import (stacked_mean, stacked_weighted,
+                                            tree_stack)
+    from repro_torch.fl.cohort import CohortBackend
+    from repro_torch.launch.mesh import make_cohort_mesh
+    single = CohortBackend(backend)
+    reset_launches(kern)
+    runs = {}
+    for name, (c, d) in {"1d": (2, 1), "2x2": (2, 2)}.items():
+        if len(devices) < c * d:
+            continue
+        mesh = make_cohort_mesh(c, data=d, devices=devices[:c * d])
+        meshed = CohortBackend(backend, mesh=mesh)
+        check(dict(meshed.mesh.shape) == ({"clients": 2} if d == 1 else
+                                          {"clients": 2, "data": 2}),
+              f"{label}: mesh {mesh}")
+        for k in (3, 5):
+            params = [backend.init(torch.Generator().manual_seed(s))
+                      for s in range(k)]
+            runs[f"{name}_k{k}"] = engine_against_single(
+                label, single, meshed, params, shards[:k],
+                list(range(21, 21 + k)), torch.cuda.synchronize)
+        stacked = tree_stack([backend.init(torch.Generator().manual_seed(s))
+                              for s in range(5)])
+        w = np.random.default_rng(0).random((3, 5)).astype(np.float32)
+        err = max(tree_err(stacked_mean(stacked),
+                           stacked_mean(stacked, mesh=mesh,
+                                        data_axis="data")),
+                  tree_err(stacked_weighted(stacked, w),
+                           stacked_weighted(stacked, w, mesh=mesh,
+                                            data_axis="data")))
+        check(err <= MESH_TOL["aggregate"], f"{label}: stacked aggregation "
+              f"over {name} differs by {err}")
+        runs[f"{name}_aggregate_err"] = err
+    launches = read_launches(kern)
+    emit(phase="mesh_path", leg=label, model=cfg.name,
+         devices=[str(d) for d in devices], runs=runs, **launches)
+    return launches
+
+
+def mesh_dag_leg(kern, dev, cfg, backend, client_data, test) -> dict:
+    """DAG-AFL, 4 clients, 2 rounds, on the 2x2 mesh and without a mesh in
+    the same call (none, mesh, none again): every round, a verified DAG,
+    ``s_per_round`` of each; returns the mesh run's launches."""
+    import torch
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.launch.mesh import make_cohort_mesh
+    out = {}
+    for name, mesh in (("none", None), ("2x2", make_cohort_mesh(
+            2, data=2, devices=[dev] * 4)), ("none_again", None)):
+        coord = DagAflCoordinator(backend, client_data, test, DagAflConfig(
+            n_clients=4, max_rounds=2, local_epochs=1, cohort_size=4,
+            cohort_window=2.0, mesh=mesh))
+        torch.cuda.synchronize()
+        reset_launches(kern)
+        t0 = time.perf_counter()
+        result = coord.run(backend.init(torch.Generator().manual_seed(0)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok, why = verify_full_dag(coord.ledger)
+        check(result.rounds == 8 and result.extra["chain_len"]
+              == 1 + result.rounds, f"mesh_dag {name}: {result.rounds} "
+              f"rounds, chain {result.extra['chain_len']}")
+        check(ok and result.extra["verify_failures"] == 0,
+              f"mesh_dag {name}: {why}")
+        check((coord.cohort.mesh is not None) == (mesh is not None),
+              f"mesh_dag {name}: engine mesh {coord.cohort.mesh}")
+        counted = read_launches(kern)
+        out[name] = {"s_per_round": wall / result.rounds,
+                     "final_accuracy": result.final_accuracy,
+                     "cohorts_dispatched":
+                         result.extra["cohorts_dispatched"],
+                     "launches": counted["launches"]}
+        if mesh is not None:
+            launches = counted
+    emit(phase="mesh_path", leg="mesh_dag", model=cfg.name, runs=out)
+    return launches
+
+
+def mesh_lm_leg(kern, dev, devices, label) -> dict:
+    """internlm2-1.8b at full width and 2 layers, K = 2 on a 2x1 mesh
+    over ``devices``: flash and the signature launched per group, counted,
+    and every call against the single-device engine."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.fl.cohort import CohortBackend
+    from repro_torch.launch.mesh import make_cohort_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mesh_lm_config()
+    clients, batch, seq = MESH_LM
+    streams, _ = lm_streams(clients)
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
+                        seq_len=seq, device=dev)
+    single = CohortBackend(backend)
+    meshed = CohortBackend(backend, mesh=make_cohort_mesh(
+        2, devices=devices[:2]))
+    params = [backend.init(torch.Generator(device=dev).manual_seed(s))
+              for s in range(clients)]
+    warm, _ = meshed.train_cohort(params, streams, [0, 1], epochs=1)
+    meshed.evaluate_cohort(warm, streams)
+    del warm
+    trained, _ = single.train_cohort(params, streams, [3, 4])
+    torch.cuda.synchronize()
+    reset_launches(kern)                           # counts start here
+    t0 = time.perf_counter()
+    got_p, _ = meshed.train_cohort(params, streams, [3, 4])
+    accs = meshed.evaluate_cohort(trained, streams)
+    sigs = meshed.signature_cohort(trained, streams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kern)                 # and are read here
+    n = launches["launches"]
+    layers = cfg.n_layers
+    check(n["flash"] == 2 * clients * layers
+          == launches["flash_routes"]["sm90"],
+          f"{label}: {n['flash']} flash launches for {clients} evaluation "
+          f"and {clients} signature forwards of {layers} layers "
+          f"{launches['flash_routes']}")
+    check(n["signature"] == clients == launches["signature_routes"]["vec"],
+          f"{label}: {n['signature']} signature launches for {clients} "
+          f"clients {launches['signature_routes']}")
+    check(not (n["scan"] or n["mlstm"] or n["slstm"]),
+          f"{label}: other kernels {n}")
+    import numpy as np
+    errs = {"weights": max(tree_err(a, b) for a, b in zip(trained, got_p)),
+            "accuracy": float(np.max(np.abs(np.subtract(
+                single.evaluate_cohort(trained, streams), accs)))),
+            "signature": float(np.max(np.abs(
+                single.signature_cohort(trained, streams) - sigs)))}
+    for key, err in errs.items():
+        check(err <= MESH_TOL[key], f"{label}: {key} differ by {err}")
+    home = torch.empty(0, device=backend.device).device   # with its index
+    check(all(p.device == home for m in got_p for p in tree_leaves(m)),
+          f"{label}: the trained models left the engine's device")
+    emit(phase="mesh_path", leg=label, model=cfg.name,
+         devices=[str(d) for d in devices[:2]], wall_s=wall, errors=errs,
+         bit_equal={k: v == 0.0 for k, v in errs.items()}, **launches)
+    del backend, single, meshed, params, trained, got_p
+    return launches
+
+
+def mesh_slstm_leg(kern, dev) -> dict:
+    """xlstm-125m's forward with ``Runtime(mesh=..., batch_axes=...)`` over
+    2 batch devices: the sLSTM kernel once a shard and layer.  Each sLSTM
+    layer's sharded scan against the unsharded scan on the same inputs
+    (taken from the unsharded float32 forward) at the reference's sLSTM
+    tolerances (``SLSTM_TOL``); the whole forward's float32 logits
+    against the unsharded forward's within ``MESH_SLSTM_LOGIT_TOL`` of the
+    largest, their error and whether they are bit-equal reported (and the
+    model's bfloat16 ones).  A shard computes its rows' gate projection
+    as one product, which cuBLAS may sum in another order than the whole
+    batch's: the leg reads the gates of 4 of 8 rows against the whole
+    batch's, and the kernel on the same gates row by row.  Then one
+    backward on the plain path: each layer's sharded scan under a fixed
+    upstream gradient, its gate weights' gradients within 1e-5 of their
+    scale of the unsharded scan's; the whole loss's gradients of those
+    weights reported (they carry every layer's gate-projection
+    differences)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import xlstm
+    from repro_torch.runtime import Runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = xlstm_config()
+    mesh = Mesh(np.asarray([dev] * 2, dtype=object), ("data",))
+    sharded = dict(mesh=mesh, batch_axes=("data",), batch_axis_size=2)
+    n_slstm = sum(spec.kind == "slstm" for spec in base.layer_specs())
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S = MESH_SLSTM["forward"]
+    toks = torch.randint(0, LM_DATA_VOCAB, (B, S), generator=g, device=dev)
+    launches = None
+    scan = xlstm._slstm_scan_maybe_sharded
+    for compute in ("float32", base.compute_dtype):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg)
+        calls = []
+
+        def keep(*args):
+            calls.append(args)
+            return scan(*args)
+
+        xlstm._slstm_scan_maybe_sharded = keep
+        try:
+            with torch.inference_mode():
+                want, _ = tfm.forward(params, {"tokens": toks}, cfg,
+                                      Runtime(use_kernels=True))
+        finally:
+            xlstm._slstm_scan_maybe_sharded = scan
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            reset_launches(kern)
+            got, _ = tfm.forward(params, {"tokens": toks}, cfg,
+                                 Runtime(use_kernels=True, **sharded))
+            torch.cuda.synchronize()
+            counted = read_launches(kern)
+            layers = []
+            for p, xconv, state, rt in calls:
+                hs, core = scan(p, xconv, state, Runtime(use_kernels=True,
+                                                         **sharded))
+                ref_hs, ref_core = scan(p, xconv, state, rt)
+                err = {"hs": float((hs - ref_hs).abs().max()),
+                       "state": max(float((core[k] - ref_core[k]).abs().max())
+                                    for k in ref_core)}
+                for key, t, r in (("hs", hs, ref_hs),) + tuple(
+                        ("state", core[k], ref_core[k]) for k in ref_core):
+                    check(bool(torch.allclose(t, r, rtol=SLSTM_TOL[key],
+                                              atol=SLSTM_TOL[key])),
+                          f"mesh_slstm ({compute}): a sharded scan's {key} "
+                          f"past {SLSTM_TOL[key]}: {err}")
+                layers.append(err)
+        if launches is None:
+            launches = counted
+        sl = kern["sl"]
+        units = sl.units_per_block(cfg.d_model, torch.cuda
+                                   .get_device_properties(dev)
+                                   .multi_processor_count)
+        rows = sl.row_plan(B // 2, cfg.d_model, units)
+        expected = n_slstm * 2 * -(-(B // 2) // rows)   # row slices
+        check(len(calls) == n_slstm
+              and counted["launches"]["slstm"] == expected,
+              f"mesh_slstm: {counted['launches']['slstm']} sLSTM launches, "
+              f"{expected} for 2 shards of {B // 2} rows in {n_slstm} "
+              f"layers ({len(calls)} scans)")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        out[compute] = {"scans": layers, "logits_err": err,
+                        "logits_scale": scale,
+                        "bit_equal": bool(torch.equal(got, want))}
+        # the model's bfloat16 layers carry one-ulp flips on to the logits
+        # (the xLSTM path's reason): gated in float32, reported in bf16
+        check(compute != "float32" or err <= MESH_SLSTM_LOGIT_TOL * scale,
+              f"mesh_slstm: sharded float32 logits differ by {err} of "
+              f"{scale}")
+        if compute == "float32":
+            calls_f32 = calls
+        del params, want, got, calls
+    # where the sharded logits depart: one layer's gate projection over the
+    # first shard's rows against the whole batch's, and the kernel on the
+    # same gates over those rows (reported)
+    p, xconv, state, _ = calls_f32[0]
+    half = B // 2
+    with torch.inference_mode():
+        gates, R = xlstm._slstm_inputs(p, xconv)
+        shard_gates, _ = xlstm._slstm_inputs(p, xconv[:half])
+        whole = kern["sl"].slstm_scan_bsd(gates, R, state["c"], state["n"],
+                                          state["h"], state["m"])[0]
+        rows = kern["sl"].slstm_scan_bsd(
+            gates[:half].contiguous(), R,
+            *(state[k][:half] for k in ("c", "n", "h", "m")))[0]
+    out["gate_projection_err"] = float((gates[:half] - shard_gates).abs()
+                                       .max())
+    out["kernel_rows_bit_equal"] = bool(torch.equal(whole[:half], rows))
+    del calls_f32, gates, shard_gates, whole, rows
+    # one backward: each sLSTM layer's scan on the plain forward's inputs
+    # under a fixed upstream gradient, sharded against unsharded (gated);
+    # then the whole loss's gradients of those weights (reported)
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    B, S = MESH_SLSTM["backward"]
+    toks = torch.randint(0, LM_DATA_VOCAB, (B, S + 1), generator=g,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    calls = []
+
+    def keep(*args):
+        calls.append(args)
+        return scan(*args)
+
+    xlstm._slstm_scan_maybe_sharded = keep
+    try:
+        with torch.no_grad():
+            tfm.forward(params, {"tokens": batch["tokens"]}, cfg, Runtime())
+    finally:
+        xlstm._slstm_scan_maybe_sharded = scan
+    names = ("w_gates", "r_gates", "b_gates")
+    layer_rel = []
+    for p, xconv, state, _ in calls:
+        upstream = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+        grads = []
+        for rt in (Runtime(), Runtime(**sharded)):
+            w = {k: p[k].detach().clone().requires_grad_(True)
+                 for k in names}
+            hs, _ = scan(dict(p, **w), xconv, state, rt)
+            (hs * upstream).sum().backward()
+            grads.append({k: w[k].grad for k in names})
+        layer_rel.append(max(float((grads[1][k] - v).abs().max()
+                                   / v.abs().max())
+                             for k, v in grads[0].items()))
+    out["scan_weight_grad_rel_err"] = layer_rel
+    check(len(layer_rel) == n_slstm and max(layer_rel) <= MESH_SLSTM_TOL,
+          f"mesh_slstm: a sharded scan's weight gradients differ by "
+          f"{layer_rel} of their scale")
+    grads = []
+    for rt in (Runtime(), Runtime(**sharded)):
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        tfm.loss_fn(params, batch, cfg, rt)[0].backward()
+        grads.append({k: params["stages"][0][f"l{j}"]["core"][k].grad.clone()
+                      for j, spec in enumerate(cfg.stages[0].pattern)
+                      if spec.kind == "slstm" for k in names})
+    out["loss_weight_grad_rel_err"] = max(
+        float((grads[1][k] - v).abs().max() / v.abs().max())
+        for k, v in grads[0].items())
+    emit(phase="mesh_path", leg="mesh_slstm", model=base.name,
+         forward=MESH_SLSTM["forward"], backward=MESH_SLSTM["backward"],
+         results=out, **launches)
+    del params, grads
+    return launches
+
+
+def phase_mesh_path(kern, dev) -> dict:
+    """The cohort engine and the sLSTM scan over device meshes: repeated
+    devices (``[cuda:0] * n``) exercise the grouped programs on one card;
+    with more than one card the CNN and LM legs also run over distinct
+    cards."""
+    import torch
+    t0 = time.perf_counter()
+    from repro_torch.fl.backend import CNNBackend
+    cfg, shards, client_data, test = mesh_cnn_world()
+    backend = CNNBackend(cfg, local_epochs=1, batch_size=64, device=dev)
+    n_cards = torch.cuda.device_count()
+    emit(phase="mesh_path", device_count=n_cards)
+    legs = {"cnn_mesh_auto": mesh_auto_leg(kern, dev, cfg, backend, shards),
+            "cnn_mesh": mesh_cnn_leg(kern, dev, cfg, backend, shards,
+                                     [dev] * 4, "mesh_cnn")}
+    legs["cnn_mesh_dag"] = mesh_dag_leg(kern, dev, cfg, backend,
+                                        client_data, test)
+    legs["lm_mesh"] = mesh_lm_leg(kern, dev, [dev] * 2, "mesh_lm")
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        legs["cnn_mesh_cards"] = mesh_cnn_leg(kern, dev, cfg, backend,
+                                              shards, cards, "mesh_cnn_cards")
+        legs["lm_mesh_cards"] = mesh_lm_leg(kern, dev, cards,
+                                            "mesh_lm_cards")
+    legs["xlstm_mesh"] = mesh_slstm_leg(kern, dev)
+    emit(phase="mesh_path_done", seconds=time.perf_counter() - t0,
+         device_count=n_cards)
+    return legs
+
+
 def whisper_config():
     """whisper-medium as published in the reference: full width and
     depth, 24 encoder layers over 1,500 frames, 24 decoder layers."""
@@ -4663,8 +5165,9 @@ def main() -> None:
     moe = phase_moe_path(kern, dev)
     variants = phase_attention_variants_path(kern, dev)
     whisper = phase_whisper_path(kern, dev)
+    mesh = phase_mesh_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe, **variants, **whisper}
+             **serving, **moe, **variants, **whisper, **mesh}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, EncoderConfig, LayerSpec,
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig,
+                                      EncoderConfig, InputShape, LayerSpec,
                                       MLAConfig, MambaConfig, MoEConfig,
                                       Stage, XLSTMConfig, reduced)
 
@@ -53,5 +54,6 @@ def get_config(name: str) -> ArchConfig:
 
 __all__ = [
     "ArchConfig", "EncoderConfig", "LayerSpec", "MLAConfig", "MambaConfig",
-    "MoEConfig", "Stage", "XLSTMConfig", "ARCH_IDS", "get_config", "reduced",
+    "MoEConfig", "Stage", "XLSTMConfig", "ARCH_IDS", "INPUT_SHAPES",
+    "InputShape", "get_config", "reduced",
 ]

@@ -229,6 +229,27 @@ class ArchConfig:
         return total
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's, for the dry run)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def reduced(cfg: ArchConfig, d_model: int = 256, max_experts: int = 4) -> ArchConfig:
     """Reduced smoke-test variant of the same family: 2 layers, small dims."""
     pattern = cfg.stages[-1].pattern if cfg.stages else (LayerSpec(),)

@@ -16,8 +16,16 @@ to a tensor's mean, as XLA compiles the reference's ``jnp.mean``.
 
 The stacked forms serve the cohort engine: K models kept as one tree whose
 leaves carry a leading client axis (:func:`tree_stack`), aggregated over
-that axis in one reduction.  Only the single-device forms are ported; the
-reference's ``psum`` forms over a device mesh are not, and a ``mesh`` raises.
+that axis in one reduction.  Over a device mesh
+(``repro_torch.launch.mesh``) the stacked axis is zero-padded and cut into
+contiguous blocks, one a device of the clients axis (of both axes on a 2-D
+cohort mesh); each device sums (or einsums) its block and the partials are
+added on the mesh's first device in device order, the reference's
+``shard_map`` + ``lax.psum``.  Probed on XLA:CPU with forced host devices
+(jaxlib 0.9.0): its all-reduce adds the device partials left to right in
+device order, and the reference's eager ``/ k`` after the psum is a true
+division, so the mesh mean divides where the single-device mean
+multiplies by the reciprocal.
 """
 from __future__ import annotations
 
@@ -188,44 +196,162 @@ def tree_unstack(stacked) -> list:
     return [tree_map(lambda leaf, i=i: leaf[i], stacked) for i in range(n)]
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "stacked aggregation over a device mesh is not ported to the "
-            "PyTorch package (only mesh=None)")
+def _quantized_target(x: int, n: int) -> int:
+    """Pad target of a stacked axis split over ``n`` devices: the next
+    power of two >= ``x``, rounded up to a multiple of ``n`` (the
+    reference's, which bounds its compiled reducers)."""
+    return round_up_multiple(next_pow2(x), n)
 
 
-def stacked_mean(stacked, mesh=None):
-    """Eq. 6 over a stacked tree: the mean over the leading client axis,
-    as the reference's jitted ``jnp.mean`` (:func:`f32_mean`).  Non-float
-    leaves take row 0."""
-    _single_device(mesh)
-    return tree_map(lambda leaf: f32_mean(leaf, dim=0)
-                    if leaf.is_floating_point() else leaf[0], stacked)
+def _mesh_axis_size(mesh, axis_name) -> int:
+    if mesh is None or axis_name is None:
+        return 1
+    return int(mesh.shape.get(axis_name, 1))
 
 
-def stacked_weighted(stacked, weights, mesh=None):
+def _reduce_axes(mesh, axis_name: str, data_axis) -> tuple:
+    """Mesh axes a stacked reduction splits its leading dim over: the
+    clients axis, joined by the data axis when the mesh has one larger
+    than 1 (aggregation has no per-sample structure, so the models spread
+    over every device of a 2-D cohort mesh)."""
+    axes = (axis_name,)
+    if _mesh_axis_size(mesh, data_axis) > 1:
+        axes = axes + (data_axis,)
+    return axes
+
+
+def axis_devices(mesh, axes) -> list:
+    """The devices along ``axes`` of ``mesh`` (row-major over them, in the
+    order given), the first along every other axis: device ``i`` holds
+    block ``i`` of an axis split over ``axes``."""
+    arr = mesh.devices
+    names = list(mesh.axis_names)
+    arr = arr[tuple(slice(None) if a in axes else 0 for a in names)]
+    kept = [a for a in names if a in axes]
+    return list(arr.transpose([kept.index(a) for a in axes]).reshape(-1))
+
+
+def block_slices(n: int, parts: int) -> list:
+    """An axis of ``n`` rows (a multiple of ``parts``) cut into ``parts``
+    equal contiguous blocks: block ``i`` goes to device ``i`` of a mesh
+    axis, everywhere in the port."""
+    if n % parts:
+        raise ValueError(f"{n} rows do not split into {parts} blocks")
+    per = n // parts
+    return [slice(i * per, (i + 1) * per) for i in range(parts)]
+
+
+def split_blocks(x: torch.Tensor, devices: Sequence, dim: int = 0,
+                 to: Callable = torch.Tensor.to) -> list:
+    """``x`` cut along ``dim`` into ``len(devices)`` blocks
+    (:func:`block_slices`), block ``i`` placed on ``devices[i]`` by
+    ``to(block, device)`` (a view where it already lies there)."""
+    lead = (slice(None),) * dim
+    return [to(x[lead + (rows,)], dev) for rows, dev in
+            zip(block_slices(x.shape[dim], len(devices)), devices)]
+
+
+def add_in_order(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The partials added left to right on ``device``: the reference's
+    psum in XLA:CPU's device order."""
+    acc = parts[0].to(device)
+    for part in parts[1:]:
+        acc = acc + part.to(device)
+    return acc
+
+
+def _fma_einsum(w: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """``einsum("km,m...->k...", w, x)`` in the order of the reference's
+    per-device einsum on XLA:CPU: each output row a chain of fused
+    multiply-adds over the models, left to right.  One ``addcmul_`` a
+    model over all K rows, which is one FMA an element on the CPU and on
+    the card."""
+    w = torch.as_tensor(w, device=x.device)
+    out = x.new_zeros((w.shape[0],) + x.shape[1:])
+    rows = (w.shape[0],) + (1,) * (x.dim() - 1)
+    for j in range(w.shape[1]):
+        out.addcmul_(w[:, j].reshape(rows), x[j])
+    return out
+
+
+def stacked_mean(stacked, mesh=None, axis_name: str = "clients",
+                 data_axis=None):
+    """Eq. 6 over a stacked tree: the mean over the leading client axis.
+    Non-float leaves take row 0.
+
+    Without a mesh (or over one device), as the reference's jitted
+    ``jnp.mean`` (:func:`f32_mean`).  With a ``mesh`` whose ``axis_name``
+    axis (joined by ``data_axis`` on a 2-D cohort mesh) has more than one
+    device, the axis is zero-padded to ``_quantized_target`` and split in
+    blocks over the devices; each device sums its block as the reference
+    sums a program input (:func:`input_row_sum`), the partials are added
+    on the mesh's first device, and the total is divided by K (a true
+    division).  The result is on the input's device."""
+    axes = _reduce_axes(mesh, axis_name, data_axis)
+    n = int(np.prod([_mesh_axis_size(mesh, a) for a in axes]))
+    if n <= 1:
+        return tree_map(lambda leaf: f32_mean(leaf, dim=0)
+                        if leaf.is_floating_point() else leaf[0], stacked)
+    devices = axis_devices(mesh, axes)
+    k = int(tree_leaves(stacked)[0].shape[0])
+    target = _quantized_target(k, n)
+
+    def mean(leaf):
+        if not leaf.is_floating_point():
+            return leaf[0]
+        parts = [input_row_sum(b) for b in
+                 split_blocks(pad_leading(leaf.float(), target), devices)]
+        total = add_in_order(parts, devices[0])
+        return (total / torch.full((), k, dtype=torch.float32,
+                                   device=total.device)).to(leaf.device)
+
+    return tree_map(mean, stacked)
+
+
+def stacked_weighted(stacked, weights, mesh=None, axis_name: str = "clients",
+                     data_axis=None):
     """Weighted aggregation over a stacked tree's leading axis M.
 
     ``weights`` of shape (M,) gives one aggregate tree; shape (K, M) gives a
     stacked tree of K aggregates, one einsum per leaf: row k holds client
     k's weights over the M stacked models (the cohort window's Eq. 6).  Rows
     are normalised as the reference does, ``w / max(sum(w), 1e-12)`` by a
-    true division.  Non-float leaves take row 0 (broadcast to K rows)."""
-    _single_device(mesh)
+    true division, the sum in its order (:func:`input_row_sum`; torch's
+    sum was one ulp off on 10 of 76 probed rows).  Non-float leaves take
+    row 0 (broadcast to K rows).
+
+    With a ``mesh`` (see :func:`stacked_mean`), M is zero-padded with zero
+    weights and split in blocks over the devices; each device einsums its
+    models against its weight columns and the partials are added on the
+    mesh's first device.  The result is on the input's device."""
     w = torch.as_tensor(np.asarray(weights, np.float32))
-    w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-12)
+    # the row sums in the order of the reference's eager ``jnp.sum``
+    w = w / input_row_sum(w.movedim(-1, 0)).unsqueeze(-1).clamp_min(1e-12)
     batched = w.dim() == 2
+    axes = _reduce_axes(mesh, axis_name, data_axis)
+    n = int(np.prod([_mesh_axis_size(mesh, a) for a in axes]))
+    devices = axis_devices(mesh, axes) if n > 1 else None
+    if devices is not None:
+        w2 = (w if batched else w[None]).numpy()
+        m = int(tree_leaves(stacked)[0].shape[0])
+        w2 = np.pad(w2, ((0, 0), (0, _quantized_target(m, n) - m)))
+        w_blocks = [w2[:, cols] for cols in block_slices(w2.shape[1], n)]
 
     def combine(leaf):
         if not leaf.is_floating_point():
             if batched:
                 return leaf[0].expand((w.shape[0],) + leaf.shape[1:])
             return leaf[0]
-        wd = w.to(leaf.device)
-        if batched:
-            return torch.einsum("km,m...->k...", wd, leaf.float())
-        return torch.einsum("m,m...->...", wd, leaf.float())
+        if devices is None:
+            wd = w.to(leaf.device)
+            if batched:
+                return torch.einsum("km,m...->k...", wd, leaf.float())
+            return torch.einsum("m,m...->...", wd, leaf.float())
+        x = pad_leading(leaf.float(), w2.shape[1])
+        parts = [_fma_einsum(wb, xb) for wb, xb in
+                 zip(w_blocks, split_blocks(x, devices))]
+        out = add_in_order(parts, devices[0]).to(leaf.device)
+        return out if batched else out[0]
 
     return tree_map(combine, stacked)
 

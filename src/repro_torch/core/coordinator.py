@@ -32,8 +32,9 @@ tampered metadata; a scenario with all rates zero is bit-identical to
 ``repro_torch.fl.serving``) publishes the frontier's Eq. 6 replica and
 replays a seeded query trace against it on the same event loop, on both
 engines; it is read-only, so the training trajectory is bit-identical
-with it on or off.  Device meshes are not ported: any ``mesh`` other than
-None or ``"auto"`` (one card) raises ``NotImplementedError``.
+with it on or off.  ``mesh`` spreads the cohort engine over a device mesh
+(``repro_torch.fl.cohort``), and the window's Eq. 6 aggregation runs over
+the same mesh (``core.aggregate.stacked_weighted``).
 ``run(init_model=None)`` takes the genesis model itself where the reference
 takes a JAX PRNG key.
 """
@@ -57,8 +58,7 @@ from repro_torch.core.simulator import (ClientProfile, CohortWindow,
 from repro_torch.core.tip_selection import (TipSelectionConfig,
                                             TipSelectionRequest, TipSelector)
 from repro_torch.core.verify import extract_path, verify_path
-from repro_torch.fl.cohort import (build_cohort_engine, perturb_update,
-                                   single_device)
+from repro_torch.fl.cohort import build_cohort_engine, perturb_update
 from repro_torch.fl.scenarios import as_scenario
 
 
@@ -89,9 +89,16 @@ class DagAflConfig:
     # keep it below the typical round duration: a publish whose completion
     # time falls before the window flushes is clamped to the flush time
     cohort_window: float = 1.0
-    # None or "auto": the cohort engine on the backend's one card (the
-    # reference's meshes are not ported; any other value raises)
+    # cohort execution over a device mesh: "auto" builds a clients-axis
+    # mesh clamped to the devices (the visible cards for a backend on the
+    # card, the backend's one device otherwise; 1 device => the exact
+    # single-device engine), "CxD" (e.g. "4x2") or a (clients, data) tuple
+    # (clients may be "auto") builds the 2-D (clients, data) mesh that also
+    # splits each client group's training data, None forces one device, or
+    # pass a repro_torch.launch.mesh.Mesh carrying ``clients_axis``
     mesh: object = "auto"
+    clients_axis: str = "clients"
+    data_axis: str = "data"
     # overlapped host pipeline: assemble each window's batches on a
     # background thread while the card computes (False = inline assembly,
     # bit-identical results)
@@ -141,7 +148,6 @@ class DagAflCoordinator:
         """client_data[k]: {"train": ..., "val": ..., "test": ...} per client
         (backend-specific containers).  ``cohort_engine`` lets callers reuse
         one :class:`repro_torch.fl.cohort.CohortBackend` across runs."""
-        single_device(cfg.mesh)
         self.backend = backend
         self.scenario = as_scenario(cfg.scenario, cfg.n_clients)
         if self.scenario is not None:
@@ -190,6 +196,7 @@ class DagAflCoordinator:
             # engine and stay sequential
             self.cohort = cohort_engine or build_cohort_engine(
                 backend, cohort_size=cfg.cohort_size, mesh=cfg.mesh,
+                clients_axis=cfg.clients_axis, data_axis=cfg.data_axis,
                 overlap=cfg.overlap)
             if self.cohort is not None:
                 self._window = CohortWindow(
@@ -465,8 +472,14 @@ class DagAflCoordinator:
         for k, rd in enumerate(rounds):
             for r in rd["refs"]:
                 weights[k, ref_pos[r]] = 1.0
+        # under a mesh the M stacked tip models spread over the mesh (both
+        # axes of a 2-D one), and one sum of the devices' einsums gives
+        # every client's Eq. 6 aggregate (see core/aggregate.py)
         stacked_tips = tree_stack([self.store.get(r) for r in uniq])
-        agg_stacked = stacked_weighted(stacked_tips, weights)
+        agg_stacked = stacked_weighted(stacked_tips, weights,
+                                       mesh=self.cohort.mesh,
+                                       axis_name=self.cohort.clients_axis,
+                                       data_axis=self.cohort.data_axis)
         del stacked_tips
 
         val_sets = [self.client_data[rd["client"]]["val"] for rd in rounds]

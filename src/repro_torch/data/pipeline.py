@@ -18,6 +18,11 @@ and pads the client axis to a power of two, to bound XLA's compiled
 programs; the port compiles nothing, so it keeps neither, and has no
 ``register_shards`` to pre-size them).
 
+The client axis pads to the engine's target (repeats of the last client)
+and, over a cohort mesh's data axis, the batch axis to a multiple of its
+size (zero rows of zero weight); each client group's and data slice's
+block is copied to its own device (one device is a grid of one).
+
 On the card the copies run on the assembler's own CUDA stream, from pinned
 host memory, so they overlap training on the consumer's stream instead of
 queueing behind it.  :meth:`WindowAssembler.take` makes the consumer's
@@ -34,6 +39,8 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.aggregate import (block_slices, round_up_multiple,
+                                        split_blocks)
 from repro_torch.data.synthetic import make_lm_dataset
 
 
@@ -95,63 +102,113 @@ def _shared_executor() -> ThreadPoolExecutor:
 
 @dataclass
 class AssembledWindow:
-    """One cohort window's training batch on the engine's device.
+    """One cohort window's training batch.
 
-    ``xb``/``yb`` are (K, T, B, ...) stacked client batches, the step axis
-    zero-padded to the window's longest client; ``mask`` (K, T) float32, on
-    the host, masks the padded steps; ``steps`` are the real per-client step
-    counts and ``uniform`` says whether every client runs exactly ``T``
-    steps.  ``ready`` is the CUDA event that the copies to the card
-    recorded (None on the CPU)."""
+    ``parts[g][d]`` is the (xb, yb) block of client group ``g`` and data
+    slice ``d`` on its device: (K_g, T, B_d, ...) stacked client batches,
+    the step axis zero-padded to the window's longest client, the client
+    axis padded with repeats of the last client to the engine's target
+    and, over a data axis, the batch axis padded with zero rows.  ``xb``
+    and ``yb`` are the whole window when it lies on one device (else
+    None); given alone, they are its one part.  ``mask`` (K, T) float32,
+    on the host, masks the padded steps; ``steps`` are the real per-client
+    step counts and ``uniform`` says whether every client runs exactly
+    ``T`` steps.  ``ready`` lists the CUDA events that the copies to each
+    card recorded, as (device, event) (None on the CPU).  ``bm`` (B_pad,)
+    weighs the batch rows over a data axis (1 real, 0 padding; None: every
+    row counts)."""
 
-    xb: torch.Tensor
-    yb: torch.Tensor
+    xb: Optional[torch.Tensor]
+    yb: Optional[torch.Tensor]
     mask: torch.Tensor
     steps: List[int]
     uniform: bool
-    ready: Optional[torch.cuda.Event] = None
+    ready: Optional[list] = None
+    parts: Optional[list] = None
+    bm: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.parts is None:
+            self.parts = [[(self.xb, self.yb)]]
+
+    def placed(self) -> list:
+        """The tensors on the devices."""
+        return [t for group in self.parts for part in group for t in part]
 
 
 class WindowAssembler:
     """Double-buffered host-side batch assembly for the cohort engine.
 
     ``assemble`` is the synchronous path: sample every client's batches,
-    pad the step axis, stack, and copy to ``device``.  ``prefetch``/``take``
-    add the overlap: ``prefetch`` schedules the same assembly on the shared
-    one-worker executor and ``take`` collects it, falling back to inline
-    assembly whenever the prefetched request does not match, so correctness
-    never depends on the caller prefetching the right thing.
-    ``overlap=False`` assembles every window inline; both modes give
-    bit-identical windows.
+    pad the step axis, stack, pad the client axis to the engine's target
+    and the batch axis to a multiple of the data slices, and copy each
+    block to its device of ``grid`` (the (C, D) devices of the engine's
+    client groups and data slices; one device is ``[[device]]``), the
+    reference's ``device_put`` with the engine's shardings.
+    ``prefetch``/``take`` add the overlap: ``prefetch`` schedules the same
+    assembly on the shared one-worker executor and ``take`` collects it,
+    falling back to inline assembly whenever the prefetched request does
+    not match, so correctness never depends on the caller prefetching the
+    right thing.  ``overlap=False`` assembles every window inline; both
+    modes give bit-identical windows.
     """
 
-    def __init__(self, programs, device, *, overlap: bool = True):
+    def __init__(self, programs, grid, *, overlap: bool = True):
         self.programs = programs
-        self.device = torch.device(device)
+        self.grid = np.asarray(grid, dtype=object)
         self.overlap = overlap
-        self._stream = None          # the copies' CUDA stream, made lazily
+        self._streams = {}           # the copies' CUDA stream per device
         self._pending = None         # (key, Future[AssembledWindow])
 
     @staticmethod
-    def _key(datasets, seeds, epochs: int):
+    def _key(datasets, seeds, epochs: int, cohort_target):
         return (tuple(id(ds) for ds in datasets),
-                tuple(int(s) for s in seeds), int(epochs))
+                tuple(int(s) for s in seeds), int(epochs), cohort_target)
+
+    def _copy(self, t: torch.Tensor, dev, cards: list) -> torch.Tensor:
+        """``t`` on ``dev``; to a card from pinned memory on the
+        assembler's stream for that card, which joins ``cards``.  A block
+        cut across the batch axis is made contiguous first (pinned, so its
+        copy stays asynchronous)."""
+        if not t.is_contiguous() or (dev.type == "cuda" and not t.is_pinned()):
+            t = torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=dev.type == "cuda").copy_(t)
+        if dev.type != "cuda":
+            return t.to(dev)
+        with torch.cuda.device(dev):
+            if dev not in self._streams:
+                self._streams[dev] = torch.cuda.Stream()
+            with torch.cuda.stream(self._streams[dev]):
+                out = t.to(dev, non_blocking=True)
+        if dev not in cards:
+            cards.append(dev)
+        return out
 
     def assemble(self, datasets: Sequence, seeds: Sequence[int],
-                 epochs: int) -> AssembledWindow:
+                 epochs: int, cohort_target: Optional[int] = None
+                 ) -> AssembledWindow:
         """Synchronous assembly (also what the background thread runs)."""
         batches = [self.programs.client_batches(ds, seed, epochs)
                    for ds, seed in zip(datasets, seeds)]
         steps = [int(xb.shape[0]) for xb, _ in batches]
         T = max(steps)
-        cuda = self.device.type == "cuda"
+        n_groups, n_data = self.grid.shape
+        cuda = any(d.type == "cuda" for d in self.grid.flat)
+        # client-axis padding: repeats of the last client
+        batches += [batches[-1]] * (max(cohort_target or 0, len(steps))
+                                    - len(steps))
+        # batch rows padded to a multiple of the data slices: zero rows of
+        # zero weight, so they never enter the summed gradients
+        b = batches[0][0].shape[1]
+        bp = round_up_multiple(b, n_data)
 
         def stacked(arrays):
-            out = torch.zeros((len(arrays), T) + arrays[0].shape[1:],
+            out = torch.zeros((len(arrays), T, bp) + arrays[0].shape[2:],
                               dtype=torch.from_numpy(arrays[0][:0]).dtype,
                               pin_memory=cuda)
             for k, a in enumerate(arrays):
-                out[k, :a.shape[0]] = torch.from_numpy(np.ascontiguousarray(a))
+                out[k, :a.shape[0], :b] = torch.from_numpy(
+                    np.ascontiguousarray(a))
             return out
 
         xb = stacked([x for x, _ in batches])
@@ -159,57 +216,65 @@ class WindowAssembler:
         mask = (torch.arange(T)[None, :]
                 < torch.tensor(steps)[:, None]).float()
         uniform = all(s == T for s in steps)
-        ready = None
-        if cuda:
-            with torch.cuda.device(self.device):
-                if self._stream is None:
-                    self._stream = torch.cuda.Stream()
-                with torch.cuda.stream(self._stream):
-                    xb = xb.to(self.device, non_blocking=True)
-                    yb = yb.to(self.device, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record(self._stream)
-        else:
-            xb, yb = xb.to(self.device), yb.to(self.device)
-        return AssembledWindow(xb, yb, mask, steps, uniform, ready)
+        bm = (torch.arange(bp) < b).float() if n_data > 1 else None
+        cards = []
+
+        def copy(t, dev):
+            return self._copy(t, dev, cards)
+
+        parts = [list(zip(split_blocks(xb[rows], devices, 2, copy),
+                          split_blocks(yb[rows], devices, 2, copy)))
+                 for rows, devices in zip(block_slices(xb.shape[0], n_groups),
+                                          self.grid)]
+        ready = []
+        for dev in cards:
+            with torch.cuda.device(dev):
+                event = torch.cuda.Event()
+                event.record(self._streams[dev])
+            ready.append((dev, event))
+        xb, yb = parts[0][0] if self.grid.size == 1 else (None, None)
+        return AssembledWindow(xb, yb, mask, steps, uniform, ready or None,
+                               parts, bm)
 
     def prefetch(self, datasets: Sequence, seeds: Sequence[int],
-                 epochs: int) -> None:
+                 epochs: int, cohort_target: Optional[int] = None) -> None:
         """Schedule background assembly of the given window (one slot: a
         second prefetch before the first is taken replaces it).  No-op when
         overlap is off."""
         if not self.overlap:
             return
-        key = self._key(datasets, seeds, epochs)
+        key = self._key(datasets, seeds, epochs, cohort_target)
         pending = self._pending
         if pending is not None and pending[0] == key:
             return                   # already in flight
         self._drain_pending()
         fut: Future = _shared_executor().submit(
-            self.assemble, tuple(datasets), tuple(seeds), epochs)
+            self.assemble, tuple(datasets), tuple(seeds), epochs,
+            cohort_target)
         self._pending = (key, fut)
 
-    def take(self, datasets: Sequence, seeds: Sequence[int],
-             epochs: int) -> AssembledWindow:
+    def take(self, datasets: Sequence, seeds: Sequence[int], epochs: int,
+             cohort_target: Optional[int] = None) -> AssembledWindow:
         """The prefetched window when it matches this request, else inline
         assembly (identical output either way), ready for use on the
-        caller's current stream."""
+        current stream of each device it lies on."""
         pending, self._pending = self._pending, None
         win = None
         if pending is not None:
             key, fut = pending
             win = fut.result()
-            if key != self._key(datasets, seeds, epochs):
+            if key != self._key(datasets, seeds, epochs, cohort_target):
                 win = None           # stale prefetch: settled, discarded
         if win is None:
-            win = self.assemble(datasets, seeds, epochs)
-        if win.ready is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(win.ready)
+            win = self.assemble(datasets, seeds, epochs, cohort_target)
+        for dev, event in win.ready or ():
+            consumer = torch.cuda.current_stream(dev)
+            consumer.wait_event(event)
             # allocated on the copy stream, used on the consumer's: the
             # allocator must not reuse them before the consumer is done
-            win.xb.record_stream(consumer)
-            win.yb.record_stream(consumer)
+            for t in win.placed():
+                if t.device == dev:
+                    t.record_stream(consumer)
         return win
 
     def _drain_pending(self) -> None:

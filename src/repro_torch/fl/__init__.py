@@ -9,7 +9,9 @@ from repro_torch.fl.baselines import (ALGORITHMS, FLConfig,
                                       run_scalesfl)
 from repro_torch.fl.cohort import (CNNCohortPrograms, CohortBackend,
                                    CohortPrograms, build_cohort_engine,
-                                   perturb_update, register_cohort_programs)
+                                   parse_mesh_spec, perturb_update,
+                                   register_cohort_programs,
+                                   resolve_cohort_mesh)
 from repro_torch.fl.scenarios import (SCENARIOS, Scenario, ScenarioConfig,
                                       as_scenario, dag_attack_metrics)
 from repro_torch.fl.serving import (CNNQueryDriver, ConsensusPublisher,
@@ -25,7 +27,8 @@ __all__ = ["CNNBackend", "LMBackend", "ALGORITHMS", "FLConfig",
            "run_dagfl", "run_dagafl", "fedat_tier_weights",
            "CohortBackend", "CohortPrograms", "CNNCohortPrograms",
            "build_cohort_engine", "perturb_update",
-           "register_cohort_programs",
+           "register_cohort_programs", "parse_mesh_spec",
+           "resolve_cohort_mesh",
            "SCENARIOS", "Scenario", "ScenarioConfig", "as_scenario",
            "dag_attack_metrics",
            "ServingConfig", "ServingReplica", "ConsensusPublisher",

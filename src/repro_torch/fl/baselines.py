@@ -45,8 +45,7 @@ from repro_torch.core.simulator import (CohortWindow, ConvergenceTracker,
                                         CostModel, EventLoop, RunResult,
                                         make_profiles)
 from repro_torch.core.tip_selection import TipSelectionConfig
-from repro_torch.fl.cohort import (build_cohort_engine, perturb_update,
-                                   single_device)
+from repro_torch.fl.cohort import build_cohort_engine, perturb_update
 from repro_torch.fl.scenarios import as_scenario
 
 
@@ -54,10 +53,8 @@ from repro_torch.fl.scenarios import as_scenario
 class FLConfig:
     """The baselines' knobs: the port's :class:`DagAflConfig` ones only.
 
-    ``mesh`` is None or ``"auto"`` (the cohort engine on the backend's one
-    card, ``fl.cohort.single_device``); the reference's ``clients_axis``,
-    ``data_axis`` and ``kernel_policy`` are not ported (there is no mesh,
-    and the tensors' device decides the kernels)."""
+    The reference's ``kernel_policy`` is not ported: the tensors' device
+    decides the kernels."""
 
     n_clients: int = 10
     max_rounds: int = 30
@@ -70,8 +67,11 @@ class FLConfig:
     # cohort engine (1 = sequential reference path)
     cohort_size: int = 1
     cohort_window: float = 1.0
-    # None or "auto": one card (see DagAflConfig.mesh)
+    # cohort execution over a device mesh (see DagAflConfig.mesh):
+    # "auto" | "CxD" | (clients, data) | None | Mesh
     mesh: object = "auto"
+    clients_axis: str = "clients"
+    data_axis: str = "data"
     # overlapped host pipeline (see DagAflConfig.overlap)
     overlap: bool = True
     # algorithm-specific knobs
@@ -96,7 +96,6 @@ class _Harness:
 
     def __init__(self, backend, client_data, global_test, cfg: FLConfig,
                  cost=None, profiles=None):
-        single_device(cfg.mesh)
         self.backend = backend
         self.scenario = as_scenario(cfg.scenario, cfg.n_clients)
         self._last_submitted: Dict[int, object] = {}
@@ -112,9 +111,10 @@ class _Harness:
         self.tracker = ConvergenceTracker(cfg.target_accuracy, cfg.patience)
         # the registry decides: backends without a batched suite get no
         # engine and stay sequential
-        self.cohort = build_cohort_engine(backend,
-                                          cohort_size=cfg.cohort_size,
-                                          mesh=cfg.mesh, overlap=cfg.overlap)
+        self.cohort = build_cohort_engine(
+            backend, cohort_size=cfg.cohort_size, mesh=cfg.mesh,
+            clients_axis=cfg.clients_axis, data_axis=cfg.data_axis,
+            overlap=cfg.overlap)
         self._val_sets = [client_data[c]["val"]
                           for c in range(cfg.n_clients)]
 
@@ -524,7 +524,8 @@ def _dag_run(backend, client_data, global_test, cfg: FLConfig, cost,
         local_epochs=cfg.local_epochs, target_accuracy=cfg.target_accuracy,
         patience=cfg.patience, heterogeneity=cfg.heterogeneity, seed=cfg.seed,
         cohort_size=cfg.cohort_size, cohort_window=cfg.cohort_window,
-        mesh=cfg.mesh, overlap=cfg.overlap,
+        mesh=cfg.mesh, clients_axis=cfg.clients_axis,
+        data_axis=cfg.data_axis, overlap=cfg.overlap,
         ledger_checkpoint_every=cfg.ledger_checkpoint_every,
         scenario=cfg.scenario, **kw)
     coord = DagAflCoordinator(backend, client_data, global_test, dcfg,

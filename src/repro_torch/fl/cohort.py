@@ -72,8 +72,22 @@ multiply-adds (``core.aggregate.fma_f32``) and DP noise from
 ``torch.Generator`` (the reference's ``jax.random`` bits cannot be drawn
 here, so the noise matches in distribution only).
 
-Meshes are not ported: ``mesh`` is None or ``"auto"`` (one card).  There is
-no kernel policy: the tensors' device decides, as everywhere in the port.
+Over a device mesh (``repro_torch.launch.mesh``) one controller drives
+every device, as the reference's ``shard_map`` does: the stacked client
+axis is padded to a multiple of the ``clients`` axis (repeats of the last
+client, discarded) and cut into contiguous groups, and each group runs the
+single-device programs above on its own device, with no exchange inside a
+window.  Launches are asynchronous, so the devices work at once; results
+are read only after every group has launched.  On a 2-D (clients, data)
+mesh each group's training batch (and its validation and signature
+samples) also splits over the ``data`` axis: every device of a group
+holds the group's models, computes the sum-form loss or metric terms of
+its slice, and the terms are added over the group's devices, in device
+order on its first one (the reference's ``lax.psum``), before the one
+division and the one update; the other devices take copies of the
+updated models, so the replicas stay bit-identical.  A 1x1 mesh is the
+single-device engine.  There is no kernel policy: the tensors' device
+decides, as everywhere in the port.
 """
 from __future__ import annotations
 
@@ -84,24 +98,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregate import (TREE_WINDOW, f32_mean, fma_f32,
-                                        input_row_sum, next_pow2,
-                                        ordered_sum, pad_leading,
-                                        round_up_multiple, tree_leaves,
-                                        tree_map, tree_stack, tree_unstack)
+from repro_torch.core.aggregate import (TREE_WINDOW, add_in_order,
+                                        axis_devices, block_slices,
+                                        f32_mean, fma_f32, input_row_sum,
+                                        next_pow2, ordered_sum, pad_leading,
+                                        round_up_multiple, split_blocks,
+                                        tree_leaves, tree_map, tree_stack,
+                                        tree_unstack)
 from repro_torch.data.pipeline import WindowAssembler
 from repro_torch.fl.backend import CNNBackend, LMBackend
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import apply_updates
+from repro_torch.runtime import on_device
 
 
-def single_device(mesh) -> None:
-    """Raise unless ``mesh`` asks for one device (None or ``"auto"``)."""
-    if mesh is not None and not (isinstance(mesh, str) and mesh == "auto"):
-        raise NotImplementedError(
-            f"mesh={mesh!r}: cohort meshes are not ported to the PyTorch "
-            f"package (only None or 'auto', one card)")
+def _pad_rows(tree, target: int):
+    """Pad every leaf's leading axis to ``target`` rows with repeats of its
+    last row (the reference's cohort padding; those rows are discarded)."""
+    def pad(leaf):
+        reps = target - leaf.shape[0]
+        if reps <= 0:
+            return leaf
+        return torch.cat([leaf, leaf[-1:].expand((reps,) + leaf.shape[1:])])
+    return tree_map(pad, tree)
 
 
 def _client(tree, k: int):
@@ -212,11 +232,23 @@ def _grouped_conv(x: torch.Tensor, w: torch.Tensor,
     return F.conv2d(x, weight, b.reshape(-1), padding="same", groups=k)
 
 
+def _masked_terms(rows: torch.Tensor, ms: torch.Tensor):
+    """(sum of the rows whose mask is 1, their count): the reference's
+    ``sum(z * w, 0)`` and ``sum(w)``."""
+    w = ms[:, None]
+    return (rows * w).sum(dim=0), w.sum()
+
+
+def _divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """A window mean from its sum-form terms: a true float32 division by
+    ``max(den, 1)``, as the reference's cohort programs divide."""
+    return num / den.clamp_min(1.0)
+
+
 def _masked_mean(rows: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     """Mean of the rows whose mask is 1, by a true division (the
     reference's ``sum(z * w, 0) / max(sum(w), 1)``)."""
-    w = ms[:, None]
-    return (rows * w).sum(dim=0) / w.sum().clamp_min(1.0)
+    return _divide(*_masked_terms(rows, ms))
 
 
 def _reference_rows(n: int) -> int:
@@ -301,8 +333,9 @@ class CohortPrograms:
         terms for ONE model on K stacked shards
       * ``sample_signature(params, xs)``  per-sample Eq. 3 signature rows,
         so the engine can take a padding-masked mean
-      * ``signature_mean(params, xs, ms)``  that mean (by default
-        ``_masked_mean`` of ``sample_signature``)
+      * ``signature_terms(params, xs, ms)``  (num, den) of that mean (by
+        default the masked sum of ``sample_signature``'s rows);
+        ``signature_mean`` = num / max(den, 1)
 
     on the host (batch assembly, matching the sequential RNG streams):
       * ``client_batches(ds, seed, epochs)``  numpy (xb (T, ...), yb (T, ...))
@@ -342,19 +375,21 @@ class CohortPrograms:
     def masked_eval(self, params, xs, ys, ms):
         """Masked accuracy on one shard: the sum-form terms, then a true
         division."""
-        num, den = self.eval_terms(params, xs, ys, ms)
-        return num / den.clamp_min(1.0)
+        return _divide(*self.eval_terms(params, xs, ys, ms))
 
     def eval_shared(self, params, x, y, mask):
         """ONE model on K stacked shards, via the sum-form terms."""
-        num, den = self.eval_shared_terms(params, x, y, mask)
-        return num / den.clamp_min(1.0)
+        return _divide(*self.eval_shared_terms(params, x, y, mask))
 
     def sample_signature(self, params, xs):
         raise NotImplementedError
 
+    def signature_terms(self, params, xs, ms):
+        """(num (dims,), den) of the masked signature mean."""
+        return _masked_terms(self.sample_signature(params, xs), ms)
+
     def signature_mean(self, params, xs, ms):
-        return _masked_mean(self.sample_signature(params, xs), ms)
+        return _divide(*self.signature_terms(params, xs, ms))
 
     def client_batches(self, ds, seed: int, epochs: int):
         raise NotImplementedError
@@ -555,14 +590,14 @@ class LMCohortPrograms(CohortPrograms):
         return tfm.per_sample_signature(self._hidden(params, xs),
                                         self.sig_runtime)
 
-    def signature_mean(self, params, xs, ms):
-        """The masked mean of the rows, from their exact bucket counts (one
-        kernel launch) in the reference's fused order."""
+    def signature_terms(self, params, xs, ms):
+        """The masked sum of the rows, from their exact bucket counts (one
+        kernel launch) in the reference's fused order, and the count."""
         rt = self.sig_runtime
         sums, scale = ops.signature_buckets(
             self._hidden(params, xs), tau=rt.signature_tau,
             n_sig=rt.signature_dims)
-        return _fused_row_sum(sums, ms * scale) / ms.sum().clamp_min(1.0)
+        return _fused_row_sum(sums, ms * scale), ms.sum()
 
     def client_batches(self, ds, seed: int, epochs: int):
         """``LMBackend.train_local``'s stream: one ``_sample`` call drawing
@@ -613,10 +648,16 @@ def _programs_for(backend) -> Optional[Type[CohortPrograms]]:
 
 class CohortBackend:
     """Batched train/eval/signature over a stacked K-client tree, on the
-    backend's device.  The backend-specific programs come from the
-    :class:`CohortPrograms` registry."""
+    backend's device or over a device mesh.  The backend-specific programs
+    come from the :class:`CohortPrograms` registry.
 
-    def __init__(self, backend, eval_cache_entries: int = 64,
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.Mesh` with a
+    ``clients_axis`` axis (and optionally ``data_axis``); one of a single
+    device is the single-device engine.  Results return to the backend's
+    device."""
+
+    def __init__(self, backend, mesh=None, clients_axis: str = "clients",
+                 data_axis: str = "data", eval_cache_entries: int = 64,
                  overlap: bool = True):
         programs_cls = _programs_for(backend)
         if programs_cls is None:
@@ -632,58 +673,135 @@ class CohortBackend:
         # simulator sweeps many shards; the cap bounds the memory they hold
         self._eval_data_cache: "OrderedDict" = OrderedDict()
         self.eval_cache_entries = max(int(eval_cache_entries), 1)
+        # a 1x1 (or absent) mesh is the single-device engine: a grid of
+        # one device, which every program below runs over
+        self.clients_axis = clients_axis
+        self.data_axis = data_axis
+        self.mesh = None
+        self._grid = np.asarray([[self.device]], dtype=object)
+        if mesh is not None:
+            if clients_axis not in mesh.shape:
+                raise ValueError(
+                    f"mesh axes {tuple(mesh.axis_names)} carry no "
+                    f"{clients_axis!r} axis")
+            n_clients = int(mesh.shape[clients_axis])
+            n_data = int(mesh.shape.get(data_axis, 1))
+            if n_clients > 1 or n_data > 1:
+                self.mesh = mesh
+                axes = (clients_axis,) + ((data_axis,) if n_data > 1 else ())
+                self._grid = np.asarray(axis_devices(mesh, axes),
+                                        dtype=object).reshape(n_clients,
+                                                              n_data)
+        self._n_shards, self._n_data = self._grid.shape
         # host-side window assembly: prefetched on a background thread, or
         # inline when overlap is off
-        self.assembler = WindowAssembler(self.programs, self.device,
+        self.assembler = WindowAssembler(self.programs, self._grid,
                                          overlap=overlap)
 
     @staticmethod
     def supports(backend) -> bool:
         return _programs_for(backend) is not None
 
+    def _cohort_target(self, k: int) -> int:
+        """Client-axis pad target: a multiple of the clients axis under a
+        mesh, so that the groups divide evenly."""
+        return round_up_multiple(k, self._n_shards)
+
+    def _groups(self, n: int):
+        """(rows, devices) of each client group over an axis of ``n``
+        padded rows."""
+        return zip(block_slices(n, self._n_shards), self._grid)
+
     # -- batched programs ---------------------------------------------------
 
-    def _train(self, stacked, win):
-        """Local SGD of the K stacked clients over the window's batches
-        ``win.xb`` (K, T, B, ...): one batched step per tick.  A client
-        whose steps have run out (``t >= win.steps[k]``) still computes on
-        its zero padding, and its parameter and momentum rows are put back
+    def _train_group(self, stacked, xbs, ybs, bms, steps):
+        """Local SGD of stacked clients over their batches ``xbs[d]`` (K, T,
+        B_d, ...), one data slice per device, the first being the group's:
+        one batched step per tick.  Each slice's sum-form loss uses the
+        group's total row count, its gradients are added over the slices
+        in device order on the first device, and the update is taken there;
+        the other slices compute on copies of the updated models.  ``bms``
+        weighs the slices' batch rows (None: every row counts).  A client
+        whose steps have run out (``t >= steps[k]``) still computes on its
+        zero padding, and its parameter and momentum rows are put back
         after the update, so masked steps keep the old state exactly (the
-        optimizer advances its momentum in place).  A uniform window takes
-        no masked step.  Returns the trained tree and (K, T) losses, 0 on
-        masked steps."""
-        params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
-                          stacked)
+        optimizer advances its momentum in place).  Returns the trained
+        tree and the (K, T) losses, both on the first device, without
+        waiting for them."""
+        dev = xbs[0].device
+        params = tree_map(lambda p: p.detach().to(dev, copy=True)
+                          .requires_grad_(True), stacked)
         opt_state = self.opt.init(params)
         state = tree_leaves(params) + tree_leaves(opt_state.get("mu", []))
-        rows = torch.ones(win.yb.shape[2], device=win.yb.device)
-        denom = self.programs.loss_denom(rows, win.yb[0, 0])
+        if bms is None:
+            bms = [torch.ones(yb.shape[2], device=yb.device) for yb in ybs]
+        denom = add_in_order([self.programs.loss_denom(bm, yb[0, 0])
+                              for bm, yb in zip(bms, ybs)], dev)
+        denoms = [denom.to(yb.device) for yb in ybs]
         losses = []
-        for t in range(win.xb.shape[1]):
-            loss = self.programs.sum_loss(params, win.xb[:, t], win.yb[:, t],
-                                          rows, denom)
-            loss.sum().backward()
-            done = [k for k, s in enumerate(win.steps) if t >= s]
+        for t in range(xbs[0].shape[1]):
+            replicas = [params] + [
+                tree_map(lambda p, d=xb.device: p.detach().to(d)
+                         .requires_grad_(True), params) for xb in xbs[1:]]
+            parts = []
+            for rep, xb, yb, bm, den in zip(replicas, xbs, ybs, bms, denoms):
+                with on_device(xb.device):
+                    loss = self.programs.sum_loss(rep, xb[:, t], yb[:, t],
+                                                  bm, den)
+                    loss.sum().backward()
+                parts.append(loss.detach())
+            done = [k for k, s in enumerate(steps) if t >= s]
             with torch.no_grad():
                 old = [leaf[k].clone() for k in done for leaf in state]
                 grads = tree_map(lambda p: p.grad, params)
+                for rep in replicas[1:]:
+                    grads = tree_map(lambda g, r: g + r.grad.to(dev), grads,
+                                     rep)
                 updates, opt_state = self.opt.update(grads, opt_state, params)
                 apply_updates(params, updates)
                 _tree_select(done, state, old)
             for p in tree_leaves(params):
                 p.grad = None
-            losses.append(loss.detach())
-        losses = torch.stack(losses, dim=1).cpu().numpy()
+            losses.append(add_in_order(parts, dev))
+        return tree_map(lambda p: p.detach(), params), torch.stack(losses, 1)
+
+    def _train(self, stacked, win):
+        """The window's local SGD: each client group on its devices
+        (launched group after group, read once all are running), the trees
+        gathered on the engine's device.  Returns the trained tree and
+        (K, T) losses, 0 on masked steps."""
+        k = len(win.steps)
+        target = self._cohort_target(k)
+        stacked = _pad_rows(stacked, target)
+        steps = win.steps + [win.steps[-1]] * (target - k)
+        runs = []
+        for (rows, devices), part in zip(self._groups(target), win.parts):
+            bms = None if win.bm is None else split_blocks(win.bm, devices)
+            with on_device(devices[0]):
+                runs.append(self._train_group(
+                    tree_map(lambda leaf: leaf[rows], stacked),
+                    [p[0] for p in part], [p[1] for p in part], bms,
+                    steps[rows]))
+        params = tree_map(lambda *ls: self._gather(ls)[:k],
+                          *[r[0] for r in runs])
+        losses = self._gather([r[1] for r in runs])[:k].cpu().numpy()
         losses[win.mask.numpy() == 0] = 0.0
-        return tree_map(lambda p: p.detach(), params), losses
+        return params, losses
+
+    def _gather(self, parts) -> torch.Tensor:
+        """The groups' blocks joined on the engine's device (one group's
+        block as it is)."""
+        if len(parts) == 1:
+            return parts[0].to(self.device)
+        return torch.cat([p.to(self.device) for p in parts])
 
     def _eval_arrays(self, datasets: Sequence, limit: int,
                      kind: str = "eval"):
         """(x, y, mask) on the device for a tuple of shards, each padded to
-        the call's largest.  Per-dataset LRU cache of the unpadded shards:
-        the monitor's full val-set sweep and a window's subset reuse the
-        same buffers, and the cache stays bounded at
-        ``eval_cache_entries``."""
+        the call's largest (and, over a data axis, to a multiple of it).
+        Per-dataset LRU cache of the unpadded shards: the monitor's full
+        val-set sweep and a window's subset reuse the same buffers, and the
+        cache stays bounded at ``eval_cache_entries``."""
         singles = []
         for ds in datasets:
             key = (id(ds), limit, kind)
@@ -704,12 +822,33 @@ class CohortBackend:
         cap = max(self.eval_cache_entries, len(datasets))
         while len(self._eval_data_cache) > cap:
             self._eval_data_cache.popitem(last=False)
-        target = max(s[3] for s in singles)
+        target = round_up_multiple(max(s[3] for s in singles), self._n_data)
         x = torch.stack([pad_leading(s[1], target) for s in singles])
         y = torch.stack([pad_leading(s[2], target) for s in singles])
         rows = torch.arange(target, device=self.device)
         mask = torch.stack([(rows < s[3]).float() for s in singles])
         return x, y, mask
+
+    def _per_client(self, fn, model, arrays, k: int):
+        """``fn``'s (num, den) terms for models ``model(0..k-1)``, model
+        ``j`` on row ``j`` of ``arrays`` (K, N, ...): client rows in groups
+        (a padded row computes nothing), sample axes in data slices, the
+        terms added over a group's devices before the division.  Returns
+        the k results on the engine's device."""
+        out = []
+        for rows, devices in self._groups(self._cohort_target(k)):
+            for j in range(rows.start, min(rows.stop, k)):
+                params = model(j)
+                terms = []
+                for d, *cols in zip(devices, *(split_blocks(a[j], devices)
+                                               for a in arrays)):
+                    with on_device(d):
+                        terms.append(fn(tree_map(lambda leaf: leaf.to(d),
+                                                 params), *cols))
+                num = add_in_order([t[0] for t in terms], devices[0])
+                den = add_in_order([t[1] for t in terms], devices[0])
+                out.append(_divide(num, den).to(self.device))
+        return torch.stack(out)
 
     # -- public API ----------------------------------------------------------
 
@@ -721,7 +860,8 @@ class CohortBackend:
         The matching ``train_cohort_stacked`` collects it; a mismatched or
         absent prefetch assembles inline, with identical results."""
         self.assembler.prefetch(datasets, seeds,
-                                epochs or self.programs.default_epochs)
+                                epochs or self.programs.default_epochs,
+                                self._cohort_target(len(datasets)))
 
     def train_cohort_stacked(self, stacked_params, datasets, seeds,
                              epochs: Optional[int] = None):
@@ -732,7 +872,8 @@ class CohortBackend:
         k = tree_leaves(stacked_params)[0].shape[0]
         if k != len(datasets):
             raise ValueError(f"{k} stacked models for {len(datasets)} shards")
-        win = self.assembler.take(datasets, seeds, epochs)
+        win = self.assembler.take(datasets, seeds, epochs,
+                                  self._cohort_target(k))
         new_params, losses = self._train(stacked_params, win)
         return new_params, self.programs.summarize_losses(losses, win.steps,
                                                           epochs)
@@ -748,10 +889,9 @@ class CohortBackend:
                                 limit: int = 512) -> List[float]:
         """K models, each on its own (ragged) shard, one after another."""
         x, y, mask = self._eval_arrays(datasets, limit)
-        accs = [self.programs.masked_eval(_client(stacked_params, k),
-                                          x[k], y[k], mask[k])
-                for k in range(len(datasets))]
-        return torch.stack(accs).cpu().tolist()
+        return self._per_client(self.programs.eval_terms,
+                                lambda j: _client(stacked_params, j),
+                                (x, y, mask), len(datasets)).cpu().tolist()
 
     def evaluate_cohort(self, params_list, datasets,
                         limit: int = 512) -> List[float]:
@@ -761,22 +901,42 @@ class CohortBackend:
     @torch.inference_mode()
     def evaluate_shared(self, params, datasets, limit: int = 512
                         ) -> List[float]:
-        """One model on K shards in one forward (the publisher's monitor)."""
+        """One model on K shards in one forward (the publisher's monitor);
+        over a mesh the model is copied to every device and the shards
+        split in groups and data slices."""
         x, y, mask = self._eval_arrays(datasets, limit)
-        return self.programs.eval_shared(params, x, y, mask).cpu().tolist()
+        k = len(datasets)
+        target = self._cohort_target(k)
+        x, y, mask = (pad_leading(a, target) for a in (x, y, mask))
+        out = []
+        for rows, devices in self._groups(target):
+            terms = []
+            for d, *cols in zip(devices, *(split_blocks(a[rows], devices, 1)
+                                           for a in (x, y, mask))):
+                with on_device(d):
+                    terms.append(self.programs.eval_shared_terms(
+                        tree_map(lambda leaf: leaf.to(d), params), *cols))
+            num = add_in_order([t[0] for t in terms], devices[0])
+            den = add_in_order([t[1] for t in terms], devices[0])
+            out.append(_divide(num, den).to(self.device))
+        return torch.cat(out)[:k].cpu().tolist()
 
     @torch.inference_mode()
     def evaluate_many(self, params_list, ds, limit: int = 512) -> List[float]:
         """M candidate models on one validation shard (tip selection).  Up
         to ``eval_many_min_batch`` models take the backend's own program
-        and its mean; more take the masked mean, as in the reference."""
+        and its mean; more take the masked mean, as in the reference.  Over
+        a mesh the models split in groups and the shard is copied to every
+        group (its samples split over a data axis)."""
         if len(params_list) <= self.programs.eval_many_min_batch:
             return [self.programs.evaluate_one(p, ds, limit)
                     for p in params_list]
         x, y, mask = self._eval_arrays([ds], limit)
-        accs = [self.programs.masked_eval(p, x[0], y[0], mask[0])
-                for p in params_list]
-        return torch.stack(accs).cpu().tolist()
+        m = len(params_list)
+        arrays = [a.expand((m,) + a.shape[1:]) for a in (x, y, mask)]
+        return self._per_client(self.programs.eval_terms,
+                                params_list.__getitem__, arrays, m
+                                ).cpu().tolist()
 
     @torch.inference_mode()
     def signature_cohort_stacked(self, stacked_params, datasets,
@@ -784,10 +944,9 @@ class CohortBackend:
         """(K, dims) Eq. 3 signatures: per client, the per-sample rows (one
         kernel launch) and their masked mean."""
         x, _, mask = self._eval_arrays(datasets, limit, kind="sig")
-        sigs = [self.programs.signature_mean(_client(stacked_params, k),
-                                             x[k], mask[k])
-                for k in range(len(datasets))]
-        return torch.stack(sigs).cpu().numpy()
+        return self._per_client(self.programs.signature_terms,
+                                lambda j: _client(stacked_params, j),
+                                (x, mask), len(datasets)).cpu().numpy()
 
     def signature_cohort(self, params_list, datasets,
                          limit: int = 128) -> np.ndarray:
@@ -803,13 +962,69 @@ class CohortBackend:
         return perturb_cohort_stacked_trees(agg_stacked, new_stacked, plan)
 
 
+# ---------------------------------------------------------------------------
+# engine construction (shared by the coordinator and all baselines)
+# ---------------------------------------------------------------------------
+
+
+def parse_mesh_spec(spec):
+    """A mesh spec's (clients, data) request.  Accepts ``"auto"``,
+    ``"CxD"`` strings (``"4x2"``, ``"8x1"``, ``"8"``), and 2-tuples whose
+    clients slot may be ``"auto"`` (``("auto", 2)``, ``(4, 2)``)."""
+    if isinstance(spec, str):
+        parts = spec.lower().split("x")
+        if len(parts) > 2 or not all(
+                p == "auto" or p.isdigit() for p in parts):
+            raise ValueError(
+                f"mesh must be 'auto', 'CxD' (e.g. '4x2'), a (clients, "
+                f"data) tuple, None or a Mesh: {spec!r}")
+    elif isinstance(spec, (tuple, list)):
+        parts = list(spec)
+        if len(parts) != 2:
+            raise ValueError(f"mesh tuple must be (clients, data): {spec!r}")
+    else:
+        raise TypeError(f"unsupported mesh spec: {spec!r}")
+    clients = parts[0]
+    data = int(parts[1]) if len(parts) > 1 else 1
+    if clients != "auto":
+        clients = int(clients)
+    return clients, data
+
+
+def resolve_cohort_mesh(mesh, cohort_size: int, clients_axis: str = "clients",
+                        data_axis: str = "data", devices=None):
+    """``"auto"`` -> a clients mesh clamped to the devices (never raises
+    for lack of them; one device gives the single-device engine); ``"CxD"``
+    (e.g. ``"4x2"``) or a ``(clients, data)`` tuple (clients may be
+    ``"auto"`` -> ``cohort_size``) -> the 2-D (clients, data) mesh, clamped
+    the same way; ``None`` -> single-device; a Mesh -> itself.  The devices
+    are ``devices``, else the visible CUDA cards
+    (``launch.mesh.make_cohort_mesh``)."""
+    if mesh is None or hasattr(mesh, "axis_names"):
+        return mesh
+    clients, data = parse_mesh_spec(mesh)
+    if clients == "auto":
+        clients = cohort_size
+    from repro_torch.launch.mesh import make_cohort_mesh
+    return make_cohort_mesh(clients, axis=clients_axis, data=data,
+                            data_axis=data_axis, devices=devices)
+
+
 def build_cohort_engine(backend, *, cohort_size: int, mesh="auto",
+                        clients_axis: str = "clients",
+                        data_axis: str = "data",
                         overlap: bool = True) -> Optional[CohortBackend]:
-    """The engine for any registered backend family on one device, or
-    ``None`` when cohort execution is off (``cohort_size <= 1``) or the
-    backend has no registered program suite: callers then run the
-    sequential path."""
-    single_device(mesh)
+    """The engine for any registered backend family: the mesh spec resolved
+    (:func:`resolve_cohort_mesh`) over the backend's device when that is
+    the CPU (one device: the single-device engine) and over the visible
+    cards when it is a card.  ``None`` when cohort execution is off
+    (``cohort_size <= 1``) or the backend has no registered program suite:
+    callers then run the sequential path."""
     if cohort_size <= 1 or not CohortBackend.supports(backend):
         return None
-    return CohortBackend(backend, overlap=overlap)
+    devices = None if backend.device.type == "cuda" else [backend.device]
+    return CohortBackend(
+        backend, overlap=overlap, clients_axis=clients_axis,
+        data_axis=data_axis,
+        mesh=resolve_cohort_mesh(mesh, cohort_size, clients_axis, data_axis,
+                                 devices))

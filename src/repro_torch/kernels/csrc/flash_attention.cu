@@ -56,6 +56,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -365,20 +366,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// cudaFuncSetAttribute applies to the current device only: the limit is
+// raised once per device and kernel, so that the first launch on another
+// card does not run without it.
+template <auto Kernel>
+cudaError_t raise_smem_limit(int bytes, int device) {
+  static std::atomic<unsigned long long> done{0};    // one bit a device
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int S, const long long* strides, float scale,
            int causal, int window, float softcap, int aligned,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  static bool configured = false;     // once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = raise_smem_limit<flash_attention_kernel<T, HD>>(
+        static_cast<int>(smem), device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};

@@ -74,6 +74,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -883,6 +884,20 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int hd,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// cudaFuncSetAttribute applies to the current device only: the limit is
+// raised once per device and kernel, so that the first launch on another
+// card does not run without it.
+template <auto Kernel>
+cudaError_t raise_smem_limit(int bytes, int device) {
+  static std::atomic<unsigned long long> done{0};    // one bit a device
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int S, const long long* strides, float scale,
@@ -896,17 +911,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !encode(enc, &tv, v, HD, K, S, B, strides + 6, T::CB, T::BN) ||
       !encode(enc, &to, o, HD, H, S, B, strides + 9, T::CB, BQ / 2))
     return kBadTensorMap;
-  static bool configured = false;     // once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_sm90_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(T::SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = raise_smem_limit<flash_attention_sm90_kernel<HD>>(
+        static_cast<int>(T::SMEM), device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);

@@ -362,6 +362,11 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
+    # the reference constrains the activations' batch dim to the
+    # launcher's mesh axes here and after each layer and stage, so that
+    # XLA's sharding propagation keeps the batch split; eager PyTorch has
+    # no partitioner and a tensor's device is its placement, so nothing
+    # moves (the sLSTM scan splits its batch itself, ``models.xlstm``)
     x = _embed(params, tokens, cfg)
     positions = _positions_for(cfg, batch, B, S, tokens.device)
     enc_out = None

@@ -40,9 +40,14 @@ reference computes them in ``jnp``.  A prefill through the kernels hands
 their final states (``C, n, m`` and ``c, n, h, m``) over as the decode
 state.
 
-Not ported: the mesh branch of the reference's
-``_slstm_scan_maybe_sharded`` (one card, no mesh); it raises
-``NotImplementedError``.
+With ``runtime.mesh`` and ``runtime.batch_axes``,
+:func:`_slstm_scan_maybe_sharded` splits the recurrence's batch over the
+devices of those axes, the reference's ``shard_map`` region: each device
+runs its rows' recurrence (the kernel on the card, the model's own step on
+the CPU) with its own copy of ``w_gates``, ``r_gates`` and ``b_gates``,
+and the rows are joined on the input's device.  Autograd's device copies
+add the copies' weight gradients once, after the loop, which is the
+reference's psum hoisted out of the timestep loop.
 """
 from __future__ import annotations
 
@@ -53,11 +58,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.aggregate import axis_devices, split_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm import mlstm_chunk
 from repro_torch.kernels.slstm import slstm_step
 from repro_torch.models.layers import (_normal, apply_norm, dense_init,
                                        init_norm, torch_dtype)
+from repro_torch.runtime import on_device
 
 
 def _mdims(cfg: ArchConfig):
@@ -316,26 +323,62 @@ def _slstm_scan(params, xconv, state):
     return torch.stack(hs, 1), {"c": c, "n": n, "h": h, "m": m}
 
 
+def _slstm_recurrence(params, xconv, state, use_kernels: bool):
+    """The recurrence over ``xconv`` (B,S,d): the kernel, or the model's
+    own step."""
+    if use_kernels:
+        hs, (c, n, h, m) = ops.slstm_scan(
+            *_slstm_inputs(params, xconv), state["c"], state["n"],
+            state["h"], state["m"])
+        return hs, {"c": c, "n": n, "h": h, "m": m}
+    return _slstm_scan(params, xconv, state)
+
+
+def _slstm_scan_maybe_sharded(params, xconv, state, runtime):
+    """The recurrence with its batch split over the mesh's batch axes,
+    when ``runtime`` has a mesh and they divide the batch; else on one
+    device.
+
+    Each device runs the recurrence of its rows with its own copies of
+    the gate weights, and the rows are joined on ``xconv``'s device.  The
+    weights' gradients come back through the copies and are added once,
+    after the loop: the reference's reason for its ``shard_map`` region
+    (without it GSPMD put the weight-gradient all-reduce inside the
+    per-timestep backward loop)."""
+    use_kernels = runtime is not None and runtime.use_kernels
+    mesh = getattr(runtime, "mesh", None)
+    baxes = getattr(runtime, "batch_axes", None)
+    B = xconv.shape[0]
+    if mesh is None or not baxes or B % max(runtime.batch_axis_size, 1):
+        return _slstm_recurrence(params, xconv, state, use_kernels)
+    devices = axis_devices(mesh, tuple(baxes))
+    used = {k: params[k] for k in ("w_gates", "r_gates", "b_gates")}
+    xs = split_blocks(xconv, devices)
+    states = {k: split_blocks(state[k], devices) for k in ("c", "n", "h", "m")}
+    outs = []
+    for i, dev in enumerate(devices):
+        with on_device(dev):
+            outs.append(_slstm_recurrence(
+                {k: v.to(dev) for k, v in used.items()}, xs[i],
+                {k: s[i] for k, s in states.items()}, use_kernels))
+    home = xconv.device
+    hs = torch.cat([o[0].to(home) for o in outs])
+    core = {k: torch.cat([o[1][k].to(home) for o in outs])
+            for k in ("c", "n", "h", "m")}
+    return hs, core
+
+
 def slstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
     """Full-sequence sLSTM block.  x (B,S,d) -> (out (B,S,d), state)."""
     xc = cfg.xlstm
     compute = torch_dtype(cfg.compute_dtype)
     B, S, _ = x.shape
-    if getattr(runtime, "mesh", None) is not None:
-        raise NotImplementedError("the sharded sLSTM scan over a mesh is not "
-                                  "ported: the port runs on one card")
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
     xp = torch.cat([state["conv"].to(compute), x.to(compute)], dim=1)
     xconv = _causal_conv(xp, params["conv_w"].to(compute),
                          params["conv_b"].to(compute), S)
-    if runtime is not None and runtime.use_kernels:
-        hs, (c, n, h, m) = ops.slstm_scan(
-            *_slstm_inputs(params, xconv), state["c"], state["n"],
-            state["h"], state["m"])
-        core = {"c": c, "n": n, "h": h, "m": m}
-    else:
-        hs, core = _slstm_scan(params, xconv, state)
+    hs, core = _slstm_scan_maybe_sharded(params, xconv, state, runtime)
     hs = apply_norm(params["out_norm"], hs.to(x.dtype), "rmsnorm")
     up = hs.to(compute) @ params["up_proj"].to(compute)
     a, g = up.chunk(2, dim=-1)

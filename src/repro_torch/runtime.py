@@ -10,12 +10,16 @@ patterns the Eq. 3 signatures count.  Both TF32 switches are turned off
 whenever a device on the card is resolved.
 
 :class:`Runtime` is the port of ``repro.runtime.Runtime``: the knobs that
-model functions read.  It has no kernel policy, mesh or batch axes: the
-tensor's device decides between a kernel and its plain version.
+model functions read.  It has no kernel policy: the tensor's device decides
+between a kernel and its plain version.  ``mesh`` with ``batch_axes`` splits
+the sLSTM recurrence's batch over the devices of those axes
+(``models.xlstm``).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -26,6 +30,12 @@ class Runtime:
     want_signature: bool = False   # emit the Eq. 3 feature signature in aux
     signature_tau: float = 0.05
     signature_dims: int = 64
+    # the batch's mesh axes and their total size, and the mesh
+    # (repro_torch.launch.mesh.Mesh): the sLSTM scan splits its batch over
+    # the devices of these axes (None: one device)
+    batch_axes: Optional[Tuple[str, ...]] = None
+    batch_axis_size: int = 1
+    mesh: Optional[Any] = None
 
 
 DEFAULT = Runtime()
@@ -52,3 +62,11 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def on_device(device):
+    """The context for launches on ``device``: a card's kernels launch on
+    the current card's stream."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

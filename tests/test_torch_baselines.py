@@ -187,18 +187,23 @@ def test_fedat_tier_weights_pinned_values():
 def test_flconfig_carries_the_ported_knobs_only():
     ref = {f.name: f.default for f in dataclasses.fields(J.FLConfig)}
     got = {f.name: f.default for f in dataclasses.fields(T.FLConfig)}
-    assert set(ref) - set(got) == {"clients_axis", "data_axis",
-                                   "kernel_policy"}
+    assert set(ref) - set(got) == {"kernel_policy"}
     assert set(got) <= set(ref)
     assert all(got[k] == ref[k] for k in got)
 
 
 @pytest.mark.parametrize("mesh", ["2x2", ("auto", 2), "8"])
 def test_harness_takes_one_card_only(mesh):
+    """A mesh spec builds the harness: the stub backend has no cohort
+    suite, so the run is sequential and equals the run without a mesh, as
+    in the reference."""
     data, test, _ = stub_world()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.run_fedavg(StubBackend(torch.from_numpy), data, test,
-                     T.FLConfig(n_clients=4, max_rounds=1, mesh=mesh))
+    runs = [T.run_fedavg(StubBackend(torch.from_numpy), data, test,
+                         T.FLConfig(n_clients=4, max_rounds=1, mesh=m,
+                                    cohort_size=2))
+            for m in (mesh, None)]
+    assert runs[0].history == runs[1].history
+    assert runs[0].final_accuracy == runs[1].final_accuracy
 
 
 def test_genesis_defaults_to_the_seeded_generator():

@@ -262,6 +262,32 @@ def test_flash_route_counters(card):
     assert {w: n for w, n in moved.items() if n} == {16: 2, -1: 2}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_launch_on_every_card(card, dtype):
+    """Both flash kernels (float32 FMA and bfloat16 Hopper) on every
+    visible card, the first launch there included: the dynamic
+    shared-memory limit is raised per device, so a launch on a second card
+    runs with it.  Each card's output equals the plain version's within
+    the route's tolerance.  Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards, {n} visible")
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    route = "launches_fma" if dtype == torch.float32 else "launches_sm90"
+    for i in reversed(range(n)):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v = (torch.randn((1, 4, 256, 128), generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        before = getattr(fa, route)
+        got = fa.flash_attention_bhsd(q, k, v)
+        torch.cuda.synchronize(dev)
+        assert getattr(fa, route) - before == 1 and got.device == dev
+        want = fa.flash_attention_plain(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 def test_flash_sm90_build_has_no_spills(card):
     """nvcc's -Xptxas -v report for the Hopper kernel: every head_dim's
     instantiation (32, 64, 128, 192, 256) without spills, and setmaxnreg

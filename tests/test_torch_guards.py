@@ -830,10 +830,15 @@ def test_nvcc_missing_raises(monkeypatch):
 
 @pytest.mark.parametrize("name,value", [("mesh", "2x2")])
 def test_unported_options_raise(name, value):
+    """``mesh`` left the unported options: a sequential coordinator
+    (``cohort_size`` 1) keeps the spec and builds no engine, as the
+    reference's does."""
     cfg = DagAflConfig(n_clients=2)
     setattr(cfg, name, value)
-    with pytest.raises(NotImplementedError, match=name):
-        DagAflCoordinator(object(), [{}, {}], None, cfg)
+    data = [{"train": None, "val": None}] * 2
+    coord = DagAflCoordinator(object(), data, None, cfg)
+    assert coord.cohort is None and coord.cfg.mesh == value
+    assert (cfg.clients_axis, cfg.data_axis) == ("clients", "data")
 
 
 @pytest.mark.parametrize("name", ["serve_every", "serving"])
@@ -868,23 +873,29 @@ def test_scenarios_are_ported(scenario):
     assert both._serving_config().every == 5.0
 
 
-@pytest.mark.parametrize("mesh,ok", [(None, True), ("auto", True),
-                                     ("4x2", False), (("auto", 2), False),
-                                     ("8", False), ("AUTO", False)])
-def test_mesh_takes_one_card_only(mesh, ok):
-    """The cohort engine runs on one card: ``mesh`` is None or "auto", as
-    the reference's one-device meshes; its meshes are not ported."""
+@pytest.mark.parametrize("mesh,default", [(None, True), ("auto", True),
+                                          ("4x2", False), (("auto", 2), False),
+                                          ("8", False), ("AUTO", False)])
+def test_mesh_takes_one_card_only(mesh, default):
+    """On a backend on the CPU every spec builds the engine and clamps to
+    the backend's one device, the single-device engine, as the
+    reference's specs clamp on a one-device host; the specs parse as the
+    reference's ``parse_mesh_spec`` parses them.  A mesh over more devices
+    is asked for with a ``Mesh`` (``tests/test_torch_cohort_mesh.py``)."""
     cfg = DagAflConfig(n_clients=2, mesh=mesh, cohort_size=2)
+    assert default == (mesh is None or mesh == DagAflConfig().mesh)
     data = [{"train": None, "val": None}] * 2
     backend = CNNBackend(VGG_TINY, device="cpu")
-    if ok:
-        assert DagAflCoordinator(backend, data, None, cfg).cohort is not None
-        assert build_cohort_engine(backend, cohort_size=2, mesh=mesh)
-    else:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            DagAflCoordinator(backend, data, None, cfg)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            build_cohort_engine(backend, cohort_size=2, mesh=mesh)
+    coord = DagAflCoordinator(backend, data, None, cfg)
+    assert coord.cohort is not None and coord.cohort.mesh is None
+    engine = build_cohort_engine(backend, cohort_size=2, mesh=mesh)
+    assert engine is not None and engine.mesh is None
+    assert engine._grid.tolist() == [[backend.device]]
+    if mesh is not None:
+        from repro_torch.fl.cohort import parse_mesh_spec
+        assert parse_mesh_spec(mesh) == {
+            "auto": ("auto", 1), "4x2": (4, 2), ("auto", 2): ("auto", 2),
+            "8": (8, 1), "AUTO": ("auto", 1)}[mesh]
 
 
 def test_build_dir_is_ignored_by_git():

@@ -346,14 +346,23 @@ def test_model_mlstm_checkpoints_each_chunk_under_autograd(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The sharded sLSTM scan needs a mesh, which one card does not
-    have."""
+    """The sharded sLSTM scan is ported: a runtime with a mesh but no
+    batch axes falls back to the unsharded scan, as the reference's
+    ``_slstm_scan_maybe_sharded`` does, and gives its result."""
     jc, tc, core, x = _block("slstm")
     params = params_from_numpy(core, "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        xlstm.slstm_forward(params, torch.zeros((1, 4, 64)), cfg=tc,
-                            runtime=SimpleNamespace(mesh=object(),
+    xt = torch.from_numpy(x[:1, :4])
+    got, got_state = xlstm.slstm_forward(
+        params, xt, cfg=tc, runtime=SimpleNamespace(mesh=object(),
                                                     use_kernels=False))
+    want, want_state = xlstm.slstm_forward(params, xt, cfg=tc)
+    assert torch.equal(got, want)
+    assert all(torch.equal(got_state[k], want_state[k]) for k in want_state)
+    j_out, _ = j_xlstm.slstm_forward(
+        _jnp(core), jnp.asarray(x[:1, :4]), cfg=jc,
+        runtime=SimpleNamespace(mesh=object(), batch_axes=None))
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_out), rtol=0,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["mlstm", "slstm"])
