@@ -92,7 +92,9 @@ Phases, each printing one JSON line:
    (the model's chunked scan and dense attention) on the card; then one
    profiled backend round;
 10. the xLSTM path: the same loop over three xlstm-125m clients at full
-   width and depth ([mLSTM x3, sLSTM] x3, 134,421,576 parameters), the
+   width, depth cut to one published period ([mLSTM x3, sLSTM],
+   70,563,864 parameters: with remat its sLSTM step loop runs twice a
+   training step), the
    launch counts set to 0 just before and read just after; the kernel
    forward (chunkwise mLSTM and sLSTM kernels) held against the plain
    forward (the model's chunkwise form and step loop) on the card; then
@@ -100,8 +102,9 @@ Phases, each printing one JSON line:
 11. the LM cohort path: the same loop over the three LM families on the
    cohort engine (``fl.cohort.LMCohortPrograms``, ``cohort_window=2.0``):
    internlm2 with 3 clients in windows of up to 2 at batch 8, the hybrid
-   with 2 clients in windows of 2 at batch 4, xLSTM with 3 clients in
-   windows of up to 3 at batch 8 (LM_COHORT_LEGS), each timed by engine
+   with 2 clients in windows of 2 at batch 4, xLSTM (the xLSTM path's
+   one-period cut) with 3 clients in windows of up to 3 at batch 8
+   (LM_COHORT_LEGS), each timed by engine
    call against its sequential path above, with the launch counts set to
    0 just before and read just after (every launch counted against the
    forwards the run made: one signature launch a round on the vec route,
@@ -232,6 +235,33 @@ Phases, each printing one JSON line:
    1e-5 of their scale, the whole loss's reported.  With
    more than one card ``mesh_cnn`` and ``mesh_lm`` also run over distinct
    cards; ``device_count`` is printed either way.
+19. the dense configs whole (``dense_configs_path``), random weights from
+   seed 0, each leg with the launch counts set to 0 just before and read
+   just after and its peak leaving 5 GB of the card free, parameters
+   counted leaf by leaf: ``gemma2_backend``, gemma2-2b (26 layers, 13 x
+   (local 4,096, global), head dim 256, soft-cap 50; 2,614,222,080
+   parameters): ``LMBackend.evaluate`` and ``signature`` at 2 x 8,192
+   (flash 13 times at window 4,096 and 13 at -1 a forward, all sm90; one
+   signature launch a call on vec), the kernel forward against the plain
+   forward (banded and chunked) in float32 within 2e-2 and in bfloat16
+   (reported); ``gemma2_train``, 10 AdamW steps of ``train_single`` with
+   remat at GEMMA2_TRAIN (the loss falling, one signature launch a step,
+   no allocator retry), then one loss gradient with ``remat=False`` and
+   one with ``remat=True`` from the same weights and batch at
+   GEMMA2_REMAT_CHECK: bit for bit, or no further apart than two runs
+   without remat, with each one's ms and peak; ``gemma2_serve``, the
+   serve leg at 2 x (8,192 + 32); ``qwen2_backend`` and ``qwen2_serve``,
+   qwen2-7b whole (28 layers, QKV biases, GQA 28 over 4;
+   7,615,616,512 parameters) at 8 x 512 (flash 28 times a forward) and 8
+   x (512 + 64); ``qwen2_train``, 10 AdamW steps at 8 x 512 on its
+   deepest cut of whole layers that leaves 5 GB free and runs without an
+   allocator retry (``qwen2_train_config``).
+
+Every training leg runs with ``Runtime.remat`` on, the default: each
+period of the forward is checkpointed and run again in the backward, so
+a leg that counts the plain score paths or the MoE routings counts each
+period twice, and ``moe_train`` holds the recompute's routing equal to the
+forward's.
 
 Each path's run is counted on its own: every kernel's count is set to 0
 just before it and read just after.  Then one line ``{"kernels": [...]}``
@@ -271,7 +301,10 @@ SIG_WIDTHS = {"xlstm": (1, 8 * 512, 768), "lm": (1, 8 * 512, 2048),
               "gemma3": (1, 2 * 8192, 5376), "mla": (1, 8 * 512, 5120),
               "mrope": (1, 8 * 512, 8192),
               # whisper-medium's training at batch 4 x 448
-              "whisper": (1, 4 * 448, 1024)}
+              "whisper": (1, 4 * 448, 1024),
+              # the dense configs: gemma2-2b at 2 x 8,192, qwen2-7b at
+              # 8 x 512
+              "gemma2": (1, 2 * 8192, 2304), "qwen2": (1, 8 * 512, 3584)}
 # d % 64 != 0 (on the vec route), and d % 8 != 0 (on the strided route)
 LM_SIG_RAGGED = [(2, 300, 1000), (3, 257, 100)]
 # the LM cohort legs' per-sample rows: one launch over a client's (B, S, d)
@@ -343,6 +376,7 @@ SLSTM_TOL = {"hs": 1e-5, "state": 1e-4}   # rtol and atol, the reference's
 # model's scale, and the drift at 0.05 is measured against float64
 SLSTM_R_SCALE, SLSTM_MODEL_R_SCALE = 0.05, 0.01
 XLSTM_PARAMS = 134_421_576           # the reference's tree, leaf by leaf
+XLSTM_LOOP_PARAMS = 70_563_864       # its first period alone
 # the MoE path: the hybrid cut less one dense FFN, plus 16 experts and a
 # router (the reference's tree, leaf by leaf)
 MOE_PARAMS = 3_678_941_184
@@ -370,6 +404,30 @@ WHISPER_PARAMS = 959_329_280             # whisper-medium, leaf by leaf
 WHISPER_SERVE = (8, 384, 64)             # batch, prompt, new tokens: 448
 WHISPER_TRAIN = (4, 448)                 # batch, tokens: its text context
 WHISPER_QUERY = (8, 384, 16)             # batch, prompt, new tokens
+# the dense configs whole: the reference's trees, leaf by leaf
+# (``param_count()`` leaves out gemma2's 122,112 norm weights and qwen2's
+# 333,312 norm weights and QKV biases)
+GEMMA2_PARAMS = 2_614_222_080            # gemma2-2b, 13 x (local, global)
+QWEN2_PARAMS = 7_615_616_512             # qwen2-7b, 28 layers
+GEMMA2_BATCH, GEMMA2_SEQ, GEMMA2_NEW = 2, 8192, 32
+# gemma2's training: the largest batch of 1,024 tokens whose peak leaves
+# MOE_FREE_BYTES_MIN of the card free (AdamW's 47.1 GB of state and the
+# unchunked cross-entropy over 256,000 tokens: 75.0 GB at 6, 81.3 GB at
+# 7, out of memory at 8; PERF.md section 5); then loss gradients with
+# remat and without at a shape that fits both ways
+GEMMA2_TRAIN = (6, 1024)
+GEMMA2_REMAT_CHECK = (2, 1024)
+# qwen2's training: AdamW in float32 takes 18 bytes a parameter (137 GB
+# whole), so the deepest cut of whole layers whose peak leaves
+# MOE_FREE_BYTES_MIN free and whose steps run without an allocator retry
+# (12 layers peak at 79.2 GB, 5.9 GB free, and 11 layers both made the
+# allocator retry once; PERF.md section 5): its embeddings and final
+# norm, and this many layers of 233,057,792 parameters
+QWEN2_TRAIN_LAYERS = 10
+QWEN2_TRAIN_PARAMS = (2 * 152_064 * 3_584 + 3_584
+                      + QWEN2_TRAIN_LAYERS * 233_057_792)
+FLASH_GEMMA2 = (2, 8, 4, 8192, 256)      # windows 4,096 (local), -1; cap 50
+FLASH_QWEN2 = (8, 28, 4, 512, 128)       # a GQA group of 7
 
 
 def emit(**fields) -> None:
@@ -740,27 +798,36 @@ def phase_flash(fa, ops, dev) -> dict:
     # both routes (the float32 check runs its prefill on the FMA kernel);
     # gemma3's 8,192 tokens with its local window and without (the plain
     # versions one KV head and its query heads at a time); a ragged S past
-    # 4,096
-    for shape, window, dtypes, kv_heads in (
-            (FLASH_MLA, -1, (torch.bfloat16, torch.float32), 32),
-            (FLASH_WHISPER, -1, (torch.bfloat16, torch.float32), None),
-            (FLASH_GEMMA3, 1024, (torch.bfloat16,), 1),
-            (FLASH_GEMMA3, -1, (torch.bfloat16,), 1),
-            (FLASH_RAGGED_LONG, 1024, (torch.bfloat16, torch.float32), None),
-            (FLASH_RAGGED_LONG, -1, (torch.bfloat16, torch.float32), None)):
+    # 4,096; the dense configs: gemma2's head dim 256 at 8,192 tokens with
+    # its window of 4,096 and without, soft-capped at 50, and qwen2's GQA
+    # group of 7, on both routes (their float32 checks run on the FMA
+    # kernel)
+    both = (torch.bfloat16, torch.float32)
+    for shape, window, cap, dtypes, kv_heads in (
+            (FLASH_MLA, -1, 0.0, both, 32),
+            (FLASH_WHISPER, -1, 0.0, both, None),
+            (FLASH_GEMMA3, 1024, 0.0, (torch.bfloat16,), 1),
+            (FLASH_GEMMA3, -1, 0.0, (torch.bfloat16,), 1),
+            (FLASH_RAGGED_LONG, 1024, 0.0, both, None),
+            (FLASH_RAGGED_LONG, -1, 0.0, both, None),
+            (FLASH_GEMMA2, 4096, 50.0, both, 1),
+            (FLASH_GEMMA2, -1, 50.0, both, 1),
+            (FLASH_QWEN2, -1, 0.0, both, None)):
         B, H, K, S, hd = shape
         for dtype in dtypes:
             q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
                        .to(dtype) for n in (H, K, K))
-            compare(q, k, v, True, window, 0.0,
-                    f"{list(shape)} window {window}", kv_heads)
+            compare(q, k, v, True, window, cap,
+                    f"{list(shape)} window {window} cap {cap}", kv_heads)
             del q, k, v
 
-    def timed(shape, window=-1, reps=60, slow_reps=10):
-        """The kernel's time at ``shape`` (causal, ``window``) beside the
-        FMA kernel's on the same bfloat16 inputs, the plain version's and
-        the library's scaled_dot_product_attention (with an explicit mask
-        for a window); the slower ones over ``slow_reps`` calls."""
+    def timed(shape, window=-1, reps=60, slow_reps=10, cap=0.0):
+        """The kernel's time at ``shape`` (causal, ``window``, soft-cap
+        ``cap``) beside the FMA kernel's on the same bfloat16 inputs, the
+        plain version's and the library's scaled_dot_product_attention
+        (with an explicit mask for a window; it has no soft-cap, so with
+        ``cap`` it computes the uncapped scores); the slower ones over
+        ``slow_reps`` calls."""
         B, H, K, S, hd = shape
         sets = [tuple(torch.randn((B, S, n, hd), generator=g, device=dev)
                       .to(torch.bfloat16) for n in (H, K, K))
@@ -770,7 +837,7 @@ def phase_flash(fa, ops, dev) -> dict:
 
         def fma(a):                    # the FMA kernel on the same inputs
             return fa._dispatch(*a, torch.empty_like(a[0]), "fma", True,
-                                window, 0.0)
+                                window, cap)
 
         if window > 0:
             rows = torch.arange(S, device=dev)[:, None]
@@ -785,11 +852,11 @@ def phase_flash(fa, ops, dev) -> dict:
                 return F.scaled_dot_product_attention(
                     *a, is_causal=True, enable_gqa=True)
 
-        ms = device_ms(lambda a: ops.flash_attention(*a, window=window),
-                       sets, reps)
+        ms = device_ms(lambda a: ops.flash_attention(
+            *a, window=window, softcap=cap), sets, reps)
         fma_ms = device_ms(fma, bhsd, slow_reps)
         plain_ms = device_ms(lambda a: fa.flash_attention_plain(
-            *a, window=window), bhsd[:1], slow_reps)
+            *a, window=window, softcap=cap), bhsd[:1], slow_reps)
         library_ms = device_ms(library, packed, slow_reps)
         bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
             + sets[0][0].numel() * 2
@@ -799,7 +866,9 @@ def phase_flash(fa, ops, dev) -> dict:
         bound_ms, bound_by = bound(bytes_moved, flops, peak=BF16_OPS_PER_S)
         del sets, bhsd, packed
         return {"timed_shape": list(shape), "timed_dtype": "bfloat16",
-                "window": window, "ms": ms, "fma_ms": fma_ms,
+                "window": window, "softcap": cap,
+                "library_without_cap": cap > 0.0, "ms": ms,
+                "fma_ms": fma_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "bytes": bytes_moved, "flops": flops}
@@ -809,7 +878,10 @@ def phase_flash(fa, ops, dev) -> dict:
     variants = {"gemma3_local": timed(FLASH_GEMMA3, 1024, 20, 3),
                 "gemma3_global": timed(FLASH_GEMMA3, -1, 20, 3),
                 "mla": timed(FLASH_MLA, -1, 20, 5),
-                "whisper": timed(FLASH_WHISPER)}
+                "whisper": timed(FLASH_WHISPER),
+                "gemma2_local": timed(FLASH_GEMMA2, 4096, 20, 3, cap=50.0),
+                "gemma2_global": timed(FLASH_GEMMA2, -1, 20, 3, cap=50.0),
+                "qwen2": timed(FLASH_QWEN2)}
     record = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2341,6 +2413,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.fl.backend import LMBackend
     from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Runtime
 
     sig, fa, ss, ml, sl = (kern[k] for k in ("sig", "fa", "ss", "ml",
                                                "sl"))
@@ -2484,6 +2557,10 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
         local_steps=local_steps, n_params=n_params,
         clients=clients, rounds=rounds, chain_len=result.extra["chain_len"],
         wall_s=wall, s_per_round=wall / rounds, peak_bytes=peak,
+        remat=Runtime().remat,
+        # DagAflConfig(local_epochs=2): two SGD steps a train_local call
+        train_local_ms_per_step=1e3 * seconds["train_local"]
+        / (2 * max(calls["train_local"], 1)),
         sim_time=result.sim_time, data_s=data_s, init_s=init_s,
         final_accuracy=result.final_accuracy,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
@@ -2506,7 +2583,7 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
 # bfloat16 difference, floor and gradients are reported beside it
 LM_COHORT_LEGS = (("lm_cohort", "lm", 3, 2, 8, 630_736_896, None),
                   ("hybrid_cohort", "hybrid", 2, 2, 4, HYBRID_PARAMS, None),
-                  ("xlstm_cohort", "xlstm", 3, 3, 8, XLSTM_PARAMS,
+                  ("xlstm_cohort", "xlstm", 3, 3, 8, XLSTM_LOOP_PARAMS,
                    "float32"))
 LM_COHORT_TRAIN_TOL = 5e-3           # trained leaves, window vs train_local
 # ... and within this many times the training's own one-ulp floor (the
@@ -2964,7 +3041,7 @@ def phase_lm_cohort_path(kern, dev, sequential: dict) -> dict:
     """The three LM families on the cohort engine (LM_COHORT_LEGS), each
     against its sequential path's seconds a round from this call."""
     configs = {"lm": lm_config, "hybrid": hybrid_config,
-               "xlstm": xlstm_config}
+               "xlstm": xlstm_loop_config}
     return {leg: lm_cohort_leg(
         kern, dev, leg=leg, cfg=configs[family](), clients=clients,
         cohort_size=size, batch=batch, expected_params=n_params,
@@ -3094,7 +3171,7 @@ def phase_train_path(kern, dev) -> dict:
     opt_bits = optimizer_steps_on_card(dev)
     record = dict(
         phase="train_path", model=cfg.name, optimizer="adamw",
-        optimizer_step_card_vs_cpu_differ=opt_bits,
+        remat=Runtime().remat, optimizer_step_card_vs_cpu_differ=opt_bits,
         clip_norm=1.0, batch=8, seq_len=512, data_vocab=LM_DATA_VOCAB,
         steps=TRAIN_STEPS, losses=losses,
         grad_norms=[h["grad_norm"] for h in history],
@@ -3902,6 +3979,7 @@ def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
     from repro_torch.core.aggregate import tree_leaves
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import train as launch
+    from repro_torch.runtime import Runtime
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3934,8 +4012,21 @@ def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
     losses = [h["loss"] for h in history]
     aux = [h["moe_aux"] for h in history]
     n = moe_layers(cfg)
-    dropped = [sum(int(d) for d in routes.dropped[i * n:(i + 1) * n])
-               for i in range(len(history))]
+    # a step routes each MoE layer in its forward, and with remat again in
+    # its period's recompute, which must route and drop as the forward did
+    remat = Runtime().remat
+    per_step = (2 if remat else 1) * n
+    steps_routed = [(routes.choices[i * per_step:i * per_step + n],
+                     routes.dropped[i * per_step:i * per_step + n],
+                     routes.choices[i * per_step + n:(i + 1) * per_step],
+                     routes.dropped[i * per_step + n:(i + 1) * per_step])
+                    for i in range(len(history))]
+    dropped = [sum(int(d) for d in fwd_dropped)
+               for _, fwd_dropped, _, _ in steps_routed]
+    replayed_alike = [all(any(torch.equal(a, b) and int(da) == int(db)
+                              for b, db in zip(rep_c, rep_d))
+                          for a, da in zip(fwd_c, fwd_d))
+                      for fwd_c, fwd_d, rep_c, rep_d in steps_routed]
     check(len(history) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"{leg}: losses {losses}")
     if n:
@@ -3955,14 +4046,17 @@ def moe_train_leg(kern, dev, cfg, leg: str = "moe_train",
     check(counted["signature_routes"] == {"vec": TRAIN_STEPS, "strided": 0},
           f"{leg}: signature launches by route "
           f"{counted['signature_routes']}")
-    check(len(routes.dropped) == n * TRAIN_STEPS, f"{leg}: "
-          f"{len(routes.dropped)} routings for {TRAIN_STEPS} steps")
+    check(len(routes.dropped) == per_step * TRAIN_STEPS, f"{leg}: "
+          f"{len(routes.dropped)} routings for {TRAIN_STEPS} steps, "
+          f"expected {per_step} a step")
+    check(all(replayed_alike), f"{leg}: the recompute routed or dropped "
+          f"otherwise than the forward at steps {replayed_alike}")
     total = check_free(leg, peak)
     step_s = [h["seconds"] for h in history]
     ms = 1e3 * float(np.mean(step_s[1:]))
     record = dict(
         phase=phase, leg=leg, model=cfg.name, optimizer="adamw",
-        frames=None if cfg.encoder is None else (
+        remat=remat, frames=None if cfg.encoder is None else (
             "zeros" if enc_embed is None else "given"),
         moment_dtype=cfg.moment_dtype, clip_norm=1.0, batch=batch,
         seq_len=seq, microbatches=1, data_vocab=LM_DATA_VOCAB,
@@ -4045,13 +4139,15 @@ def long_forward_check(tfm, cfg, params, tokens, compute: str,
                        checked: bool, leg: str) -> dict:
     """The kernel forward (flash attention at any length) against the
     plain forward of ``params`` (past 2,048 tokens: the banded path for the
-    local layers and the chunked path for the global ones) on ``tokens``
+    local layers and the chunked path for the global ones; else the dense
+    scores) on ``tokens``
     with the products in ``compute``: logits within SERVE_LOGIT_TOL (the
     reference's 2e-2) and the signature within LM_SIG_TOL, when
     ``checked``."""
     import dataclasses
 
     import torch
+    from repro_torch.models.attention import _DENSE_MAX
     from repro_torch.runtime import Runtime
     c = dataclasses.replace(cfg, compute_dtype=compute)
     runs = {}
@@ -4066,9 +4162,16 @@ def long_forward_check(tfm, cfg, params, tokens, compute: str,
     with torch.inference_mode():
         logit_err = chunked_logit_err(params, c, kh, ph)
         sig_err = (k_sig - p_sig).abs().max().item()
-    windows = [spec.window for spec in cfg.layer_specs()]
-    want = {"_banded_attn": sum(w > 0 for w in windows),
-            "_chunked_attn": sum(w <= 0 for w in windows), "_dense_attn": 0}
+    S = tokens.shape[1]
+    windows = [tfm.resolve_window(cfg, spec, S)
+               for spec in cfg.layer_specs() if spec.kind == "attn"]
+    if S > _DENSE_MAX:
+        want = {"_banded_attn": sum(w > 0 for w in windows),
+                "_chunked_attn": sum(w <= 0 for w in windows),
+                "_dense_attn": 0}
+    else:                              # up to 2,048 tokens: the scores
+        want = {"_banded_attn": 0, "_chunked_attn": 0,
+                "_dense_attn": len(windows)}
     check(all(k_calls[n] == 0 for n in want) and all(
         p_calls[n] == want[n] for n in want), f"{leg}: score paths "
           f"{p_calls} of the plain forward, {k_calls} of the kernel "
@@ -4104,6 +4207,7 @@ def gemma3_backend_leg(kern, dev) -> list:
     from repro_torch.core.aggregate import tree_leaves
     from repro_torch.fl.backend import LMBackend
     from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Runtime
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4188,8 +4292,13 @@ def gemma3_backend_leg(kern, dev) -> list:
     held.clear()
     total = check_free("gemma3_train", train_peak)
     layers = cfg.layer_specs()
-    want = {"_banded_attn": steps * sum(s.window > 0 for s in layers),
-            "_chunked_attn": steps * sum(s.window <= 0 for s in layers),
+    # each period's forward, and again in its checkpoint's backward
+    # (``Runtime.remat``, on in ``train_local``)
+    passes = 2 if Runtime().remat else 1
+    want = {"_banded_attn": passes * steps * sum(s.window > 0
+                                                 for s in layers),
+            "_chunked_attn": passes * steps * sum(s.window <= 0
+                                                  for s in layers),
             "_dense_attn": 0,
             # each chunk's forward, and again in its checkpoint's backward
             "_ce_part": steps * 2 * (seq // tfm._ce_chunk(cfg, 1, seq))}
@@ -4205,7 +4314,8 @@ def gemma3_backend_leg(kern, dev) -> list:
           f"counted steps: their time would measure the allocator")
     train_record = dict(
         phase="attention_variants_path", leg="gemma3_train", model=cfg.name,
-        optimizer="sgd", momentum=0.9, batch=1, seq_len=seq, steps=steps,
+        optimizer="sgd", momentum=0.9, remat=Runtime().remat, batch=1,
+        seq_len=seq, steps=steps,
         mean_loss=loss, initial_loss=initial_loss, warmup_loss=warm_loss,
         warmup_ms=1e3 * warm_s, warmup_alloc_retries=warm_retries,
         ms_per_step=1e3 * wall / steps, tokens_per_s=steps * seq / wall,
@@ -4359,7 +4469,8 @@ def mrope_leg(kern, dev) -> list:
     ms = 1e3 * float(np.mean(step_s[1:]))
     train_record = dict(
         phase="attention_variants_path", leg="mrope_train", model=cfg.name,
-        optimizer="adamw", moment_dtype=cfg.moment_dtype, microbatches=2,
+        optimizer="adamw", remat=Runtime().remat,
+        moment_dtype=cfg.moment_dtype, microbatches=2,
         batch=B, seq_len=512, steps=MROPE_TRAIN_STEPS, losses=losses,
         step_ms=[1e3 * t for t in step_s], ms_per_step=ms,
         tokens_per_s=B * 512 / (ms / 1e3), peak_bytes=peak, card_bytes=total,
@@ -5024,6 +5135,197 @@ def phase_mesh_path(kern, dev) -> dict:
     return legs
 
 
+def dense_backend_leg(kern, dev, leg: str, cfg, expected_params: int,
+                      batch: int, seq: int) -> dict:
+    """A dense config whole at full width: ``LMBackend.evaluate`` and
+    ``signature`` at ``batch`` x ``seq`` with the launch counts set to 0
+    just before and read just after (flash once a layer a forward, all on
+    sm90 and counted by window; one signature launch a signature call, on
+    vec; no plain call), then the kernel forward against the plain forward
+    (past 2,048 tokens banded and chunked, else the dense scores, each
+    counted) in float32 (checked) and bfloat16 (reported)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.fl.backend import LMBackend
+    from repro_torch.models import transformer as tfm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    streams, global_test = lm_streams(2)
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
+                        seq_len=seq)
+    check(backend.device.type == "cuda", f"{leg}: backend is not on the "
+          f"card")
+    t0 = time.perf_counter()
+    params = backend.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{leg}: {n_params} parameters, expected {expected_params}")
+    with ScoreMeter() as shapes:
+        counted, seconds, accs, peak, plain_calls = backend_calls(
+            kern, leg, cfg, backend, params, streams)
+    asked = sorted(set(shapes.flash))
+    want = sorted({(cfg.head_dim, tfm.resolve_window(cfg, spec, seq))
+                   for spec in cfg.layer_specs()})
+    check(asked == want, f"{leg}: flash asked for (head_dim, window) "
+          f"{asked}, expected {want}")
+    tokens = backend._batch(backend._sample(
+        global_test, np.random.default_rng(3), 1)[0])["tokens"]
+    checks = {c: long_forward_check(tfm, cfg, params, tokens, c,
+                                    checked=c == "float32", leg=leg)
+              for c in ("float32", "bfloat16")}
+    record = dict(
+        phase="dense_configs_path", leg=leg, model=cfg.name,
+        windows=[s.window for s in cfg.layer_specs()],
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+        attn_softcap=cfg.attn_softcap, n_params=n_params, batch=batch,
+        seq_len=seq, data_vocab=LM_DATA_VOCAB, init_s=init_s,
+        evaluate_ms=seconds["evaluate"], signature_ms=seconds["signature"],
+        evaluate_tokens_per_s=batch * seq / (
+            np.mean(seconds["evaluate"]) / 1e3),
+        accuracies=accs, peak_bytes=peak, plain_calls=plain_calls,
+        forward_check=checks, leg_s=time.perf_counter() - t_leg, **counted)
+    emit(**record)
+    del params, backend
+    return record
+
+
+def remat_check(dev, cfg, batch: int, seq: int) -> dict:
+    """The loss gradient of the train step's arithmetic (the loss of the
+    weights cast to the compute type, its backward into the float32
+    masters) from the same weights (seed 0) and batch, after one warm-up
+    with and one without remat, in turns: without, with, with, without.
+    The gradients with remat bit for bit those of the first run without,
+    or no further from them than the second run without (the card's
+    floor); the ms of each setting (the mean of its two runs) and its
+    peak."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_map
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.runtime import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    leaves = tree_leaves(params)
+    pipe = TokenPipeline(LM_DATA_VOCAB, batch, seq, seed=0)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in pipe.batch_dict(next(iter(pipe))).items()}
+    compute = torch_dtype(cfg.compute_dtype)
+
+    def gradient(remat: bool):
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cast = tree_map(lambda a: a.to(compute) if a.is_floating_point()
+                        and a.dtype != compute else a, params)
+        loss, _ = tfm.loss_fn(cast, data, cfg, Runtime(remat=remat))
+        loss.backward()
+        del cast
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return (float(loss.detach()), grads, ms,
+                torch.cuda.max_memory_allocated())
+
+    def max_diff(a, b) -> float:
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    gradient(False)                    # warm-up of each, outside the record
+    gradient(True)
+    loss_off, off, ms, peak_off = gradient(False)
+    ms_by = {False: [ms], True: []}
+    equal, diff, losses = True, 0.0, []
+    for remat in (True, True, False):
+        loss, grads, ms, peak = gradient(remat)
+        ms_by[remat].append(ms)
+        if remat:
+            losses.append(loss)
+            peak_on = peak
+            same = all(torch.equal(a, b) for a, b in zip(off, grads))
+            equal = equal and same
+            diff = max(diff, 0.0 if same else max_diff(off, grads))
+        else:
+            floor = max_diff(off, grads)
+        del grads
+    del off
+    loss_on = losses[0]
+    check(equal or diff <= floor, f"remat_check: the gradients with remat "
+          f"differ from those without by {diff}, more than two runs without "
+          f"remat ({floor})")
+    check(all(loss == loss_off for loss in losses), f"remat_check: losses "
+          f"{losses} with remat, {loss_off} without")
+    for p in leaves:
+        p.requires_grad_(False)
+    del params, leaves
+    return {"batch": batch, "seq_len": seq, "loss": loss_on,
+            "grads_bit_equal": equal, "grads_max_abs_diff": diff,
+            "floor_max_abs_diff": floor,
+            "loss_and_gradient_ms": {"remat": sum(ms_by[True]) / 2,
+                                     "no_remat": sum(ms_by[False]) / 2},
+            "loss_and_gradient_ms_runs": {"remat": ms_by[True],
+                                          "no_remat": ms_by[False]},
+            "peak_bytes": {"remat": peak_on, "no_remat": peak_off}}
+
+
+def phase_dense_configs_path(kern, dev) -> dict:
+    """gemma2-2b and qwen2-7b whole at full width (random weights from
+    seed 0, data from the LM paths' sub-vocabulary), each leg with the
+    launch counts set to 0 just before and read just after and its peak
+    leaving 5 GB of the card free: ``gemma2_backend`` (2 x 8,192, flash 13
+    times at window 4,096 and 13 at -1 a forward), ``gemma2_train``
+    (TRAIN_STEPS AdamW steps of ``train_single`` with remat at
+    GEMMA2_TRAIN, then ``remat_check`` at GEMMA2_REMAT_CHECK),
+    ``gemma2_serve`` (2 x (8,192 + 32)), ``qwen2_backend`` (8 x 512, flash
+    28 times a forward at a GQA group of 7), ``qwen2_serve`` (8 x (512 +
+    64)) and ``qwen2_train`` (TRAIN_STEPS AdamW steps at 8 x 512 on the
+    cut ``qwen2_train_config``)."""
+    t0 = time.perf_counter()
+    gemma2, qwen2 = gemma2_config(), qwen2_config()
+    legs = {"gemma2_backend": dense_backend_leg(
+        kern, dev, "gemma2_backend", gemma2, GEMMA2_PARAMS, GEMMA2_BATCH,
+        GEMMA2_SEQ)}
+    batch, seq = GEMMA2_TRAIN
+    legs["gemma2_train"] = moe_train_leg(
+        kern, dev, gemma2, leg="gemma2_train", phase="dense_configs_path",
+        batch=batch, seq=seq, expected_params=GEMMA2_PARAMS)
+    record = remat_check(dev, gemma2, *GEMMA2_REMAT_CHECK)
+    emit(phase="dense_configs_path", leg="gemma2_remat_check",
+         model=gemma2.name, **record)
+    legs["gemma2_train"]["remat_check"] = record
+    legs["gemma2_serve"] = serve_leg(
+        kern, dev, "gemma2_serve", gemma2, GEMMA2_PARAMS, batch=GEMMA2_BATCH,
+        prompt_len=GEMMA2_SEQ, new_tokens=GEMMA2_NEW,
+        phase="dense_configs_path")
+    legs["qwen2_backend"] = dense_backend_leg(
+        kern, dev, "qwen2_backend", qwen2, QWEN2_PARAMS, 8, 512)
+    legs["qwen2_serve"] = serve_leg(kern, dev, "qwen2_serve", qwen2,
+                                    QWEN2_PARAMS,
+                                    phase="dense_configs_path")
+    legs["qwen2_train"] = moe_train_leg(
+        kern, dev, qwen2_train_config(), leg="qwen2_train",
+        phase="dense_configs_path", expected_params=QWEN2_TRAIN_PARAMS)
+    legs["qwen2_train"]["layers"] = QWEN2_TRAIN_LAYERS
+    emit(phase="dense_configs_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
 def whisper_config():
     """whisper-medium as published in the reference: full width and
     depth, 24 encoder layers over 1,500 frames, 24 decoder layers."""
@@ -5071,6 +5373,27 @@ def mrope_config():
                                stages=(Stage(cfg.stages[0].pattern, 1),))
 
 
+def gemma2_config():
+    """gemma2-2b as published: 26 layers, 13 x (local 4,096, global)."""
+    from repro_torch.configs import get_config
+    return get_config("gemma2-2b")
+
+
+def qwen2_config():
+    """qwen2-7b as published: 28 layers, QKV biases, GQA 28 over 4."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2-7b")
+
+
+def qwen2_train_config():
+    """qwen2-7b at full width, depth cut to QWEN2_TRAIN_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs.base import Stage
+    cfg = qwen2_config()
+    return dataclasses.replace(cfg, n_layers=QWEN2_TRAIN_LAYERS, stages=(
+        Stage(cfg.stages[0].pattern, QWEN2_TRAIN_LAYERS),))
+
+
 def lm_config():
     """internlm2-1.8b at full width, depth cut to 4 of 24 layers."""
     import dataclasses
@@ -5115,6 +5438,17 @@ def xlstm_config():
     return get_config("xlstm-125m")
 
 
+def xlstm_loop_config():
+    """xlstm-125m at full width, depth cut to one published period,
+    [mLSTM x3, sLSTM]: the xLSTM loop and cohort paths, whose training
+    (under remat) replays the sLSTM step loop on the host."""
+    import dataclasses
+    from repro_torch.configs.base import Stage
+    cfg = xlstm_config()
+    return dataclasses.replace(cfg, n_layers=len(cfg.stages[0].pattern),
+                               stages=(Stage(cfg.stages[0].pattern, 1),))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5147,14 +5481,15 @@ def main() -> None:
     hybrid = phase_lm_loop(kern, dev, phase="hybrid_path",
                            cfg=hybrid_config(), clients=3, local_steps=2,
                            expected_params=HYBRID_PARAMS)
-    # the xLSTM stack's 12 bfloat16 layers carry the one-ulp rounding
+    # the xLSTM stack's bfloat16 layers carry the one-ulp rounding
     # flips that the kernels' float32 h and the plain version's cause in
     # each layer's bfloat16 output on to the logits, past LM_LOGIT_RTOL;
     # with float32 products the two forwards differ only in float32
     # rounding: the check is made there, and the bfloat16 comparison is
     # reported beside it (PERF.md)
-    xl = phase_lm_loop(kern, dev, phase="xlstm_path", cfg=xlstm_config(),
-                       clients=3, local_steps=2, expected_params=XLSTM_PARAMS,
+    xl = phase_lm_loop(kern, dev, phase="xlstm_path",
+                       cfg=xlstm_loop_config(), clients=3, local_steps=2,
+                       expected_params=XLSTM_LOOP_PARAMS,
                        reference_compute="float32")
     cohorts = phase_lm_cohort_path(kern, dev, {"lm": lm, "hybrid": hybrid,
                                                "xlstm": xl})
@@ -5166,8 +5501,9 @@ def main() -> None:
     variants = phase_attention_variants_path(kern, dev)
     whisper = phase_whisper_path(kern, dev)
     mesh = phase_mesh_path(kern, dev)
+    dense = phase_dense_configs_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe, **variants, **whisper, **mesh}
+             **serving, **moe, **variants, **whisper, **mesh, **dense}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -5198,7 +5534,10 @@ def main() -> None:
     for row, legs, window in (("gemma3_local", "gemma3_", 1024),
                               ("gemma3_global", "gemma3_", -1),
                               ("mla", "mla_", -1),
-                              ("whisper", "whisper_", -1)):
+                              ("whisper", "whisper_", -1),
+                              ("gemma2_local", "gemma2_", 4096),
+                              ("gemma2_global", "gemma2_", -1),
+                              ("qwen2", "qwen2_", -1)):
         flash_record[row]["launches"] = sum(
             p["flash_windows"].get(window, 0) for name, p in paths.items()
             if name.startswith(legs))

@@ -126,8 +126,9 @@ class LMBackend:
         self.device = resolve_device(device)
         self.opt = sgd(lr, momentum=0.9)
         # training runs the default runtime: plain attention and the
-        # models' own scans under autograd, no signature.  Eval and
-        # signature forwards: the kernels
+        # models' own scans under autograd, each period checkpointed
+        # (remat), no signature.  Eval and signature forwards: the
+        # kernels
         self.eval_runtime = Runtime(use_kernels=True)
         self.signature_runtime = Runtime(use_kernels=True,
                                          want_signature=True)

@@ -110,7 +110,7 @@ from repro_torch.fl.backend import CNNBackend, LMBackend
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.optimizers import apply_updates
-from repro_torch.runtime import on_device
+from repro_torch.runtime import Runtime, on_device
 
 
 def _pad_rows(tree, target: int):
@@ -537,6 +537,9 @@ class LMCohortPrograms(CohortPrograms):
         # width come from the backend's signature runtime
         self.runtime = backend.eval_runtime
         self.sig_runtime = backend.signature_runtime
+        # the batched training drops remat, as the reference's engine
+        # does: a checkpoint's backward would recompute outside the vmap
+        self.train_runtime = Runtime(remat=False)
 
     @property
     def default_epochs(self) -> int:
@@ -549,7 +552,8 @@ class LMCohortPrograms(CohortPrograms):
 
         def one(params, xk, yk):
             batch = {"tokens": xk[:, :-1], "labels": yk, "mask": m}
-            return tfm.loss_fn(params, batch, self.cfg)[0]
+            return tfm.loss_fn(params, batch, self.cfg,
+                               self.train_runtime)[0]
 
         return torch.func.vmap(one)(stacked, x, y) * m.sum() / denom
 

@@ -48,7 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.core.aggregate import tree_map
+from repro_torch.core.aggregate import tree_leaves, tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -128,22 +128,35 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
                                       generator.device),
               "stages": []}
     for stage in cfg.stages:
-        periods = [{f"l{j}": _init_layer(generator, cfg, spec, dtype)
-                    for j, spec in enumerate(stage.pattern)}
-                   for _ in range(stage.repeats)]
-        params["stages"].append(
-            tree_map(lambda *leaves: torch.stack(leaves), *periods))
+        params["stages"].append(_stacked_draws(
+            lambda: {f"l{j}": _init_layer(generator, cfg, spec, dtype)
+                     for j, spec in enumerate(stage.pattern)},
+            stage.repeats))
     if cfg.encoder is not None:
         params["encoder"] = _init_encoder(generator, cfg, dtype)
     return params
 
 
+def _stacked_draws(draw, n: int) -> dict:
+    """``n`` trees drawn by ``draw()`` one after another, stacked on a
+    leading axis: each is written into its slot as it is drawn, so only
+    the stack and one draw are held (a whole stage of qwen2-7b is 26 GB
+    in float32)."""
+    first = draw()
+    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    tree_map(lambda s, a: s[0].copy_(a), stacked, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda s, a: s[i].copy_(a), stacked, draw())
+    return stacked
+
+
 def _init_encoder(generator, cfg: ArchConfig, dtype) -> dict:
     """The encoder's attention layers with dense feed-forward layers,
     stacked on a leading axis as a stage's, and its final norm."""
-    layers = [_init_layer(generator, cfg, _ENCODER_SPEC, dtype)
-              for _ in range(cfg.encoder.n_layers)]
-    return {"layers": tree_map(lambda *leaves: torch.stack(leaves), *layers),
+    return {"layers": _stacked_draws(
+                lambda: _init_layer(generator, cfg, _ENCODER_SPEC, dtype),
+                cfg.encoder.n_layers),
             "final_norm": init_norm(cfg.norm, cfg.d_model, dtype,
                                     generator.device)}
 
@@ -256,21 +269,46 @@ def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
     """The stage's periods in order.  Returns (x, aux, caches): aux the
     MoE layers' router losses added up in layer order, and with
     ``collect_cache`` each layer's cache stacked on the ``repeats`` axis,
-    else an empty dict per layer."""
+    else an empty dict per layer.
+
+    With ``runtime.remat``, a training forward (``mode="train"``) under
+    autograd runs each period under ``torch.utils.checkpoint``
+    (non-reentrant), as the reference wraps its scan body in
+    ``jax.checkpoint``: only the period's input is kept, and the backward
+    runs its forward again, the chunk checkpoints of the scans, the long
+    attention paths and the cross-entropy nested inside.  The forward
+    draws no random numbers, so no RNG state is saved.  Where no input
+    tracks a gradient (``no_grad``, inference mode, inside
+    ``torch.func.vmap``, whose batched inputs read ``requires_grad``
+    False: a checkpoint's backward would recompute outside the vmap),
+    every period runs as it is."""
     windows = [resolve_window(cfg, spec, seq_len) for spec in pattern]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    periods = []
-    for i in range(repeats):
+
+    def period(x, aux, leaves):
         caches = {}
         for j, spec in enumerate(pattern):
-            lp = tree_map(lambda a: a[i], stage_params[f"l{j}"])
-            x, c, a = _layer_forward(lp, x, cfg=cfg, spec=spec,
+            x, c, a = _layer_forward(leaves[f"l{j}"], x, cfg=cfg, spec=spec,
                                      positions=positions, window=windows[j],
                                      runtime=runtime, mode=mode,
                                      enc_out=enc_out)
             if a is not None:
                 aux = aux + a
             caches[f"l{j}"] = c if collect_cache else {}
+        return x, aux, caches
+
+    remat = runtime.remat and mode == "train" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    periods = []
+    for i in range(repeats):
+        leaves = tree_map(lambda a: a[i], stage_params)
+        inputs = [x] + tree_leaves(leaves) + (
+            [] if enc_out is None else [enc_out])
+        if remat and any(t.requires_grad for t in inputs):
+            x, aux, caches = checkpoint(period, x, aux, leaves,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+        else:
+            x, aux, caches = period(x, aux, leaves)
         periods.append(caches)
     return x, aux, tree_map(lambda *leaves: torch.stack(leaves), *periods)
 

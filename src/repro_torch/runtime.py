@@ -11,9 +11,10 @@ whenever a device on the card is resolved.
 
 :class:`Runtime` is the port of ``repro.runtime.Runtime``: the knobs that
 model functions read.  It has no kernel policy: the tensor's device decides
-between a kernel and its plain version.  ``mesh`` with ``batch_axes`` splits
-the sLSTM recurrence's batch over the devices of those axes
-(``models.xlstm``).
+between a kernel and its plain version.  ``remat`` checkpoints each
+scanned period of a training forward under autograd
+(``models.transformer``).  ``mesh`` with ``batch_axes`` splits the sLSTM
+recurrence's batch over the devices of those axes (``models.xlstm``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 @dataclass(frozen=True)
 class Runtime:
     use_kernels: bool = False      # route hot spots through the kernels
+    remat: bool = True             # checkpoint the periods in training
     want_signature: bool = False   # emit the Eq. 3 feature signature in aux
     signature_tau: float = 0.05
     signature_dims: int = 64

@@ -291,15 +291,19 @@ def test_chunked_ce_matches_value_and_grad(monkeypatch, masked):
         lambda p: j_tfm.loss_fn(p, {k: jnp.asarray(v)
                                     for k, v in batch.items()}, jc),
         has_aux=True)(jax.tree_util.tree_map(jnp.asarray, np_params))
-    calls = []
+    calls = {}
     inner = tfm.checkpoint
-    monkeypatch.setattr(tfm, "checkpoint", lambda *a, **kw: (
-        calls.append(kw.get("use_reentrant")), inner(*a, **kw))[1])
+    monkeypatch.setattr(tfm, "checkpoint", lambda fn, *a, **kw: (
+        calls.setdefault(fn.__name__, []).append(kw.get("use_reentrant")),
+        inner(fn, *a, **kw))[1])
     params = tree_map(lambda p: p.requires_grad_(True),
                       params_from_numpy(np_params, "cpu"))
     loss, _ = tfm.loss_fn(params, {k: torch.from_numpy(v)
                                    for k, v in batch.items()}, tc)
-    assert tfm._ce_chunk(tc, 2, 96) == 32 and calls == [False] * 3
+    # the CE's three chunks, beside each period's checkpoint (remat)
+    assert tfm._ce_chunk(tc, 2, 96) == 32
+    assert calls == {"_ce_part": [False] * 3,
+                     "period": [False] * tc.stages[0].repeats}
     assert abs(loss.item() - float(j_loss)) <= 1e-5
     loss.backward()
     for p, g in zip(tree_leaves(params), jax.tree_util.tree_leaves(j_grads)):
