@@ -256,6 +256,13 @@ Phases, each printing one JSON line:
    x (512 + 64); ``qwen2_train``, 10 AdamW steps at 8 x 512 on its
    deepest cut of whole layers that leaves 5 GB free and runs without an
    allocator retry (``qwen2_train_config``).
+20. the dry run's sharded count (``dryrun_path``), in a subprocess on the
+   card's host (its torch may not be the tests'; the fake process group
+   is a ``torch.testing._internal`` module): ``launch.dryrun.build_step``
+   on DTensors over a fake (4, 2) mesh for the five reduced cases of
+   DRYRUN_CASES, each counted once: per-chip FLOPs, collective bytes by
+   kind and peak bytes printed; every count positive, collectives in
+   every case, no process group left initialised.
 
 Every training leg runs with ``Runtime.remat`` on, the default: each
 period of the forward is checkpointed and run again in the backward, so
@@ -426,6 +433,13 @@ GEMMA2_REMAT_CHECK = (2, 1024)
 QWEN2_TRAIN_LAYERS = 10
 QWEN2_TRAIN_PARAMS = (2 * 152_064 * 3_584 + 3_584
                       + QWEN2_TRAIN_LAYERS * 233_057_792)
+# the dry run's reduced cases, the reference's tests/test_dryrun_small.py
+# and xlstm-125m: (arch, mode, batch, seq) on a (4, 2) fake mesh
+DRYRUN_CASES = (("internlm2-1.8b", "train", 8, 64),
+                ("jamba-v0.1-52b", "train", 8, 64),
+                ("xlstm-125m", "train", 8, 64),
+                ("deepseek-v2-236b", "decode", 8, 128),
+                ("whisper-medium", "prefill", 8, 64))
 FLASH_GEMMA2 = (2, 8, 4, 8192, 256)      # windows 4,096 (local), -1; cap 50
 FLASH_QWEN2 = (8, 28, 4, 512, 128)       # a GQA group of 7
 
@@ -5326,6 +5340,69 @@ def phase_dense_configs_path(kern, dev) -> dict:
     return legs
 
 
+_DRYRUN_COUNT = r"""
+import dataclasses, json, sys, time
+sys.path.insert(0, "src")
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+from repro_torch.launch.cost_analysis import CostCount
+from repro_torch.launch.mesh import dtensor_mesh, make_host_mesh
+from repro_torch.sharding.rules import MeshPlan
+
+out = []
+for arch, mode, batch, seq in CASES:
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype="bfloat16",
+                              cache_dtype="bfloat16")
+    mesh = make_host_mesh(4, 2, devices=[torch.device("meta")] * 8)
+    t0 = time.perf_counter()
+    with dtensor_mesh(mesh) as dmesh, \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        step, _, _ = dryrun.build_step(
+            cfg, InputShape("smoke", seq, batch, mode), mesh, MeshPlan(),
+            dmesh)
+        with CostCount() as cost:
+            step()
+    out.append({"arch": arch, "mode": mode, "flops_per_chip": cost.flops,
+                "bytes_per_chip": cost.bytes,
+                "collectives": dict(cost.colls),
+                "peak_bytes_per_chip": cost.peak_bytes,
+                "count_s": time.perf_counter() - t0,
+                "group_left": dist.is_initialized()})
+print(json.dumps({"torch": torch.__version__, "cases": out}))
+"""
+
+
+def phase_dryrun_path() -> dict:
+    """The dry run's sharded count of DRYRUN_CASES in a subprocess (a
+    fresh interpreter, no card): each case's counts printed, every count
+    positive, collectives in every case and no process group left."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"CASES = {list(DRYRUN_CASES)!r}\n" + _DRYRUN_COUNT],
+        capture_output=True, text=True, cwd=str(ROOT), timeout=600)
+    check(proc.returncode == 0,
+          f"dryrun_path: the count failed: {proc.stderr[-2000:]}")
+    counted = json.loads(proc.stdout.strip().splitlines()[-1])
+    for case in counted["cases"]:
+        name = f"dryrun_path: {case['arch']} {case['mode']}"
+        check(case["flops_per_chip"] > 0 and case["bytes_per_chip"] > 0
+              and case["peak_bytes_per_chip"] > 0, f"{name}: empty count")
+        check(sum(case["collectives"].values()) > 0,
+              f"{name}: no collective")
+        check(not case["group_left"], f"{name}: a process group was left")
+    record = dict(phase="dryrun_path", torch=counted["torch"],
+                  cases=counted["cases"],
+                  phase_s=time.perf_counter() - t0)
+    emit(**record)
+    return record
+
+
 def whisper_config():
     """whisper-medium as published in the reference: full width and
     depth, 24 encoder layers over 1,500 frames, 24 decoder layers."""
@@ -5502,6 +5579,7 @@ def main() -> None:
     whisper = phase_whisper_path(kern, dev)
     mesh = phase_mesh_path(kern, dev)
     dense = phase_dense_configs_path(kern, dev)
+    phase_dryrun_path()
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
              **serving, **moe, **variants, **whisper, **mesh, **dense}
     records = {"signature": sig_record, "flash": flash_record,

@@ -2,34 +2,46 @@
 without allocating (port of ``repro.launch.dryrun``).
 
 The reference lowers and compiles each step for 256 or 512 forced host
-devices and reads the compiled HLO.  Eager PyTorch has no partitioner, so
-the port counts instead: the production mesh is built over ``meta``
-devices, and the parameters, optimizer state, batch and caches are built
-shape-only under ``FakeTensorMode`` (the counterpart of
-``jax.eval_shape``).  The step itself (the train step, the serving prefill
-or one decode step) runs once under ``FakeTensorMode`` and a
-:class:`~repro_torch.launch.cost_analysis.CostCount`, which applies the
-reference's cost model operation by operation; eager loops run, so trip
-counts come for free.
+devices, partitions it with the sharding rules and reads the partitioned
+HLO.  The port counts the same sharded step in eager PyTorch, on the CPU:
 
-Per chip, with these assumptions:
-  * FLOPs and cost-model bytes are the global counts divided by the
-    chips (the work spread evenly, no replicated compute);
-  * argument bytes are exact: each parameter, optimizer-state, batch and
-    cache leaf's block under the sharding rules (``sharding.rules``);
-  * collective bytes have no counterpart without a partitioner: the
-    record's ``collective_bytes_per_chip`` is null, with the reason;
-  * the roofline terms use the NVIDIA H100 SXM's published peaks
-    (``launch.mesh``).
+  * the mesh is a DTensor ``DeviceMesh`` of the production mesh's axes and
+    shape over a fake process group (``launch.mesh.dtensor_mesh``): this
+    process is chip 0, and no collective moves data;
+  * the parameters, optimizer state, batch and caches are built
+    shape-only under ``FakeTensorMode`` (the counterpart of
+    ``jax.eval_shape``) and placed as DTensors by the sharding rules
+    (``sharding.rules.dtensor_placements``), the reference's
+    ``in_shardings``; the runtime carries the mesh and the batch axes, so
+    the activations' batch constraint (``models.transformer``) and the
+    chip-by-chip regions (``sharding.regions``: the scans, the attention
+    scores, the experts, the sLSTM's ``shard_map`` counterpart) take
+    effect, and a training step places its gradient, new parameters and
+    state back at their shardings, the reference's ``out_shardings``;
+  * the step runs once under a :class:`~repro_torch.launch.cost_analysis.
+    CostCount`, which sees chip 0's local operations and collectives and
+    applies the reference's cost model to them.
+
+Per chip, then: FLOPs and cost-model bytes of the local program;
+collective bytes by the reference's kinds; argument bytes from the
+sharding rules; the peak of the bytes the step's own storages hold
+(``peak_bytes_per_chip``) and ``hbm_gib_per_chip``, argument plus peak
+bytes; and the three-term roofline on the NVIDIA H100 SXM's published
+peaks (``launch.mesh``: bf16 FLOP/s, HBM and NVLink bytes/s), a bound
+from a CPU count, not a card time.  Step loops are folded in the count
+(``launch.cost_analysis.folded``).
+
+What differs from XLA's partitioner: DTensor picks its own
+redistributions (an all-reduce where XLA may reduce-scatter and gather,
+a gather where XLA may all-to-all), and the regions follow XLA's plans
+only where written out; eager memory is freed as references drop, not
+by XLA's buffer assignment, so the peak is not ``temp_size_in_bytes``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-125m \\
         --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
-Eager loops run step by step, about 10^4 operations a token for Jamba's
-Mamba scan in training, so its records take the longest; ``--all`` counts
-the records in a pool of processes, one a CPU core.
-
+``--all`` counts the records in a pool of processes, one a CPU core.
 Records go to ``experiments/dryrun/<arch>__<shape>[__multipod][__opt].json``.
 """
 from __future__ import annotations
@@ -45,25 +57,24 @@ from concurrent.futures import ProcessPoolExecutor
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.launch.cost_analysis import CostCount
-from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NVLINK_BW,
+                                     PEAK_FLOPS_BF16, dtensor_mesh,
                                      make_production_mesh)
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import Runtime
 from repro_torch.sharding.rules import (MeshPlan, batch_shardings,
-                                        cache_shardings, leaves_with_path,
+                                        cache_shardings, dtensor_placements,
+                                        leaves_with_path, map_with_path,
                                         opt_state_shardings, param_shardings,
                                         small_model_plan)
 from repro_torch.train.step import (make_serve_decode, make_serve_prefill,
                                     make_train_step)
-
-_NO_COLLECTIVES = ("eager PyTorch has no partitioner, so no collective is "
-                   "placed to count; a count needs DTensor over a fake "
-                   "process group (CommDebugMode)")
-
 
 def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
     """Shape-only stand-ins for every model input (call under
@@ -120,34 +131,82 @@ def make_plan(cfg: ArchConfig, multi_pod: bool, plan_mode: str = "baseline",
     return MeshPlan(batch_axes=batch_axes)
 
 
-def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan):
+def place(tree, shardings, dmesh):
+    """``tree`` with each tensor leaf a DTensor on ``dmesh`` holding its
+    block under its sharding (``sharding.rules.dtensor_placements``),
+    split locally (no collective)."""
+    sh = dict(leaves_with_path(shardings))
+
+    def put(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return distribute_tensor(leaf, dmesh, dtensor_placements(
+            sh[path].spec, dmesh), src_data_rank=None)
+    return map_with_path(put, tree)
+
+
+def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan,
+               dmesh=None):
     """Call under ``FakeTensorMode``: (step, its arguments' shardings,
-    the arguments), the step a closure over shape-only arguments."""
+    the arguments), the step a closure over shape-only arguments.
+
+    With ``dmesh`` (``launch.mesh.dtensor_mesh(mesh)``) the arguments are
+    DTensors placed by the sharding rules and the runtime carries the
+    mesh and the batch axes, as the reference's ``in_shardings`` and
+    ``Runtime``; the training step places its new parameters and state
+    back at their shardings (``train.step``).  Without it, the unsharded
+    step on one device."""
     params = tfm.init_params(torch.Generator(), cfg)
     params_sh = param_shardings(params, cfg, mesh, plan)
     batch = input_specs(cfg, shape)
+    runtime = Runtime(want_signature=shape.mode == "train")
+    if dmesh is not None:
+        runtime = dataclasses.replace(
+            runtime, batch_axes=tuple(plan.batch_axes), mesh=dmesh,
+            batch_axis_size=plan.axis_size(mesh, tuple(plan.batch_axes)))
+
+    def placed(trees, shardings):
+        if dmesh is None:
+            return trees
+        # serving runs under inference mode, where a DTensor made outside
+        # it cannot be viewed
+        with torch.inference_mode(shape.mode != "train"):
+            return [place(t, sh, dmesh) for t, sh in zip(trees, shardings)]
+
+    def sharded(fn):
+        """``fn`` where a plain tensor the step makes (a position table,
+        a zero state, a mask) meets a DTensor as a replicated one."""
+        if dmesh is None:
+            return fn
+
+        def run():
+            with implicit_replication():
+                return fn()
+        return run
+
     if shape.mode == "train":
         step, opt = make_train_step(
-            cfg, runtime=Runtime(want_signature=True),
+            cfg, runtime=runtime,
             microbatches=getattr(plan, "_microbatches", 0) or 1)
         opt_state = opt.init(params)
         shardings = [params_sh, opt_state_shardings(opt_state, params_sh,
                                                     mesh),
                      batch_shardings(batch, mesh, plan)]
-        return (lambda: step(params, opt_state, batch), shardings,
-                [params, opt_state, batch])
+        args = placed([params, opt_state, batch], shardings)
+        return sharded(lambda: step(*args)), shardings, args
     if shape.mode == "prefill":
-        fn = make_serve_prefill(cfg, Runtime())
-        return (lambda: fn(params, batch),
-                [params_sh, batch_shardings(batch, mesh, plan)],
-                [params, batch])
-    fn = make_serve_decode(cfg, Runtime())
+        fn = make_serve_prefill(cfg, runtime)
+        shardings = [params_sh, batch_shardings(batch, mesh, plan)]
+        args = placed([params, batch], shardings)
+        return sharded(lambda: fn(*args)), shardings, args
+    fn = make_serve_decode(cfg, runtime)
     caches = tfm.init_cache(cfg, shape.global_batch, shape.seq_len)
     token = {"tokens": batch["token"]}
-    return (lambda: fn(params, batch["token"], caches, batch["pos"]),
-            [params_sh, batch_shardings(token, mesh, plan),
-             cache_shardings(caches, cfg, mesh, plan)],
-            [params, token, caches])
+    shardings = [params_sh, batch_shardings(token, mesh, plan),
+                 cache_shardings(caches, cfg, mesh, plan)]
+    args = placed([params, token, caches], shardings)
+    return (sharded(lambda: fn(args[0], args[1]["tokens"], args[2],
+                               batch["pos"])), shardings, args)
 
 
 def argument_bytes_per_chip(shardings, trees) -> int:
@@ -185,53 +244,60 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
               "mesh": dict(mesh.shape), "n_chips": n_chips, "ok": False,
               "plan": plan_mode}
     try:
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            step, shardings, args = build_step(cfg, shape, mesh, plan)
+        with dtensor_mesh(mesh) as dmesh, \
+                FakeTensorMode(allow_non_fake_inputs=True):
+            step, shardings, args = build_step(cfg, shape, mesh, plan, dmesh)
             t_build = time.time() - t0
             with CostCount() as cost:
                 step()
         t_count = time.time() - t0 - t_build
         args_b = argument_bytes_per_chip(shardings, args)
-        flops = cost.flops / n_chips
-        bytes_acc = cost.bytes / n_chips
         mf = model_flops(cfg, shape)
-        t_compute = flops / PEAK_FLOPS_BF16
-        t_memory = bytes_acc / HBM_BW
-        terms = {"compute_s": t_compute, "memory_s": t_memory}
+        terms = {"compute_s": cost.flops / PEAK_FLOPS_BF16,
+                 "memory_s": cost.bytes / HBM_BW,
+                 "collective_s": cost.collective_bytes / NVLINK_BW}
         dominant = max(terms, key=terms.get)
+        hbm = args_b + cost.peak_bytes
         record.update({
             "ok": True,
             "build_s": round(t_build, 2), "count_s": round(t_count, 2),
-            "flops_global": cost.flops, "bytes_global": cost.bytes,
-            "flops_per_chip": flops,
-            "bytes_per_chip": bytes_acc,
+            "flops_per_chip": cost.flops,
+            "bytes_per_chip": cost.bytes,
+            "collective_bytes_per_chip": cost.collective_bytes,
+            "collectives": {k: float(v) for k, v in cost.colls.items()},
             "argument_bytes_per_chip": args_b,
             "argument_gib_per_chip": args_b / 2 ** 30,
-            "collective_bytes_per_chip": None,
-            "collectives": None,
-            "collective_reason": _NO_COLLECTIVES,
+            "peak_bytes_per_chip": cost.peak_bytes,
+            "hbm_gib_per_chip": hbm / 2 ** 30,
+            "fits_hbm": hbm <= HBM_BYTES,
             "model_flops_global": mf,
             "model_flops_per_chip": mf / n_chips,
-            "useful_flop_ratio": (mf / n_chips) / flops if flops else None,
-            "roofline": dict(terms, collective_s=None),
+            "useful_flop_ratio": ((mf / n_chips) / cost.flops
+                                  if cost.flops else None),
+            "roofline": terms,
             "dominant": dominant,
             "step_time_bound_s": max(terms.values()),
             "ops_counted": sum(cost.ops.values()),
             "hardware": "NVIDIA H100 SXM published peaks: "
                         f"{PEAK_FLOPS_BF16:.3g} FLOP/s bf16, "
-                        f"{HBM_BW:.3g} B/s HBM",
-            "assumptions": "FLOPs and bytes per chip = global / chips; "
-                           "argument bytes exact from the sharding rules",
+                        f"{HBM_BW:.3g} B/s HBM, {NVLINK_BW:.3g} B/s NVLink, "
+                        f"{HBM_BYTES:.3g} B HBM",
+            "counted": "chip 0's local program on DTensors over a fake "
+                       "process group, on the CPU; not a card time",
         })
         if verbose:
             print(f"[{arch} x {shape_name}"
                   f"{' x multipod' if multi_pod else ''}] OK "
                   f"build={t_build:.1f}s count={t_count:.1f}s")
             print(f"  args/chip={args_b / 2 ** 30:.2f}GiB "
-                  f"flops/chip={flops:.3e} bytes/chip={bytes_acc:.3e}")
-            print(f"  terms: compute={t_compute * 1e3:.2f}ms "
-                  f"memory={t_memory * 1e3:.2f}ms -> {dominant} dominates; "
-                  f"useful-flop ratio={record['useful_flop_ratio']}")
+                  f"peak/chip={cost.peak_bytes / 2 ** 30:.2f}GiB "
+                  f"flops/chip={cost.flops:.3e} bytes/chip={cost.bytes:.3e} "
+                  f"coll/chip={cost.collective_bytes:.3e}")
+            print(f"  terms: compute={terms['compute_s'] * 1e3:.2f}ms "
+                  f"memory={terms['memory_s'] * 1e3:.2f}ms "
+                  f"coll={terms['collective_s'] * 1e3:.2f}ms -> {dominant} "
+                  f"dominates; useful-flop ratio="
+                  f"{record['useful_flop_ratio']}")
     except Exception as e:  # noqa: BLE001
         record["error"] = f"{type(e).__name__}: {e}"
         record["traceback"] = traceback.format_exc()[-2000:]

@@ -19,9 +19,16 @@ Single pod: (16, 16) = 256 chips, axes ("data", "model").  Multi-pod:
 (2, 16, 16) = 512 chips, axes ("pod", "data", "model"); the "pod" axis
 joins "data" for batch and FSDP sharding.  The dry run builds these over
 ``meta`` devices (``launch.dryrun``).
+
+:func:`dtensor_mesh` is a second use of a mesh: a DTensor ``DeviceMesh``
+of the same axes and shape over a ``"fake"`` process group of one rank
+(rank 0) among ``mesh.size``, on the CPU.  No collective moves data, so
+the dry run counts the sharded program of one chip without the chips.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -118,8 +125,40 @@ def make_cohort_mesh(n_clients: int, axis: str = "clients", data: int = 1,
                 (axis, data_axis))
 
 
+@contextlib.contextmanager
+def dtensor_mesh(mesh: Mesh):
+    """A ``torch.distributed.device_mesh.DeviceMesh`` with ``mesh``'s axis
+    names and shape, over a ``"fake"`` process group of ``mesh.size``
+    ranks (this process is rank 0), on device type ``"cpu"``, with the
+    flattened meshes of its axes made: the group is initialised on entry
+    and destroyed on exit.  Raises if a process group is already
+    initialised."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dmesh = init_device_mesh("cpu", tuple(mesh.devices.shape),
+                                 mesh_dim_names=mesh.axis_names)
+        # the flattened meshes of every two or more axes, made here (not
+        # under fake tensors): one collective over several axes runs on
+        # one of them (``train.step``)
+        for n in range(2, dmesh.ndim + 1):
+            for names in itertools.combinations(mesh.axis_names, n):
+                dmesh[names]._flatten()
+        yield dmesh
+    finally:
+        dist.destroy_process_group()
+
+
 # NVIDIA H100 SXM published peaks (data sheet, dense, at 700 W): the dry
 # run's roofline constants
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s per card, bf16 tensor cores
 HBM_BW = 3.35e12                # bytes / s per card
+HBM_BYTES = 80e9                # bytes of HBM per card
 NVLINK_BW = 450e9               # bytes / s per card, each way

@@ -62,9 +62,14 @@ from repro_torch.core.aggregate import axis_devices, split_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm import mlstm_chunk
 from repro_torch.kernels.slstm import slstm_step
+from repro_torch.launch.cost_analysis import folded
 from repro_torch.models.layers import (_normal, apply_norm, dense_init,
-                                       init_norm, torch_dtype)
+                                       halves, init_norm, merge_heads,
+                                       placed_like, split_heads,
+                                       torch_dtype, zero_pad)
 from repro_torch.runtime import on_device
+from repro_torch.sharding.regions import on_chips
+from repro_torch.sharding.rules import P, dtensor_placements
 
 
 def _mdims(cfg: ArchConfig):
@@ -133,14 +138,14 @@ def _mlstm_qkvif(params, x, cfg: ArchConfig, compute):
     xc, d_in, d_qk, H = _mdims(cfg)
     B, S, _ = x.shape
     up = x.to(compute) @ params["up_proj"].to(compute)
-    xm, z = up.chunk(2, dim=-1)
+    xm, z = halves(up)
     # causal conv + silu feeds q/k (the paper's block layout)
-    xcn = _causal_conv(F.pad(xm, (0, 0, xc.s_conv - 1, 0)),
+    xcn = _causal_conv(zero_pad(xm, 1, xc.s_conv - 1, 0),
                        params["conv_w"].to(compute),
                        params["conv_b"].to(compute), S)
-    q = (xcn @ params["wq"].to(compute)).reshape(B, S, H, d_qk // H)
-    k = (xcn @ params["wk"].to(compute)).reshape(B, S, H, d_qk // H)
-    v = (xm @ params["wv"].to(compute)).reshape(B, S, H, d_in // H)
+    q = split_heads(xcn @ params["wq"].to(compute), B, S, H, d_qk // H)
+    k = split_heads(xcn @ params["wk"].to(compute), B, S, H, d_qk // H)
+    v = split_heads(xm @ params["wv"].to(compute), B, S, H, d_in // H)
     gif = (xm @ params["w_if"].to(compute)).float() + params["b_if"]
     i_gate, f_gate = gif.chunk(2, dim=-1)
     return q, k, v, i_gate, f_gate, z, xm
@@ -186,6 +191,22 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state, chunk: int = 256):
     return h, {"C": C, "n": n, "m": m}
 
 
+def _on_heads(core, q, k, v, i_gate, f_gate, state):
+    """``core(q, k, v, i_gate, f_gate, state)`` (the chunkwise form or
+    the recurrent step); on a DTensor mesh chip by chip over its rows and
+    heads (``sharding.regions.on_chips``)."""
+    heads, state_heads = {"batch": 0, "head": 2}, {"batch": 0, "head": 1}
+
+    def flat(q, k, v, i, f, C, n, m):
+        h, new = core(q, k, v, i, f, {"C": C, "n": n, "m": m})
+        return h, new["C"], new["n"], new["m"]
+
+    h, C, n, m = on_chips(
+        flat, (q, k, v, i_gate, f_gate, state["C"], state["n"], state["m"]),
+        (heads,) * 5 + (state_heads,) * 3, (heads,) + (state_heads,) * 3)
+    return h, {"C": C, "n": n, "m": m}
+
+
 def mlstm_recurrent_ref(q, k, v, i_gate, f_gate, state):
     """Step-by-step oracle (same signature, one step per position)."""
     B, S, H, dk = q.shape
@@ -224,9 +245,11 @@ def mlstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
         h, core = ops.mlstm_chunkwise(q, k, v, i_gate, f_gate,
                                       chunk=xc.chunk, h_dtype=torch.float32)
     else:
-        h, core = mlstm_chunkwise(q, k, v, i_gate, f_gate, state,
-                                  chunk=xc.chunk)
-    h = apply_norm(params["head_norm"], h.reshape(B, S, d_in), "rmsnorm")
+        h, core = _on_heads(
+            lambda *a: mlstm_chunkwise(*a, chunk=xc.chunk),
+            q, k, v, i_gate, f_gate, state)
+    h = apply_norm(params["head_norm"], merge_heads(h, B, S, d_in),
+                   "rmsnorm")
     out = (h.to(compute) * F.silu(z)) @ params["down_proj"].to(compute)
     new_state = dict(core)
     tail = xc.s_conv - 1
@@ -241,18 +264,19 @@ def mlstm_decode(params, x, state, *, cfg: ArchConfig):
     compute = torch_dtype(cfg.compute_dtype)
     B = x.shape[0]
     up = x[:, 0].to(compute) @ params["up_proj"].to(compute)
-    xm, z = up.chunk(2, dim=-1)
+    xm, z = halves(up)
     window = torch.cat([state["conv"].to(compute), xm[:, None]], dim=1)
     conv_w = params["conv_w"].to(compute)
     xcn = F.silu((window * conv_w[None]).sum(dim=1)
                  + params["conv_b"].to(compute))
-    q = (xcn @ params["wq"].to(compute)).reshape(B, 1, H, d_qk // H)
-    k = (xcn @ params["wk"].to(compute)).reshape(B, 1, H, d_qk // H)
-    v = (xm @ params["wv"].to(compute)).reshape(B, 1, H, d_in // H)
+    q = split_heads(xcn @ params["wq"].to(compute), B, 1, H, d_qk // H)
+    k = split_heads(xcn @ params["wk"].to(compute), B, 1, H, d_qk // H)
+    v = split_heads(xm @ params["wv"].to(compute), B, 1, H, d_in // H)
     gif = (xm @ params["w_if"].to(compute)).float() + params["b_if"]
     i_gate, f_gate = gif[:, None].chunk(2, dim=-1)
-    h, core = mlstm_recurrent_ref(q, k, v, i_gate, f_gate, state)
-    h = apply_norm(params["head_norm"], h.reshape(B, 1, d_in), "rmsnorm")
+    h, core = _on_heads(mlstm_recurrent_ref, q, k, v, i_gate, f_gate, state)
+    h = apply_norm(params["head_norm"], merge_heads(h, B, 1, d_in),
+                   "rmsnorm")
     out = (h[:, 0].to(compute) * F.silu(z)) @ params["down_proj"].to(compute)
     new_state = dict(core)
     new_state["conv"] = window[:, 1:].float()
@@ -310,17 +334,26 @@ def _slstm_inputs(params, xconv):
     return gates_x, params["r_gates"].float()
 
 
-def _slstm_scan(params, xconv, state):
-    """xconv (B,S,d) -> (hs (B,S,d), {c, n, h, m}): the exponentially
-    gated recurrence, one :func:`slstm_step` per position (the model's own
-    form)."""
-    gates_x, R = _slstm_inputs(params, xconv)
-    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+def _slstm_loop(gates_x, R, c, n, h, m):
+    """One :func:`slstm_step` per position of ``gates_x`` (B,S,4d).
+    Returns (hs (B,S,d), c, n, h, m)."""
     hs = []
     for t in range(gates_x.shape[1]):
         c, n, h, m = slstm_step(c, n, h, m, gates_x[:, t], R)
         hs.append(h)
-    return torch.stack(hs, 1), {"c": c, "n": n, "h": h, "m": m}
+    return torch.stack(hs, 1), c, n, h, m
+
+
+def _slstm_scan(params, xconv, state):
+    """xconv (B,S,d) -> (hs (B,S,d), {c, n, h, m}): the exponentially
+    gated recurrence, one :func:`slstm_step` per position (the model's own
+    form; its step loop folded under a dry run's count,
+    ``launch.cost_analysis.folded``)."""
+    gates_x, R = _slstm_inputs(params, xconv)
+    hs, c, n, h, m = folded(
+        _slstm_loop, (gates_x, R) + tuple(state[k] for k in "cnhm"),
+        (True,) + (False,) * 5, (True,) + (False,) * 4)
+    return hs, {"c": c, "n": n, "h": h, "m": m}
 
 
 def _slstm_recurrence(params, xconv, state, use_kernels: bool):
@@ -334,10 +367,42 @@ def _slstm_recurrence(params, xconv, state, use_kernels: bool):
     return _slstm_scan(params, xconv, state)
 
 
+def _slstm_scan_local(params, xconv, state, runtime, dmesh):
+    """The recurrence on each chip's rows of a DTensor mesh (the dry
+    run's), the counterpart of the reference's ``shard_map`` region: the
+    gate weights replicated into it (an all-gather where they are FSDP
+    shards), the inputs and states on the batch axes, and the loop on
+    local tensors.  The weights leave as local tensors whose gradient is
+    a partial sum over the batch axes, so their gradient is reduced once,
+    after the loop, as the region's psum is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    rows = dtensor_placements(P(tuple(runtime.batch_axes)), dmesh)
+    partial = [Partial() if p != Replicate() else p for p in rows]
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, dmesh, [Replicate()] * dmesh.ndim,
+                                   run_check=False)
+        return t.redistribute(dmesh, placements).to_local(
+            grad_placements=placements)
+
+    used = {k: params[k].redistribute(dmesh, [Replicate()] * dmesh.ndim)
+            .to_local(grad_placements=partial)
+            for k in ("w_gates", "r_gates", "b_gates")}
+    hs, core = _slstm_recurrence(
+        used, local(xconv, rows), {k: local(state[k], rows) for k in "cnhm"},
+        runtime.use_kernels)
+
+    def rows_of(t):
+        return DTensor.from_local(t, dmesh, rows, run_check=False)
+    return rows_of(hs), {k: rows_of(v) for k, v in core.items()}
+
+
 def _slstm_scan_maybe_sharded(params, xconv, state, runtime):
     """The recurrence with its batch split over the mesh's batch axes,
     when ``runtime`` has a mesh and they divide the batch; else on one
-    device.
+    device.  A DTensor mesh runs :func:`_slstm_scan_local`.
 
     Each device runs the recurrence of its rows with its own copies of
     the gate weights, and the rows are joined on ``xconv``'s device.  The
@@ -351,6 +416,8 @@ def _slstm_scan_maybe_sharded(params, xconv, state, runtime):
     B = xconv.shape[0]
     if mesh is None or not baxes or B % max(runtime.batch_axis_size, 1):
         return _slstm_recurrence(params, xconv, state, use_kernels)
+    if runtime.device_mesh is not None:
+        return _slstm_scan_local(params, xconv, state, runtime, mesh)
     devices = axis_devices(mesh, tuple(baxes))
     used = {k: params[k] for k in ("w_gates", "r_gates", "b_gates")}
     xs = split_blocks(xconv, devices)
@@ -375,13 +442,14 @@ def slstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
     B, S, _ = x.shape
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
-    xp = torch.cat([state["conv"].to(compute), x.to(compute)], dim=1)
+    xp = torch.cat([placed_like(state["conv"].to(compute), x, 1),
+                    x.to(compute)], dim=1)
     xconv = _causal_conv(xp, params["conv_w"].to(compute),
                          params["conv_b"].to(compute), S)
     hs, core = _slstm_scan_maybe_sharded(params, xconv, state, runtime)
     hs = apply_norm(params["out_norm"], hs.to(x.dtype), "rmsnorm")
     up = hs.to(compute) @ params["up_proj"].to(compute)
-    a, g = up.chunk(2, dim=-1)
+    a, g = halves(up)
     out = (F.gelu(a, approximate="tanh") * g) @ params["down_proj"].to(compute)
     new_state = dict(core)
     new_state["conv"] = xp[:, S:].float()

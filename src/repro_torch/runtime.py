@@ -15,6 +15,11 @@ between a kernel and its plain version.  ``remat`` checkpoints each
 scanned period of a training forward under autograd
 (``models.transformer``).  ``mesh`` with ``batch_axes`` splits the sLSTM
 recurrence's batch over the devices of those axes (``models.xlstm``).
+``mesh`` may instead be a DTensor ``DeviceMesh`` (the dry run's,
+``launch.mesh.dtensor_mesh``): the activations' batch dim is then placed
+on the batch axes after the embedding, each layer and each stage
+(``models.transformer``), and the sLSTM recurrence runs on each chip's
+rows (``models.xlstm``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,12 @@ class Runtime:
     batch_axes: Optional[Tuple[str, ...]] = None
     batch_axis_size: int = 1
     mesh: Optional[Any] = None
+
+    @property
+    def device_mesh(self):
+        """``mesh`` when it is a DTensor ``DeviceMesh``, else None."""
+        from torch.distributed.device_mesh import DeviceMesh
+        return self.mesh if isinstance(self.mesh, DeviceMesh) else None
 
 
 DEFAULT = Runtime()

@@ -71,6 +71,28 @@ class NamedSharding:
                 * leaf.element_size())
 
 
+def dtensor_placements(spec: P, dmesh) -> list:
+    """``spec`` as DTensor placements on ``dmesh`` (a ``DeviceMesh`` with
+    the port mesh's axis names, ``launch.mesh.dtensor_mesh``): a dim whose
+    entry names axes is ``Shard(dim)`` on each of those mesh dims, every
+    other mesh dim ``Replicate()``.  An entry of several axes splits
+    major to minor, as JAX's; that is plain ``Shard``'s order only where
+    the entry names them in the mesh's order, so any other order
+    raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(dmesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        dims = [names.index(a) for a in _axes(entry)]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: axes {_axes(entry)} are not in the "
+                             f"mesh's order {names}")
+        for d in dims:
+            out[d] = Shard(dim)
+    return out
+
+
 def _shape(leaf) -> tuple:
     return tuple(leaf.shape)
 

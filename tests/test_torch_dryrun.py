@@ -244,26 +244,51 @@ def test_plans_specs_and_model_flops_equal_reference(ref):
 
 
 def test_run_one_writes_the_record(tmp_path):
-    rec = dryrun.run_one("xlstm-125m", "decode_32k", out_dir=str(tmp_path),
-                         verbose=False)
-    assert rec["ok"], rec.get("traceback")
-    on_disk = json.loads((tmp_path / "xlstm-125m__decode_32k.json")
-                         .read_text())
-    assert on_disk["ok"] and on_disk["n_chips"] == 256
-    for key in ("arch", "shape", "multi_pod", "mesh", "n_chips", "plan",
-                "flops_per_chip", "bytes_per_chip", "argument_bytes_per_chip",
-                "model_flops_global", "model_flops_per_chip",
-                "useful_flop_ratio", "roofline", "dominant",
-                "step_time_bound_s", "collective_bytes_per_chip",
-                "collective_reason", "count_s"):
-        assert key in on_disk, key
-    assert on_disk["collective_bytes_per_chip"] is None
-    assert on_disk["roofline"]["collective_s"] is None
-    assert on_disk["dominant"] in ("compute_s", "memory_s")
-    assert rec["flops_per_chip"] * 256 == pytest.approx(rec["flops_global"])
-    assert rec["model_flops_per_chip"] == pytest.approx(
-        rec["model_flops_global"] / 256)
-    assert 0 < rec["argument_bytes_per_chip"] < 2 ** 31
+    """A decode and a training record of the sharded count on the (16, 16)
+    mesh: per-chip counts, collectives by kind (a training step's
+    gradient reduction among them), the three-term roofline and the
+    per-chip peak; no process group left behind."""
+    records = {}
+    for arch, shape in (("xlstm-125m", "decode_32k"),
+                        ("internlm2-1.8b", "train_4k")):
+        rec = dryrun.run_one(arch, shape, out_dir=str(tmp_path),
+                             verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        records[shape] = json.loads((tmp_path / f"{arch}__{shape}.json")
+                                    .read_text())
+        assert not torch.distributed.is_initialized()
+    for on_disk in records.values():
+        assert on_disk["ok"] and on_disk["n_chips"] == 256
+        for key in ("arch", "shape", "multi_pod", "mesh", "n_chips", "plan",
+                    "flops_per_chip", "bytes_per_chip",
+                    "argument_bytes_per_chip", "model_flops_global",
+                    "model_flops_per_chip", "useful_flop_ratio", "roofline",
+                    "dominant", "step_time_bound_s",
+                    "collective_bytes_per_chip", "collectives",
+                    "peak_bytes_per_chip", "hbm_gib_per_chip", "count_s"):
+            assert key in on_disk, key
+        assert set(on_disk["roofline"]) == {"compute_s", "memory_s",
+                                            "collective_s"}
+        assert on_disk["dominant"] in on_disk["roofline"]
+        assert on_disk["step_time_bound_s"] == max(
+            on_disk["roofline"].values())
+        assert on_disk["collective_bytes_per_chip"] == pytest.approx(
+            sum(on_disk["collectives"].values()))
+        assert set(on_disk["collectives"]) <= {
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "collective-permute"}
+        assert on_disk["roofline"]["collective_s"] == pytest.approx(
+            on_disk["collective_bytes_per_chip"] / dryrun.NVLINK_BW)
+        assert on_disk["model_flops_per_chip"] == pytest.approx(
+            on_disk["model_flops_global"] / 256)
+        assert 0 < on_disk["argument_bytes_per_chip"] < 2 ** 31
+        assert on_disk["peak_bytes_per_chip"] > 0
+        assert on_disk["hbm_gib_per_chip"] == pytest.approx(
+            (on_disk["argument_bytes_per_chip"]
+             + on_disk["peak_bytes_per_chip"]) / 2 ** 30)
+    train = records["train_4k"]
+    assert train["collectives"]["all-reduce"] > 0
+    assert 0 < train["flops_per_chip"] < train["model_flops_global"]
 
 
 def test_main_needs_arch_and_shape():
