@@ -42,14 +42,17 @@ are still alive (autograd's saved tensors included) and their peak,
 ``peak_bytes``: the counterpart of XLA's ``temp_size_in_bytes``, though
 eager frees as references drop, not by XLA's buffer assignment.
 
-Step loops (``models.mamba``, ``models.xlstm``) are folded under a count
-(:func:`folded`): the loop runs for two and for three steps, forward
-and, in the backward, backward, and the count adds the difference for
-every further step.  Every count is affine in the steps, so the folded
-count equals the step-by-step one; outputs take the full shape, which
-costs nothing under fake tensors.  The live bytes are affine from the
-second step on (each step replaces the state the one before made), and
-are extrapolated the same way.  Outside a count the loop runs as it is.
+Step loops (``models.mamba``, ``models.xlstm``, through
+``models.layers.step_loop``) are folded while a count runs, which sets
+``layers.LOOP_FOLD`` to :func:`folded`: the loop runs for two and for
+three steps, forward and, in the backward, backward, and the count adds
+the difference for every further step.  Every count is affine in the
+steps, so the folded count equals the step-by-step one; outputs take the
+full shape, copies of the first step, which costs nothing under fake
+tensors.  The live bytes are affine from the second step on (each step
+replaces the state the one before made), and are extrapolated the same
+way.  On tensors that hold values, and outside a count, the loop runs as
+it is.
 """
 from __future__ import annotations
 
@@ -60,8 +63,11 @@ from collections import Counter
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
+
+from repro_torch.models import layers
 
 try:
     from torch.distributed.tensor import DTensor as _DTensor
@@ -201,6 +207,7 @@ class CostCount(TorchDispatchMode):
             self._hooks = contextlib.ExitStack()
             self._hooks.enter_context(_dtensor_hooks())
             self._hooks.enter_context(_no_cycle_collection())
+            self._hooks.enter_context(_loops_folded())
         self._depth += 1
         return super().__enter__()
 
@@ -281,8 +288,6 @@ class CostCount(TorchDispatchMode):
             with self:             # the parts come back through this mode
                 return func.decompose(*args, **kwargs)
         out = func(*args, **kwargs)
-        if func.namespace == "prim" or func is aten.detach.default:
-            return out             # a metadata query, an alias
         self.ops[func.__name__] += 1
         self.track(out, (args, kwargs))
         if func in _MM:
@@ -326,6 +331,18 @@ def _no_cycle_collection():
     finally:
         if enabled:
             gc.enable()
+
+
+@contextlib.contextmanager
+def _loops_folded():
+    """The models' step loops folded (``layers.step_loop``) while the
+    count runs."""
+    before = layers.LOOP_FOLD
+    layers.LOOP_FOLD = folded
+    try:
+        yield
+    finally:
+        layers.LOOP_FOLD = before
 
 
 def _tensors(tree):
@@ -529,11 +546,13 @@ class _Fold(torch.autograd.Function):
 def folded(run, inputs, seq_in, seq_out):
     """``run(*inputs)``, a loop over dim 1 of the inputs marked in
     ``seq_in`` whose outputs marked in ``seq_out`` stack its steps on dim
-    1: run as it is, or under a :class:`CostCount` counted from two steps
-    and three and extrapolated to all of them (module docstring)."""
+    1: on fake tensors under a :class:`CostCount` counted from two steps
+    and three and extrapolated to all of them (module docstring), else
+    run as it is."""
     count = active_count()
     n = next(x.shape[1] for x, s in zip(inputs, seq_in) if s)
-    if count is None or n <= 3:
+    tensors = [x for x in inputs if isinstance(x, torch.Tensor)]
+    if count is None or n <= 3 or not all(is_fake(x) for x in tensors):
         return run(*inputs)
     return _Fold.apply(count, run, tuple(seq_in), tuple(seq_out), n,
                        torch.is_grad_enabled(), *inputs)

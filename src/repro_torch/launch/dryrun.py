@@ -12,30 +12,36 @@ HLO.  The port counts the same sharded step in eager PyTorch, on the CPU:
     shape-only under ``FakeTensorMode`` (the counterpart of
     ``jax.eval_shape``) and placed as DTensors by the sharding rules
     (``sharding.rules.dtensor_placements``), the reference's
-    ``in_shardings``; the runtime carries the mesh and the batch axes, so
-    the activations' batch constraint (``models.transformer``) and the
-    chip-by-chip regions (``sharding.regions``: the scans, the attention
-    scores, the experts, the sLSTM's ``shard_map`` counterpart) take
-    effect, and a training step places its gradient, new parameters and
-    state back at their shardings, the reference's ``out_shardings``;
+    ``in_shardings``; the runtime carries the mesh (``Runtime.dmesh``) and
+    the batch axes, so the models take their DTensor paths
+    (``sharding.dtensor``: the batch constraint, the chip-by-chip regions
+    for the scans, the attention scores, the experts and the sLSTM's
+    ``shard_map`` counterpart), and a training step places its gradient,
+    new parameters and state back at their shardings, the reference's
+    ``out_shardings``;
   * the step runs once under a :class:`~repro_torch.launch.cost_analysis.
     CostCount`, which sees chip 0's local operations and collectives and
-    applies the reference's cost model to them.
+    applies the reference's cost model to them, its Mamba and sLSTM step
+    loops folded (``launch.cost_analysis.folded``).
 
 Per chip, then: FLOPs and cost-model bytes of the local program;
 collective bytes by the reference's kinds; argument bytes from the
 sharding rules; the peak of the bytes the step's own storages hold
 (``peak_bytes_per_chip``) and ``hbm_gib_per_chip``, argument plus peak
-bytes; and the three-term roofline on the NVIDIA H100 SXM's published
-peaks (``launch.mesh``: bf16 FLOP/s, HBM and NVLink bytes/s), a bound
-from a CPU count, not a card time.  Step loops are folded in the count
-(``launch.cost_analysis.folded``).
+bytes, with ``fits_hbm`` comparing it to 80 GB; and the three-term
+roofline on the NVIDIA H100 SXM's published peaks (``launch.mesh``: bf16
+FLOP/s, HBM and NVLink bytes/s), a bound from a CPU count, not a card
+time.
 
 What differs from XLA's partitioner: DTensor picks its own
-redistributions (an all-reduce where XLA may reduce-scatter and gather,
-a gather where XLA may all-to-all), and the regions follow XLA's plans
-only where written out; eager memory is freed as references drop, not
-by XLA's buffer assignment, so the peak is not ``temp_size_in_bytes``.
+redistributions (an all-reduce or a reduce-scatter where XLA may pick
+the other, a gather where XLA may all-to-all); a fused projection's
+halves move nothing (``sharding.dtensor.halves``), where XLA permutes
+them and all-to-alls their gradient; and the regions follow XLA's plans
+only where written out.  The peak is eager liveness, freed as references
+drop, not XLA's buffer assignment: on the reduced 4 x 2 cases it reads
+0.25 to 7.2 times XLA's ``temp_size_in_bytes``, so ``fits_hbm`` is an
+estimate, not a verdict.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-125m \\
         --shape decode_32k
@@ -162,7 +168,7 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan,
     runtime = Runtime(want_signature=shape.mode == "train")
     if dmesh is not None:
         runtime = dataclasses.replace(
-            runtime, batch_axes=tuple(plan.batch_axes), mesh=dmesh,
+            runtime, batch_axes=tuple(plan.batch_axes), dmesh=dmesh,
             batch_axis_size=plan.axis_size(mesh, tuple(plan.batch_axes)))
 
     def placed(trees, shardings):

@@ -53,8 +53,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
-                                       init_norm, merge_heads, softcap,
-                                       split_heads, torch_dtype, zero_pad)
+                                       init_norm, softcap, torch_dtype)
+from repro_torch.sharding import dtensor
+from repro_torch.sharding.dtensor import merge_heads, split_heads
 
 _NEG = -2.0e9
 _DENSE_MAX = 2048          # above this, the chunked and banded paths
@@ -270,78 +271,17 @@ def _banded_attn(q, k, v, q_pos, k_pos, window: int, cap: float,
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
-def _on_chips(fn, q, k, v, *rest):
-    """``fn(q, k, v, *rest)`` for q (B,Sq,H,hd) and k, v (B,Sk,K,hd);
-    on DTensors (the dry run's mesh) run on each chip's block, as XLA
-    partitions attention over batch and heads: the batch stays on its
-    shards (q's or the keys', the larger's layout kept), the heads on
-    the keys' shards with q's alike, or, where the kv heads do not split,
-    the kv heads of the chip's query groups cut from their replicas
-    (their gradient then a partial sum); any other placement is gathered
-    first.  ``rest`` is replicated."""
-    if not hasattr(q, "device_mesh"):
-        return fn(q, k, v, *rest)
-    from torch.distributed.tensor import (DTensor, Partial, Replicate,
-                                          Shard)
-    dmesh = q.device_mesh
-    B, H, K = q.shape[0], q.shape[2], k.shape[2]
-    qp, kp, kgrad = [], [], []
-    heads = rows = 1               # the ways q's heads and rows split
-    for pq, pk, n in zip(q.placements, k.placements, dmesh.shape):
-        if (pq.is_shard(0) or pk.is_shard(0)) and B % (rows * n) == 0:
-            rows *= n
-            qp.append(Shard(0))
-            kp.append(Shard(0))
-            kgrad.append(Shard(0))
-        elif pk.is_shard(2) and K % n == 0:
-            qp.append(Shard(2))
-            kp.append(Shard(2))
-            kgrad.append(Shard(2))
-        elif pq.is_shard(2) and not pk.is_shard():
-            qp.append(Shard(2))
-            kp.append(Replicate())
-            kgrad.append(Partial())
-        else:
-            qp.append(Replicate())
-            kp.append(Replicate())
-            kgrad.append(Replicate())
-    for pq, size in zip(qp, dmesh.shape):
-        heads *= size if pq.is_shard(2) else 1
-    kv_ways = 1
-    for pk, size in zip(kp, dmesh.shape):
-        kv_ways *= size if pk.is_shard(2) else 1
-    h_loc, G = H // heads, H // K
-    k_loc = K // kv_ways
-    if kv_ways != heads:           # cut the kv heads the chip's groups use
-        if h_loc % G and G % h_loc:
-            return _on_chips(fn, q.redistribute(dmesh, [
-                Replicate() if p.is_shard(2) else p for p in q.placements]),
-                k, v, *rest)
-        k_loc = max(h_loc // G, 1)
-
-    def local(t, placements, grads):
-        return t.redistribute(dmesh, placements).to_local(
-            grad_placements=grads)
-
-    ql = local(q, qp, qp)
-    kl, vl = (local(t, kp, kgrad)[:, :, :k_loc] for t in (k, v))
-    rest = [local(r, [Replicate()] * dmesh.ndim, [Replicate()] * dmesh.ndim)
-            if isinstance(r, DTensor) else r for r in rest]
-    return DTensor.from_local(fn(ql, kl, vl, *rest), dmesh, qp,
-                              run_check=False)
-
-
 def scaled_attention(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
                      cap: float, runtime=None) -> torch.Tensor:
     """Dispatch over score paths (and the kernel when asked for), in the
     reference's order; on DTensors, on each chip's block
-    (:func:`_on_chips`).
+    (``sharding.dtensor.attention_on_chips``).
 
     q (B,Sq,H,hd); k, v (B,Sk,K,hd); q_pos (Sq,), k_pos (Sk,): 1-D global
     sequence positions.
     """
-    if hasattr(q, "device_mesh"):
-        return _on_chips(lambda *a: scaled_attention(
+    if dtensor.is_dtensor(q):
+        return dtensor.attention_on_chips(lambda *a: scaled_attention(
             *a, causal=causal, window=window, cap=cap, runtime=runtime),
             q, k, v, q_pos, k_pos)
     Sq, Sk = q.shape[1], k.shape[1]
@@ -399,48 +339,15 @@ def attn_forward(params, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     return out, {"k": k.to(cache_dt), "v": v.to(cache_dt)}
 
 
-def _seq_sharded(t) -> bool:
-    """Whether ``t`` is a DTensor sharded on dim 1 (a cache's sequence, on
-    the dry run's mesh)."""
-    return any(p.is_shard(1) for p in getattr(t, "placements", ()))
-
-
-def _write_slot(cache, pos: int, new) -> None:
-    """``cache[:, pos] = new`` in place (cast to the cache's type).  On a
-    DTensor cache whose sequence is sharded, each chip writes its block's
-    slot, ``new`` cut to the cache's other shards: one slot's write on
-    every chip, as XLA's dynamic-update-slice on a sharded dim, where a
-    plain index would gather the whole cache."""
-    if not _seq_sharded(cache):
-        cache[:, pos] = new.to(cache.dtype)
-        return
-    from torch.distributed.tensor import Replicate, Shard
-    placements = [Replicate() if p.is_shard(1) else
-                  Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p
-                  for p in cache.placements]
-    local = cache.to_local()
-    local[:, pos % local.shape[1]] = new.redistribute(
-        cache.device_mesh, placements).to_local().to(cache.dtype)
-
-
-def _gathered_where_keys_split(q, keys):
-    """``q`` (a DTensor) replicated over the mesh dims that split the keys'
-    sequence, where its heads cannot stay split."""
-    from torch.distributed.tensor import Replicate
-    return q.redistribute(q.device_mesh, [
-        Replicate() if pk.is_shard(1) else pq
-        for pq, pk in zip(q.placements, keys.placements)])
-
-
 def _sdpa_split_keys(q, k, v, bias, cap: float) -> torch.Tensor:
     """:func:`_sdpa` for keys whose sequence is sharded (a decode step on
     the dry run's mesh), as a partitioner takes it: each chip's scores
     over its keys, then the softmax's max and sum and the weighted values
     reduced across the keys' shards (``exp(s - m) @ v / sum exp(s - m)``,
-    one all-reduce each), not the scores gathered."""
+    one all-reduce each), not the scores gathered.  On plain tensors, the
+    same arithmetic on one block."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
-    q = _gathered_where_keys_split(q, k)
     qs = (q.float() * (1.0 / math.sqrt(hd))).to(k.dtype)
     qs = qs.reshape(B, Sq, K, H // K, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qs.float(), k.float())
@@ -469,8 +376,8 @@ def attn_decode(params, x, cache, pos: int, *, cfg: ArchConfig,
         k_new = apply_rope(k_new, positions, cfg.rope_theta,
                            cfg.mrope_sections)
     k, v = cache["k"], cache["v"]
-    _write_slot(k, pos, k_new[:, 0])
-    _write_slot(v, pos, v_new[:, 0])
+    dtensor.write_slot(k, pos, k_new[:, 0])
+    dtensor.write_slot(v, pos, v_new[:, 0])
     k_pos = torch.arange(S, device=x.device)
     valid = k_pos <= pos
     if window > 0:
@@ -478,11 +385,12 @@ def attn_decode(params, x, cache, pos: int, *, cfg: ArchConfig,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, _NEG)
     cap = cfg.attn_softcap
-    if _seq_sharded(k):
-        out = _sdpa_split_keys(q, k, v, bias[None], cap)
+    if dtensor.seq_sharded(k):
+        out = _sdpa_split_keys(dtensor.gathered_where_keys_split(q, k), k,
+                               v, bias[None], cap)
     else:
-        out = _on_chips(lambda q, k, v, b: _sdpa(q, k, v, b, cap), q, k, v,
-                        bias[None])
+        out = dtensor.attention_on_chips(
+            lambda q, k, v, b: _sdpa(q, k, v, b, cap), q, k, v, bias[None])
     out = merge_heads(out, B, 1, cfg.q_dim)
     out = (out.to(compute) @ params["wo"].to(compute)).to(x.dtype)
     return out, {"k": k, "v": v}
@@ -502,8 +410,8 @@ def cross_attn_forward(params, x, enc_k, enc_v, *, cfg: ArchConfig):
                     B, S, cfg.n_heads, cfg.head_dim)
     bias = torch.zeros((S, enc_k.shape[1]), dtype=torch.float32,
                        device=x.device)
-    out = merge_heads(_on_chips(lambda *a: _sdpa(*a, 0.0), q, enc_k, enc_v,
-                                bias), B, S, cfg.q_dim)
+    out = merge_heads(dtensor.attention_on_chips(
+        lambda *a: _sdpa(*a, 0.0), q, enc_k, enc_v, bias), B, S, cfg.q_dim)
     return (out.to(compute) @ params["xwo"].to(compute)).to(x.dtype)
 
 
@@ -581,7 +489,7 @@ def _mla_forward(params, x, *, cfg: ArchConfig, positions, window: int,
     q = torch.cat([q_nope, q_rope], dim=-1)
     pos1d = torch.arange(S, dtype=torch.int32, device=x.device)
     vd, hd = m.v_head_dim, q.shape[-1]
-    v_pad = zero_pad(v, -1, 0, hd - vd) if hd > vd else v
+    v_pad = dtensor.pad(v, -1, 0, hd - vd) if hd > vd else v
     out = scaled_attention(q, k, v_pad, pos1d, pos1d, causal=True,
                            window=window, cap=0.0, runtime=runtime)
     out = merge_heads(out[..., :vd], B, S, cfg.n_heads * vd)
@@ -605,11 +513,11 @@ def _mla_decode(params, x, cache, pos: int, *, cfg: ArchConfig,
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_new, krope_new = _mla_latents(params, x, cfg, positions, compute)
     ckv, krope = cache["ckv"], cache["krope"]
-    _write_slot(ckv, pos, ckv_new[:, 0])
-    _write_slot(krope, pos, krope_new[:, 0])
-    split = _seq_sharded(ckv)
+    dtensor.write_slot(ckv, pos, ckv_new[:, 0])
+    dtensor.write_slot(krope, pos, krope_new[:, 0])
+    split = dtensor.seq_sharded(ckv)
     if split:
-        q_nope, q_rope = (_gathered_where_keys_split(t, ckv)
+        q_nope, q_rope = (dtensor.gathered_where_keys_split(t, ckv)
                           for t in (q_nope, q_rope))
     wk, wv = _mla_wkvb_split(params, cfg, compute)
     # absorb: q_eff[h, r] = sum_d q_nope[h, d] wk[r, h, d]

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.aggregate import f32_mean
+from repro_torch.sharding import dtensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -68,7 +69,7 @@ def init_norm(kind: str, d: int, dtype, device=None) -> dict:
 
 def apply_norm(params, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    x = _whole_features(x)
+    x = dtensor.whole_features(x)
     xf = x.float()
     if kind == "rmsnorm":
         var = f32_mean(xf.square(), dim=-1, keepdim=True)
@@ -181,134 +182,22 @@ def init_embedding(generator, vocab: int, d: int, dtype, tied: bool) -> dict:
     return p
 
 
-def _whole_features(x):
-    """A DTensor whose last dim is sharded (the dry run's mesh) gathered
-    on it, its gradient placed alike: a norm reduces over the features,
-    where DTensor would move the sharding onto the sequence instead.  Any
-    other ``x`` as it is."""
-    placements = getattr(x, "placements", ())
-    if not any(p.is_shard(x.dim() - 1) for p in placements):
-        return x
-    from torch.distributed.tensor import Replicate
-    return constrained(x, [Replicate() if p.is_shard(x.dim() - 1) else p
-                           for p in placements])
+# ---------------------------------------------------------------------------
+# step loops
+# ---------------------------------------------------------------------------
+
+# the fold a dry run's count sets while it runs
+# (``launch.cost_analysis.folded``), else None
+LOOP_FOLD = None
 
 
-def summed_onto_features(t):
-    """A DTensor's pending partial sums (a row-parallel product's, the
-    dry run's mesh) reduced onto its last dim's shards (a reduce-scatter;
-    replicated where the dim does not split), its gradient placed alike:
-    DTensor would otherwise scatter them onto the sequence.  Any other
-    ``t`` as it is."""
-    placements = getattr(t, "placements", ())
-    if not any(p.is_partial() for p in placements):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    ways = 1
-    target = []
-    for p, n in zip(placements, t.device_mesh.shape):
-        if p.is_partial() and t.shape[-1] % (ways * n) == 0:
-            ways *= n
-            target.append(Shard(t.dim() - 1))
-        else:
-            target.append(Replicate() if p.is_partial() else p)
-    return constrained(t, target)
-
-
-def constrained(x, placements):
-    """The DTensor ``x`` at ``placements``, and its gradient at them too,
-    as ``with_sharding_constraint`` constrains a cotangent as well: a
-    gradient that arrives as partial sums is reduced here, one sharded
-    otherwise is moved here."""
-    from torch.distributed.tensor import DTensor
-    mesh = x.device_mesh
-    local = x.redistribute(mesh, placements).to_local(
-        grad_placements=placements)
-    return DTensor.from_local(local, mesh, placements, run_check=False)
-
-
-def halves(t: torch.Tensor):
-    """``t.chunk(2, dim=-1)``: the two halves of a fused projection's
-    output.  On a DTensor whose last dim is sharded (the dry run's mesh)
-    each chip halves its own block, as two projections sharded alike
-    would give it; which features a chip holds does not change a count,
-    and nothing moves, where XLA permutes one half between the chips."""
-    placements = getattr(t, "placements", ())
-    ways = 1
-    for p, n in zip(placements, getattr(getattr(t, "device_mesh", None),
-                                        "shape", ())):
-        ways *= n if p.is_shard(t.dim() - 1) else 1
-    if ways == 1 or (t.shape[-1] // 2) % ways:
-        return t.chunk(2, dim=-1)
-    from torch.distributed.tensor import DTensor
-    shape = (*t.shape[:-1], t.shape[-1] // 2)
-    return tuple(DTensor.from_local(h, t.device_mesh, placements,
-                                    run_check=False, shape=shape,
-                                    stride=torch.empty(shape,
-                                                       device="meta")
-                                    .stride())
-                 for h in t.to_local().chunk(2, dim=-1))
-
-
-def placed_like(t: torch.Tensor, ref, dim: int) -> torch.Tensor:
-    """A plain tensor ``t`` to be joined with the DTensor ``ref`` along
-    ``dim`` (a zero state before a sequence, the dry run's mesh), cut to
-    ``ref``'s shards on its other dims (a local cut, no collective).  Any
-    other ``t`` as it is."""
-    if not hasattr(ref, "placements") or hasattr(t, "placements"):
-        return t
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = ref.device_mesh
-    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False).redistribute(mesh, [
-        Replicate() if p.is_shard(dim) or p.is_partial() else p
-        for p in ref.placements])
-
-
-def zero_pad(t: torch.Tensor, dim: int, before: int, after: int):
-    """``t`` with ``before`` and ``after`` zeros along ``dim`` (``F.pad``);
-    a DTensor (the dry run's mesh) is joined to zeros placed like it, as
-    some DTensor versions cannot pad one."""
-    if not hasattr(t, "placements"):
-        dim %= t.dim()
-        return F.pad(t, [0, 0] * (t.dim() - 1 - dim) + [before, after])
-    parts = []
-    for n in (before, after):
-        shape = list(t.shape)
-        shape[dim] = n
-        parts.append(placed_like(torch.zeros(shape, dtype=t.dtype),
-                                 t, dim % t.dim()) if n else None)
-    return torch.cat([p for p in (parts[0], t, parts[1]) if p is not None],
-                     dim=dim)
-
-
-def merge_heads(t: torch.Tensor, *shape) -> torch.Tensor:
-    """``t.reshape(*shape)``, its (heads, head dim) merged into one dim.
-    On a DTensor the gradient is placed as the forward's result before
-    it is split into heads again (DTensor cannot split a dim sharded more
-    ways than the heads)."""
-    out = t.reshape(*shape)
-    if hasattr(out, "placements"):
-        out = constrained(out, out.placements)
-    return out
-
-
-def split_heads(t: torch.Tensor, *shape) -> torch.Tensor:
-    """``t.reshape(*shape)``, its last dim split into (heads, head dim).
-    A DTensor whose last dim is sharded more ways than the heads split
-    (the dry run's mesh) is gathered on those mesh dims first: a head is
-    never split across chips, as the sharding rules keep it."""
-    placements = getattr(t, "placements", ())
-    ways = 1
-    for p, n in zip(placements, getattr(getattr(t, "device_mesh", None),
-                                        "shape", ())):
-        ways *= n if p.is_shard(t.dim() - 1) else 1
-    if shape[-2] % ways:
-        from torch.distributed.tensor import Replicate
-        t = t.redistribute(t.device_mesh, [
-            Replicate() if p.is_shard(t.dim() - 1) else p
-            for p in placements])
-    return t.reshape(*shape)
+def step_loop(run, inputs, seq_in, seq_out):
+    """``run(*inputs)``, a loop over dim 1 of the inputs marked in
+    ``seq_in`` whose outputs marked in ``seq_out`` stack its steps on dim
+    1; while a dry run's count runs, folded by it."""
+    if LOOP_FOLD is None:
+        return run(*inputs)
+    return LOOP_FOLD(run, inputs, seq_in, seq_out)
 
 
 def embed_tokens(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:

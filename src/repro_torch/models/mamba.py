@@ -39,11 +39,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.launch.cost_analysis import folded
-from repro_torch.models.layers import (_normal, dense_init, halves,
-                                       placed_like, summed_onto_features,
+from repro_torch.models.layers import (_normal, dense_init, step_loop,
                                        torch_dtype)
-from repro_torch.sharding.regions import on_chips
+from repro_torch.sharding import dtensor
 
 
 def _dims(cfg: ArchConfig):
@@ -105,7 +103,7 @@ def _ssm_params(params, xb, cfg: ArchConfig, compute):
     proj = xb.to(compute) @ params["x_proj"].to(compute)
     dt, Bc, Cc = proj.float().split([dt_rank, mc.d_state, mc.d_state],
                                     dim=-1)
-    dt = summed_onto_features(dt @ params["dt_proj"].float()) \
+    dt = dtensor.summed_onto_features(dt @ params["dt_proj"].float()) \
         + params["dt_bias"]
     return _softplus(dt), Bc, Cc
 
@@ -116,12 +114,12 @@ def mamba_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
     compute = torch_dtype(cfg.compute_dtype)
     B, S, _ = x.shape
     xz = x.to(compute) @ params["in_proj"].to(compute)
-    xs, z = halves(xz)                               # (B,S,d_in)
+    xs, z = dtensor.halves(xz)                                # (B,S,d_in)
 
     if state is None:
         state = init_mamba_state(cfg, B, device=x.device)
     # causal depthwise conv over time (prepend the carried tail)
-    tail = placed_like(state["conv"].to(compute), xs, 1)
+    tail = dtensor.placed_like(state["conv"].to(compute), xs, 1)
     xp = torch.cat([tail, xs], dim=1)                         # (B,S+dc-1,d_in)
     conv_w = params["conv_w"].to(compute)
     xconv = sum(xp[:, i:i + S] * conv_w[i] for i in range(mc.d_conv))
@@ -135,7 +133,7 @@ def mamba_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
         y, h_last = ops.selective_scan(xbf, dt, A, Bc, Cc, state["h"])
     else:
         # on a DTensor mesh, chip by chip over its rows and channels
-        y, h_last = on_chips(
+        y, h_last = dtensor.on_chips(
             lambda *a: selective_scan_ref(*a, chunk=mc.chunk),
             (xbf, dt, A, Bc, Cc, state["h"]),
             (_ROWS_CHANS, _ROWS_CHANS, {"chan": 0}, {"batch": 0},
@@ -171,7 +169,7 @@ def selective_scan_ref(x, dt, A, Bc, Cc, h0, chunk: int = 256):
     chunk outside the vmap.  The reference pads S to a multiple of the
     chunk; a padded step (dt = 0, x = 0, B = 0) leaves h exactly as it
     was, so the port stops at S instead.  Under a dry run's count each
-    chunk's step loop is folded (``launch.cost_analysis.folded``).
+    chunk's step loop is folded (``layers.step_loop``).
     """
     track = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, dt, A, Bc, Cc, h0))
@@ -184,8 +182,9 @@ def selective_scan_ref(x, dt, A, Bc, Cc, h0, chunk: int = 256):
     h, ys = h0, []
     for s0 in range(0, x.shape[1], chunk):
         args = (h, A) + tuple(a[:, s0:s0 + chunk] for a in (x, dt, Bc, Cc))
-        h, y = folded(run, args, (False, False, True, True, True, True),
-                      (False, True))
+        h, y = step_loop(run, args,
+                         (False, False, True, True, True, True),
+                         (False, True))
         ys.append(y)
     y = torch.cat(ys, 1) if ys else torch.zeros_like(x)
     return y, h
@@ -196,7 +195,7 @@ def mamba_decode(params, x, state, *, cfg: ArchConfig):
     mc, d_in, _ = _dims(cfg)
     compute = torch_dtype(cfg.compute_dtype)
     xz = x[:, 0].to(compute) @ params["in_proj"].to(compute)
-    xs, z = halves(xz)                               # (B,d_in)
+    xs, z = dtensor.halves(xz)                               # (B,d_in)
     conv_w = params["conv_w"].to(compute)
     window = torch.cat([state["conv"].to(compute), xs[:, None]], dim=1)
     xconv = (window * conv_w[None]).sum(dim=1)

@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.core.aggregate import input_row_sum
 from repro_torch.models.layers import (_normal, activation, apply_mlp,
                                        dense_init, init_mlp, torch_dtype)
-from repro_torch.sharding.regions import on_chips
+from repro_torch.sharding import dtensor
 
 _GROUP = 512
 
@@ -137,7 +137,7 @@ def moe_forward(params, x: torch.Tensor, *, cfg: ArchConfig,
     is missing from it).
 
     On a DTensor mesh (the dry run's) the routed experts run chip by chip
-    (``sharding.regions.on_chips``): each chip routes its rows' tokens
+    (``sharding.dtensor.on_chips``): each chip routes its rows' tokens
     over every expert and runs the experts it holds, so the output is a
     partial sum over the experts' mesh dims, and the router's means are
     means over the batch's."""
@@ -146,22 +146,8 @@ def moe_forward(params, x: torch.Tensor, *, cfg: ArchConfig,
     B, S, d = x.shape
     g_size = min(_GROUP, B * S)
     n_groups = -(-(B * S) // g_size)
-    ways = 1
-    for p, n in zip(getattr(x, "placements", ()),
-                    getattr(getattr(x, "device_mesh", None), "shape", ())):
-        ways *= n if p.is_shard(0) else 1
-    # how the chips split the groups: each its own whole groups; or one
-    # group's tokens over all of them, its routing gathered and its
-    # experts' inputs summed (XLA's plan); or, else, every group on every
-    # chip, the tokens gathered
-    spread = None
-    rows, means = {"batch": 0}, {"batch": "avg"}
-    if ways > 1 and n_groups % ways:
-        if n_groups == 1:
-            spread, means = _spread_over(x), {}
-        else:
-            rows, means = {}, {}
-    out, moe_aux, load = on_chips(
+    rows, means, spread = dtensor.expert_layout(x, n_groups)
+    out, moe_aux, load = dtensor.on_chips(
         lambda *a: _routed(*a, cfg=cfg, S=S, g_size=g_size, spread=spread,
                            generous_capacity=generous_capacity),
         (x, params["router"], params["we_gate"], params["we_up"],
@@ -174,35 +160,15 @@ def moe_forward(params, x: torch.Tensor, *, cfg: ArchConfig,
     return out.to(x.dtype), {"moe_aux": moe_aux, "expert_load": load}
 
 
-def _spread_over(x):
-    """(gather, reduce) for one group whose tokens lie on the chips of
-    ``x``'s batch shards: ``gather(t)`` joins a local (1, n, ...) block
-    along dim 1 (an all-gather), ``reduce(t)`` sums a local partial (an
-    all-reduce), both over the batch's mesh dims."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    mesh = x.device_mesh
-    batch = [p.is_shard(0) for p in x.placements]
-    whole = [Replicate()] * mesh.ndim
-
-    def joined(t, placements):
-        return DTensor.from_local(t, mesh, placements, run_check=False) \
-            .redistribute(mesh, whole).to_local()
-
-    return (lambda t: joined(t, [Shard(1) if b else Replicate()
-                                 for b in batch]),
-            lambda t: joined(t, [Partial() if b else Replicate()
-                                 for b in batch]))
-
-
 def _routed(x, router, we_gate, we_up, we_down, *, cfg: ArchConfig, S: int,
             g_size: int, generous_capacity: bool, spread=None):
     """The routed experts over x (B, S, d) in groups of ``g_size`` tokens:
     (out (B, S, d) in the compute type, moe_aux, expert_load).  ``we_*``
-    may hold the first of the experts only (a chip's block: which block
-    does not change a count); every token is routed over all of them.
-    With ``spread`` (:func:`_spread_over`), x holds a chip's share of one
-    group: its router logits are gathered to route the whole group, and
-    the experts' inputs are its tokens' partial sums, then summed."""
+    may hold a chip's block of the experts; every token is routed over
+    all of them.  With ``spread`` (``sharding.dtensor.expert_layout``), x
+    holds a chip's share of one group: its router logits are gathered to
+    route the whole group, and the experts' inputs are its tokens'
+    partial sums, then summed."""
     mo = cfg.moe
     compute = torch_dtype(cfg.compute_dtype)
     B, _, d = x.shape
@@ -223,11 +189,11 @@ def _routed(x, router, we_gate, we_up, we_down, *, cfg: ArchConfig, S: int,
     probs = torch.softmax(logits, dim=-1)                     # (G, S_g, E)
     cap = capacity(g_size, S, mo, generous_capacity)
     gates, dispatch = topk_dispatch(probs, k, cap)            # (G,S_g,E,C)
-    e = we_gate.shape[0]
-    held, gates_held = ((dispatch, gates) if e == mo.n_experts
-                        else (dispatch[:, :, :e], gates[:, :, :e]))
-    if spread is not None:                    # this chip's tokens
-        held, gates_held = held[:, :B * S], gates_held[:, :B * S]
+    held, gates_held = dispatch, gates
+    if we_gate.shape[0] != mo.n_experts or spread is not None:
+        held, gates_held = dtensor.chips_share(
+            dispatch, gates, we_gate.shape[0],
+            B * S if spread is not None else None)
 
     xe = torch.einsum("gsec,gsd->gecd", held.to(compute), xg)
     if spread is not None:

@@ -55,64 +55,12 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
-                                       constrained, embed_tokens,
-                                       init_embedding, init_mlp, init_norm,
-                                       merge_heads, torch_dtype, unembed)
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_norm, torch_dtype,
+                                       unembed)
 from repro_torch.runtime import DEFAULT, Runtime
-from repro_torch.sharding.rules import P, dtensor_placements, map_with_path
-
-
-def _shard_batch(x, runtime: Runtime):
-    """Dim 0 (batch) of an activation placed on the batch axes, replicated
-    over the others: the reference's ``with_sharding_constraint``, which
-    keeps XLA's propagation from replicating the batch.  Only on a
-    DTensor mesh (the dry run's) and where the batch divides the axes;
-    otherwise ``x`` as it is (a tensor's device is its placement)."""
-    dmesh = runtime.device_mesh
-    if (dmesh is None or not runtime.batch_axes or x.dim() < 2
-            or x.shape[0] % max(runtime.batch_axis_size, 1)):
-        return x
-    return constrained(x, dtensor_placements(P(tuple(runtime.batch_axes)),
-                                              dmesh))
-
-
-def _fsdp_gathered(leaves, runtime: Runtime):
-    """A period's weights (or the training loss's unembedding) on a
-    DTensor mesh (the dry run's) gathered over the batch axes, kept on
-    their other shards: the all-gather of a layer's FSDP shards where the
-    layer runs, as XLA places it, whose backward reduce-scatters the
-    gradient.  The experts stay as the
-    sharding rules place them (the MoE region takes them).  Otherwise
-    ``leaves`` as they are."""
-    dmesh = runtime.device_mesh
-    if dmesh is None or not runtime.batch_axes:
-        return leaves
-    from torch.distributed.tensor import Replicate
-    dims = {dmesh.mesh_dim_names.index(a) for a in runtime.batch_axes}
-
-    def gather(path, a):
-        if not hasattr(a, "placements") or path[-1] in _EXPERT_LEAVES:
-            return a
-        whole = [Replicate() if i in dims else p
-                 for i, p in enumerate(a.placements)]
-        return a if whole == list(a.placements) else a.redistribute(
-            dmesh, whole)
-    return map_with_path(gather, leaves)
-
-
-_EXPERT_LEAVES = {"we_gate", "we_up", "we_down"}
-
-
-def _summed(y):
-    """A sublayer's output with its pending partial sums (a row-parallel
-    product's, on a DTensor mesh) reduced: the all-reduce that closes a
-    tensor-parallel sublayer.  Any other tensor as it is."""
-    placements = getattr(y, "placements", ())
-    if not any(p.is_partial() for p in placements):
-        return y
-    from torch.distributed.tensor import Replicate
-    return constrained(y, [Replicate() if p.is_partial() else p
-                            for p in placements])
+from repro_torch.sharding import dtensor
+from repro_torch.sharding.dtensor import merge_heads, shard_batch, summed
 
 
 # ---------------------------------------------------------------------------
@@ -228,12 +176,12 @@ def _ffn(lp, x, cfg: ArchConfig, spec: LayerSpec,
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, _ = apply_mlp(lp["ffn"], h3, cfg.act,
                          torch_dtype(cfg.compute_dtype))
-        return x + _summed(y), None
+        return x + summed(y), None
     if spec.ffn == "moe":
         h3 = apply_norm(lp["norm2"], x, cfg.norm, cfg.norm_eps)
         y, maux = moe_mod.moe_forward(lp["ffn"], h3, cfg=cfg,
                                       generous_capacity=generous_capacity)
-        return x + _summed(y), maux["moe_aux"]
+        return x + summed(y), maux["moe_aux"]
     return x, None
 
 
@@ -259,7 +207,7 @@ def _layer_forward(lp, x, *, cfg: ArchConfig, spec: LayerSpec, positions,
     else:
         core, cache = xl.slstm_forward(lp["core"], h, cfg=cfg,
                                        runtime=runtime)
-    x = x + _summed(core)
+    x = x + summed(core)
     if spec.cross_attn and enc_out is not None:
         xk, xv = attn.cross_kv(lp["core"], enc_out, cfg=cfg)
         x = _cross(lp, x, xk, xv, cfg)
@@ -272,7 +220,7 @@ def _cross(lp, x, xk, xv, cfg: ArchConfig):
     """The cross-attention sublayer against the encoder's keys and
     values."""
     h2 = apply_norm(lp["xnorm"], x, cfg.norm, cfg.norm_eps)
-    return x + _summed(attn.cross_attn_forward(lp["core"], h2, xk, xv,
+    return x + summed(attn.cross_attn_forward(lp["core"], h2, xk, xv,
                                                cfg=cfg))
 
 
@@ -309,7 +257,7 @@ def _layer_decode(lp, x, cache, pos: int, *, cfg: ArchConfig,
         core, new_cache = xl.mlstm_decode(lp["core"], h, cache, cfg=cfg)
     else:
         core, new_cache = xl.slstm_decode(lp["core"], h, cache, cfg=cfg)
-    x = x + _summed(core)
+    x = x + summed(core)
     if spec.cross_attn:
         x = _cross(lp, x, cache["xk"], cache["xv"], cfg)
         new_cache = dict(new_cache, xk=cache["xk"], xv=cache["xv"])
@@ -340,14 +288,14 @@ def _stage_forward(stage_params, x, *, cfg: ArchConfig, pattern, repeats,
     windows = [resolve_window(cfg, spec, seq_len) for spec in pattern]
 
     def period(x, aux, leaves):
-        leaves = _fsdp_gathered(leaves, runtime)
+        leaves = dtensor.fsdp_gathered(leaves, runtime)
         caches = {}
         for j, spec in enumerate(pattern):
             x, c, a = _layer_forward(leaves[f"l{j}"], x, cfg=cfg, spec=spec,
                                      positions=positions, window=windows[j],
                                      runtime=runtime, mode=mode,
                                      enc_out=enc_out)
-            x = _shard_batch(x, runtime)
+            x = shard_batch(x, runtime)
             if a is not None:
                 aux = aux + a
             caches[f"l{j}"] = c if collect_cache else {}
@@ -435,7 +383,7 @@ def _encoder_forward(params, enc_embed, cfg: ArchConfig,
     x = enc_embed.to(torch_dtype(cfg.compute_dtype))
     layers = params["encoder"]["layers"]
     for i in range(cfg.encoder.n_layers):
-        x, _, _ = _layer_forward(_fsdp_gathered(
+        x, _, _ = _layer_forward(dtensor.fsdp_gathered(
             tree_map(lambda a: a[i], layers), runtime), x,
                                  cfg=cfg, spec=_ENCODER_SPEC, positions=pos,
                                  window=-1, runtime=runtime, causal=False)
@@ -458,11 +406,11 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _shard_batch(_embed(params, tokens, cfg), runtime)
+    x = shard_batch(_embed(params, tokens, cfg), runtime)
     positions = _positions_for(cfg, batch, B, S, tokens.device)
     enc_out = None
     if cfg.encoder is not None:
-        enc_out = _shard_batch(_encoder_forward(
+        enc_out = shard_batch(_encoder_forward(
             params, batch["enc_embed"], cfg, runtime), runtime)
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -472,7 +420,7 @@ def forward_hidden(params, batch, cfg: ArchConfig,
             repeats=stage.repeats, positions=positions, seq_len=S,
             runtime=runtime, collect_cache=collect_cache, mode=mode,
             enc_out=enc_out)
-        x = _shard_batch(x, runtime)
+        x = shard_batch(x, runtime)
         aux_total = aux_total + stage_aux
         caches.append(cache)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
@@ -523,78 +471,12 @@ def _ce_part(embed, h, labels, mask, cfg: ArchConfig):
     unembedding, the logsumexp and the label's logit."""
     logits = unembed(embed, h, torch_dtype(cfg.compute_dtype),
                      cfg.final_softcap)
-    if vocab_sharded(logits):
-        logz, ll = _vocab_sharded_ce(logits, labels)
+    if dtensor.vocab_sharded(logits):
+        logz, ll = dtensor.vocab_sharded_ce(logits, labels)
     else:
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return ((logz - ll) * mask).sum(), mask.sum()
-
-
-def vocab_sharded(logits) -> bool:
-    """Whether ``logits`` is a DTensor whose last (vocab) dim is sharded
-    (the dry run's mesh)."""
-    return any(p.is_shard(logits.dim() - 1)
-               for p in getattr(logits, "placements", ()))
-
-
-def _vocab_blocks(logits):
-    """A vocab-sharded DTensor's local block, the first vocab index it
-    holds, ``reduce(t, op)`` (a local (..,) tensor reduced over the vocab's
-    mesh dims: one all-reduce) and ``wrap(t)`` (a local result as a
-    DTensor on the logits' other placements)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    logits = _summed(logits)
-    dmesh = logits.device_mesh
-    vocab = [p.is_shard(logits.dim() - 1) for p in logits.placements]
-    rows = [Replicate() if v else p
-            for v, p in zip(vocab, logits.placements)]
-    local = logits.to_local()
-    start = 0
-    for dim, v in enumerate(vocab):
-        if v:
-            start = start * dmesh.size(dim) + dmesh.get_local_rank(dim)
-
-    def reduce(t, op="sum"):
-        return DTensor.from_local(
-            t, dmesh, [Partial(op) if v else p for v, p in zip(vocab, rows)],
-            run_check=False).redistribute(dmesh, rows).to_local()
-
-    def wrap(t):
-        return DTensor.from_local(t, dmesh, rows, run_check=False)
-    return local, start * local.shape[-1], reduce, wrap
-
-
-def _vocab_sharded_ce(logits, labels):
-    """The logsumexp and the label's logit of vocab-sharded logits (B,C,V)
-    (the dry run's mesh), as a partitioner takes them: each chip reduces
-    its vocab block (the max, the sum of the exponentials, the label's
-    logit where the block holds it), then one all-reduce each."""
-    local, start, reduce, wrap = _vocab_blocks(logits)
-    width = local.shape[-1]
-    m = reduce(local.detach().amax(dim=-1), "max")
-    logz = torch.log(reduce(torch.exp(local - m[..., None]).sum(-1))) + m
-    lab = labels.redistribute(logits.device_mesh,
-                              wrap(m).placements).to_local().long() - start
-    hit = (lab >= 0) & (lab < width)
-    ll = reduce(torch.gather(local, -1, lab.clamp(0, width - 1)[..., None])
-                [..., 0] * hit)
-    return wrap(logz), wrap(ll)
-
-
-def greedy_token(logits) -> torch.Tensor:
-    """The argmax over the vocab of ``logits`` (..., V), int32.  On
-    vocab-sharded logits each chip takes its block's max and index, then
-    an all-reduce of the maxima and one of the indices whose maximum is
-    the global one."""
-    if not vocab_sharded(logits):
-        return logits.argmax(dim=-1).to(torch.int32)
-    local, start, reduce, wrap = _vocab_blocks(logits)
-    best, idx = local.max(dim=-1)
-    top = reduce(best, "max")
-    idx = torch.where(best == top, idx + start, torch.zeros_like(idx))
-    return wrap(reduce(idx, "max").to(torch.int32))
 
 
 def loss_fn(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
@@ -616,7 +498,7 @@ def loss_fn(params, batch, cfg: ArchConfig, runtime: Runtime = DEFAULT):
     C = _ce_chunk(cfg, *h.shape[:2])
     track = torch.is_grad_enabled() and h.requires_grad and C < h.shape[1]
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    embed = _fsdp_gathered(params["embed"], runtime)    # once, not a chunk
+    embed = dtensor.fsdp_gathered(params["embed"], runtime)   # not a chunk
     for c in range(0, h.shape[1], C):
         args = (embed, h[:, c:c + C], labels[:, c:c + C],
                 mask[:, c:c + C], cfg)
@@ -645,14 +527,14 @@ def decode_step(params, token, caches, pos: int, cfg: ArchConfig,
     token's position).  Returns (logits (B,V) float32, caches): the
     caches given, updated in place (the attention layers' slot ``pos``
     written, the recurrent states replaced row by row of the stack)."""
-    x = _shard_batch(_embed(params, token, cfg), runtime)
+    x = shard_batch(_embed(params, token, cfg), runtime)
     for si, stage in enumerate(cfg.stages):
         cache_seq = _cache_seq_len(caches[si], stage.pattern, cfg)
         windows = [resolve_window(cfg, spec, cache_seq)
                    for spec in stage.pattern]
         for i in range(stage.repeats):
             for j, spec in enumerate(stage.pattern):
-                lp = _fsdp_gathered(tree_map(
+                lp = dtensor.fsdp_gathered(tree_map(
                     lambda a: a[i], params["stages"][si][f"l{j}"]), runtime)
                 stacked = caches[si][f"l{j}"]
                 cache = {k: v[i] for k, v in stacked.items()}

@@ -62,14 +62,11 @@ from repro_torch.core.aggregate import axis_devices, split_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm import mlstm_chunk
 from repro_torch.kernels.slstm import slstm_step
-from repro_torch.launch.cost_analysis import folded
 from repro_torch.models.layers import (_normal, apply_norm, dense_init,
-                                       halves, init_norm, merge_heads,
-                                       placed_like, split_heads,
-                                       torch_dtype, zero_pad)
+                                       init_norm, step_loop, torch_dtype)
 from repro_torch.runtime import on_device
-from repro_torch.sharding.regions import on_chips
-from repro_torch.sharding.rules import P, dtensor_placements
+from repro_torch.sharding import dtensor
+from repro_torch.sharding.dtensor import halves, merge_heads, split_heads
 
 
 def _mdims(cfg: ArchConfig):
@@ -140,7 +137,7 @@ def _mlstm_qkvif(params, x, cfg: ArchConfig, compute):
     up = x.to(compute) @ params["up_proj"].to(compute)
     xm, z = halves(up)
     # causal conv + silu feeds q/k (the paper's block layout)
-    xcn = _causal_conv(zero_pad(xm, 1, xc.s_conv - 1, 0),
+    xcn = _causal_conv(dtensor.pad(xm, 1, xc.s_conv - 1, 0),
                        params["conv_w"].to(compute),
                        params["conv_b"].to(compute), S)
     q = split_heads(xcn @ params["wq"].to(compute), B, S, H, d_qk // H)
@@ -194,14 +191,14 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state, chunk: int = 256):
 def _on_heads(core, q, k, v, i_gate, f_gate, state):
     """``core(q, k, v, i_gate, f_gate, state)`` (the chunkwise form or
     the recurrent step); on a DTensor mesh chip by chip over its rows and
-    heads (``sharding.regions.on_chips``)."""
+    heads (``sharding.dtensor.on_chips``)."""
     heads, state_heads = {"batch": 0, "head": 2}, {"batch": 0, "head": 1}
 
     def flat(q, k, v, i, f, C, n, m):
         h, new = core(q, k, v, i, f, {"C": C, "n": n, "m": m})
         return h, new["C"], new["n"], new["m"]
 
-    h, C, n, m = on_chips(
+    h, C, n, m = dtensor.on_chips(
         flat, (q, k, v, i_gate, f_gate, state["C"], state["n"], state["m"]),
         (heads,) * 5 + (state_heads,) * 3, (heads,) + (state_heads,) * 3)
     return h, {"C": C, "n": n, "m": m}
@@ -348,9 +345,9 @@ def _slstm_scan(params, xconv, state):
     """xconv (B,S,d) -> (hs (B,S,d), {c, n, h, m}): the exponentially
     gated recurrence, one :func:`slstm_step` per position (the model's own
     form; its step loop folded under a dry run's count,
-    ``launch.cost_analysis.folded``)."""
+    ``layers.step_loop``)."""
     gates_x, R = _slstm_inputs(params, xconv)
-    hs, c, n, h, m = folded(
+    hs, c, n, h, m = step_loop(
         _slstm_loop, (gates_x, R) + tuple(state[k] for k in "cnhm"),
         (True,) + (False,) * 5, (True,) + (False,) * 4)
     return hs, {"c": c, "n": n, "h": h, "m": m}
@@ -367,42 +364,11 @@ def _slstm_recurrence(params, xconv, state, use_kernels: bool):
     return _slstm_scan(params, xconv, state)
 
 
-def _slstm_scan_local(params, xconv, state, runtime, dmesh):
-    """The recurrence on each chip's rows of a DTensor mesh (the dry
-    run's), the counterpart of the reference's ``shard_map`` region: the
-    gate weights replicated into it (an all-gather where they are FSDP
-    shards), the inputs and states on the batch axes, and the loop on
-    local tensors.  The weights leave as local tensors whose gradient is
-    a partial sum over the batch axes, so their gradient is reduced once,
-    after the loop, as the region's psum is."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    rows = dtensor_placements(P(tuple(runtime.batch_axes)), dmesh)
-    partial = [Partial() if p != Replicate() else p for p in rows]
-
-    def local(t, placements):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, dmesh, [Replicate()] * dmesh.ndim,
-                                   run_check=False)
-        return t.redistribute(dmesh, placements).to_local(
-            grad_placements=placements)
-
-    used = {k: params[k].redistribute(dmesh, [Replicate()] * dmesh.ndim)
-            .to_local(grad_placements=partial)
-            for k in ("w_gates", "r_gates", "b_gates")}
-    hs, core = _slstm_recurrence(
-        used, local(xconv, rows), {k: local(state[k], rows) for k in "cnhm"},
-        runtime.use_kernels)
-
-    def rows_of(t):
-        return DTensor.from_local(t, dmesh, rows, run_check=False)
-    return rows_of(hs), {k: rows_of(v) for k, v in core.items()}
-
-
 def _slstm_scan_maybe_sharded(params, xconv, state, runtime):
     """The recurrence with its batch split over the mesh's batch axes,
     when ``runtime`` has a mesh and they divide the batch; else on one
-    device.  A DTensor mesh runs :func:`_slstm_scan_local`.
+    device.  On a DTensor mesh (``runtime.dmesh``) the recurrence runs on
+    each chip's rows (``sharding.dtensor.slstm_region``).
 
     Each device runs the recurrence of its rows with its own copies of
     the gate weights, and the rows are joined on ``xconv``'s device.  The
@@ -412,12 +378,16 @@ def _slstm_scan_maybe_sharded(params, xconv, state, runtime):
     per-timestep backward loop)."""
     use_kernels = runtime is not None and runtime.use_kernels
     mesh = getattr(runtime, "mesh", None)
+    dmesh = getattr(runtime, "dmesh", None)
     baxes = getattr(runtime, "batch_axes", None)
     B = xconv.shape[0]
-    if mesh is None or not baxes or B % max(runtime.batch_axis_size, 1):
+    if ((mesh is None and dmesh is None) or not baxes
+            or B % max(runtime.batch_axis_size, 1)):
         return _slstm_recurrence(params, xconv, state, use_kernels)
-    if runtime.device_mesh is not None:
-        return _slstm_scan_local(params, xconv, state, runtime, mesh)
+    if dmesh is not None:
+        return dtensor.slstm_region(
+            lambda *a: _slstm_recurrence(*a, use_kernels), params, xconv,
+            state, runtime)
     devices = axis_devices(mesh, tuple(baxes))
     used = {k: params[k] for k in ("w_gates", "r_gates", "b_gates")}
     xs = split_blocks(xconv, devices)
@@ -442,7 +412,7 @@ def slstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
     B, S, _ = x.shape
     if state is None:
         state = init_slstm_state(cfg, B, device=x.device)
-    xp = torch.cat([placed_like(state["conv"].to(compute), x, 1),
+    xp = torch.cat([dtensor.placed_like(state["conv"].to(compute), x, 1),
                     x.to(compute)], dim=1)
     xconv = _causal_conv(xp, params["conv_w"].to(compute),
                          params["conv_b"].to(compute), S)

@@ -33,12 +33,14 @@ reference's update and ``apply_updates``):
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.core.aggregate import tree_leaves, tree_map
+from repro_torch.sharding import dtensor
 
 
 class Optimizer(NamedTuple):
@@ -133,16 +135,10 @@ def _in_pieces(fn, g, m, v, p) -> torch.Tensor:
     pieces of ``_PIECE`` elements, into one float32 leaf: the values of
     one call (``fn`` advances its ``m`` and ``v`` pieces in place).
     DTensor leaves placed alike (the dry run's) are updated shard by
-    shard: flattening a sharded DTensor would all-gather it."""
-    if hasattr(p, "to_local"):
-        from torch.distributed.tensor import DTensor
-        if not all(t.placements == p.placements for t in (g, m, v)):
-            raise ValueError("AdamW takes DTensor leaves placed alike")
-        out = _in_pieces(fn, g.to_local(), m.to_local(), v.to_local(),
-                         p.to_local())
-        return DTensor.from_local(out, p.device_mesh, p.placements,
-                                  run_check=False, shape=p.shape,
-                                  stride=p.stride())
+    shard (``sharding.dtensor.shardwise``)."""
+    if dtensor.is_dtensor(p):
+        return dtensor.shardwise(functools.partial(_in_pieces, fn),
+                                 g, m, v, p)
     if p.numel() <= _PIECE:
         return fn(g, m, v, p)
     out = torch.empty(p.shape, dtype=torch.float32, device=p.device)

@@ -15,11 +15,11 @@ between a kernel and its plain version.  ``remat`` checkpoints each
 scanned period of a training forward under autograd
 (``models.transformer``).  ``mesh`` with ``batch_axes`` splits the sLSTM
 recurrence's batch over the devices of those axes (``models.xlstm``).
-``mesh`` may instead be a DTensor ``DeviceMesh`` (the dry run's,
-``launch.mesh.dtensor_mesh``): the activations' batch dim is then placed
-on the batch axes after the embedding, each layer and each stage
-(``models.transformer``), and the sLSTM recurrence runs on each chip's
-rows (``models.xlstm``).
+``dmesh`` is the dry run's DTensor ``DeviceMesh``
+(``launch.mesh.dtensor_mesh``): with it and ``batch_axes`` the models
+take their DTensor paths (``sharding.dtensor``), placing the activations'
+batch dim on those axes after the embedding, each layer and each stage,
+and running the sLSTM recurrence on each chip's rows.
 """
 from __future__ import annotations
 
@@ -43,12 +43,8 @@ class Runtime:
     batch_axes: Optional[Tuple[str, ...]] = None
     batch_axis_size: int = 1
     mesh: Optional[Any] = None
-
-    @property
-    def device_mesh(self):
-        """``mesh`` when it is a DTensor ``DeviceMesh``, else None."""
-        from torch.distributed.device_mesh import DeviceMesh
-        return self.mesh if isinstance(self.mesh, DeviceMesh) else None
+    # the dry run's DTensor DeviceMesh (None: plain tensors)
+    dmesh: Optional[Any] = None
 
 
 DEFAULT = Runtime()

@@ -30,6 +30,7 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.optim.optimizers import (Optimizer, adamw, apply_updates,
                                           clip_by_global_norm)
 from repro_torch.runtime import Runtime
+from repro_torch.sharding import dtensor
 
 
 def default_optimizer(cfg: ArchConfig, lr: float = 3e-4) -> Optimizer:
@@ -42,52 +43,13 @@ def _split(key: str, leaf: torch.Tensor, n: int):
     1 of M-RoPE's (3, B, S) ``positions``, else axis 0.  The reference
     takes axis 1 of any 3-D leaf of 3 rows, so at batch 3 it would cut an
     encoder's ``enc_embed`` (3, n_ctx, d) over its frames; the port
-    decides by the leaf's key.
-
-    A DTensor sharded on that axis (the dry run's) is cut chip by chip:
-    microbatch ``i`` holds each chip's ``i``-th slice of its rows: each
-    chip's block has the shape the reference's ``reshape(n, B / n, ...)``
-    gives it, and no rows move (chunking the global axis would
-    all-gather it)."""
+    decides by the leaf's key.  A DTensor sharded on that axis (the dry
+    run's) is cut chip by chip (``sharding.dtensor.microbatches``)."""
     axis = 1 if key == "positions" and leaf.dim() == 3 else 0
     if leaf.shape[axis] % n:
         raise ValueError(f"batch {leaf.shape[axis]} does not split into "
                          f"{n} microbatches")
-    placements = getattr(leaf, "placements", ())
-    if any(p.is_shard(axis) for p in placements):
-        from torch.distributed.tensor import DTensor
-        local = leaf.to_local()
-        if local.shape[axis] % n:
-            raise ValueError(f"a chip's {local.shape[axis]} rows do not "
-                             f"split into {n} microbatches")
-        return [DTensor.from_local(piece, leaf.device_mesh, placements,
-                                   run_check=False)
-                for piece in local.chunk(n, dim=axis)]
-    return leaf.chunk(n, dim=axis)
-
-
-def _placed(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
-    """A DTensor gradient placed as its parameter, the reference's
-    ``out_shardings``: a partial sum over the batch axes is reduced here
-    (an all-reduce, or a reduce-scatter onto an FSDP shard), one
-    all-reduce over all the mesh dims it spans, as XLA's, where DTensor
-    would run one a dim.  Any other gradient as it is."""
-    if not hasattr(grad, "redistribute"):
-        return grad
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    mesh = grad.device_mesh
-    dims = [i for i, (g, p) in enumerate(zip(grad.placements,
-                                              param.placements))
-            if g.is_partial() and p == Replicate()]
-    if len(dims) > 1:
-        flat = mesh[tuple(mesh.mesh_dim_names[i] for i in dims)]._flatten()
-        local = DTensor.from_local(grad.to_local(), flat, [Partial()],
-                                   run_check=False).redistribute(
-                                       flat, [Replicate()]).to_local()
-        grad = DTensor.from_local(local, mesh, [
-            Replicate() if i in dims else g
-            for i, g in enumerate(grad.placements)], run_check=False)
-    return grad.redistribute(mesh, param.placements)
+    return dtensor.microbatches(leaf, axis, n)
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
@@ -118,7 +80,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optional[Optimizer] = None,
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def take_grads(params):
-        grads = tree_map(lambda p: _placed(p.grad, p), params)
+        grads = tree_map(lambda p: dtensor.gradient_placed(p.grad, p),
+                         params)
         for p in tree_leaves(params):
             p.grad = None          # held by the tree alone: freed once used
         return grads
@@ -188,7 +151,7 @@ def make_serve_decode(cfg: ArchConfig, runtime: Runtime = Runtime()):
     def serve_decode(params, token, caches, pos):
         logits, new_caches = tfm.decode_step(params, token, caches, pos, cfg,
                                              runtime)
-        next_token = tfm.greedy_token(logits)
+        next_token = dtensor.greedy_token(logits)
         return next_token, logits, new_caches
 
     return serve_decode
