@@ -263,6 +263,29 @@ Phases, each printing one JSON line:
    DRYRUN_CASES, each counted once: per-chip FLOPs, collective bytes by
    kind and peak bytes printed; every count positive, collectives in
    every case, no process group left initialised.
+21. the sharded step with values (``sharded_path``): ``launch.dryrun.
+   build_step`` given the weights and inputs, on a (4, 2) ("data",
+   "model") DTensor mesh over ``[cuda:0] * 8``, one thread a chip and
+   collectives that move data (``launch.mesh.run_on_chips``), the
+   baseline plan, float32 compute, caches and moments, random weights
+   from seed 0, each leg against the same step unsharded on the card:
+   ``sharded_lm`` (internlm2-1.8b, 4 layers: one AdamW step at 8 x 512
+   with microbatches 1 and 4, a prefill at 8 x 512 whose flash launches
+   are each chip's (2, 8, 4, 512, 128), SHARDED_DECODE decode steps
+   after it, one decode at batch 1 over a sequence-sharded 32,768-slot
+   cache), ``sharded_hybrid`` (Jamba's Mamba and attention layers) and
+   ``sharded_xlstm`` (one xlstm-125m period: one step and a prefill
+   each), ``sharded_moe`` (Jamba's MoE cut, prefill only, on (2, 2)
+   where its reckoning of (4, 2) leaves under 5 GB free).
+   Gates: logits within MESH_SLSTM_LOGIT_TOL of the largest; greedy
+   tokens equal where the top-2 gap is over twice that; loss and grad
+   norm within 1e-5 relative, AdamW's m within 1e-5 of each leaf's
+   largest (SHARDED_XLSTM_M_TOL for the xLSTM), parameters within 2 x lr
+   and within 2% of lr where the gradient is clear, the signature within
+   one flag of a row's fraction; the launches chips x layers of the
+   kernel's kind x forwards, no plain call; each kernel's first launch
+   (the signature's too, in training) held against its plain version at
+   its chip's shape; every leg's peak leaving 5 GB free.
 
 Every training leg runs with ``Runtime.remat`` on, the default: each
 period of the forward is checkpointed and run again in the backward, so
@@ -442,6 +465,7 @@ DRYRUN_CASES = (("internlm2-1.8b", "train", 8, 64),
                 ("whisper-medium", "prefill", 8, 64))
 FLASH_GEMMA2 = (2, 8, 4, 8192, 256)      # windows 4,096 (local), -1; cap 50
 FLASH_QWEN2 = (8, 28, 4, 512, 128)       # a GQA group of 7
+FLASH_MROPE = (8, 64, 8, 512, 128)       # qwen2-vl-72b, its mrope leg
 
 
 def emit(**fields) -> None:
@@ -895,7 +919,8 @@ def phase_flash(fa, ops, dev) -> dict:
                 "whisper": timed(FLASH_WHISPER),
                 "gemma2_local": timed(FLASH_GEMMA2, 4096, 20, 3, cap=50.0),
                 "gemma2_global": timed(FLASH_GEMMA2, -1, 20, 3, cap=50.0),
-                "qwen2": timed(FLASH_QWEN2)}
+                "qwen2": timed(FLASH_QWEN2),
+                "mrope": timed(FLASH_MROPE)}
     record = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
               "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5403,6 +5428,647 @@ def phase_dryrun_path() -> dict:
     return record
 
 
+# -- the sharded step with values ---------------------------------------------
+
+# a (data, model) DTensor mesh of threads over one card, each chip's
+# blocks on cuda:0 (``launch.mesh.run_on_chips``); the baseline plan
+SHARDED_MESH = (4, 2)
+SHARDED_MOE_MESH = (2, 2)               # where (4, 2) would not fit
+SHARDED_BATCH = (8, 512)                # batch, tokens: train and prefill
+SHARDED_DECODE = 16                     # decode steps after the prefill
+SHARDED_LONG = (1, 32768, 20000)        # batch, cache slots, position
+SHARDED_MICROBATCHES = 4
+SHARDED_LM_PARAMS = 630_736_896         # internlm2-1.8b, 4 layers
+SHARDED_LR = 3e-4                       # train.step.default_optimizer's
+SHARDED_TRAIN_RTOL = 1e-5               # loss and grad norm, relative
+SHARDED_M_TOL = 1e-5                    # AdamW's m, of its leaf's scale
+# xlstm-125m's period, which misses SHARDED_M_TOL: the sLSTM gate bias
+# ``b_if`` sums its gradient over all 4,096 tokens with much cancellation,
+# and its m reads 2.86e-5 of its scale off the unsharded step, whose own
+# m moves 1.35e-5 between microbatches 1 and 4 (the same sums in another
+# float32 order; both on an H100, PERF.md section 6).  Set after that
+# reading, at 1.4 times it; every other leg is held at SHARDED_M_TOL.
+SHARDED_XLSTM_M_TOL = 4e-5
+# AdamW's first step moves a parameter by lr x g / (|g| + 1e-8), about
+# lr x sign(g): parameters are held within 2 x lr everywhere (which only
+# catches a missing or non-finite update), and within this share of lr
+# (plus two float32 steps at the parameter) where the gradient is clear:
+# |m| >= 2 x the m tolerance of its leaf's scale and >= SHARDED_CLEAR_M,
+# so that both steps see |g| >= 100 x 1e-8 of one sign and move by
+# lr x (0.99 to 1) alike
+SHARDED_CLEAR_M = 2e-7                  # m = 0.1 g after one step
+SHARDED_CLEAR_SHARE = 0.02
+SHARDED_TIMEOUT = 900                   # seconds a threaded run may take
+
+
+def sharded_config(cfg):
+    """``cfg`` in float32: compute, caches and AdamW's moments."""
+    import dataclasses
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               cache_dtype="float32", moment_dtype="float32")
+
+
+class KernelInputs:
+    """While entered, the inputs of each kernel's first launch, cloned,
+    taken where ``kernels.ops`` calls the kernels; restores them on
+    exit.  The chips take turns (``launch.mesh.run_on_chips``), so the
+    first launch is one chip's, at its block's shape."""
+    NAMES = {"flash": "flash_attention_bhsd", "scan": "selective_scan_bsd",
+             "mlstm": "mlstm_chunkwise_bshd", "slstm": "slstm_scan_bsd",
+             "signature": "signature_counts"}
+
+    def __init__(self):
+        self.first = {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.inner = {k: getattr(ops, n) for k, n in self.NAMES.items()}
+        for key, name in self.NAMES.items():
+            def kept(*a, _key=key, _fn=self.inner[key], **kw):
+                if _key not in self.first:
+                    self.first[_key] = (
+                        [t.detach().clone() if torch.is_tensor(t) else t
+                         for t in a], dict(kw))
+                return _fn(*a, **kw)
+            setattr(ops, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for key, name in self.NAMES.items():
+            setattr(self.ops, name, self.inner[key])
+
+
+def _outputs(x) -> list:
+    """The tensors of a kernel's result, in order (dicts by key)."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _outputs(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _outputs(y)]
+    return [x]
+
+
+def hold_per_chip(kern, captured: dict, leg: str) -> dict:
+    """Each kernel's first launch of a leg, at one chip's block, held
+    against its plain version on the same inputs at the tolerances of
+    the kernel phases (the signature bit for bit), and timed beside it."""
+    import torch
+    fa, ss, ml, sl, sig = (kern[k] for k in ("fa", "ss", "ml", "sl", "sig"))
+    pairs = {"flash": (fa.flash_attention_bhsd, fa.flash_attention_plain),
+             "scan": (ss.selective_scan_bsd, ss.selective_scan_plain),
+             "mlstm": (ml.mlstm_chunkwise_bshd, ml.mlstm_chunkwise_plain),
+             "slstm": (sl.slstm_scan_bsd, sl.slstm_scan_plain),
+             "signature": (sig.signature_counts, sig.signature_counts_plain)}
+    out = {}
+    for key, (args, kw) in captured.items():
+        kernel, plain = pairs[key]
+        got, want = _outputs(kernel(*args, **kw)), _outputs(plain(*args,
+                                                                  **kw))
+        tols = {"flash": [FLASH_TOL[str(args[0].dtype).split(".")[-1]]],
+                "scan": [SCAN_TOL], "mlstm": [MLSTM_TOL],
+                "slstm": [SLSTM_TOL["hs"]] + [SLSTM_TOL["state"]] * 4,
+                "signature": [0.0]}[key]
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            tol = tols[min(i, len(tols) - 1)]
+            diff = (a.float() - b.float()).abs()
+            err = max(err, diff.max().item())
+            check(bool((diff <= tol + tol * b.float().abs()).all()),
+                  f"{leg}: the {key} kernel at one chip's "
+                  f"{[list(t.shape) for t in args if torch.is_tensor(t)]} "
+                  f"!= its plain version: max |diff| {err}")
+        ms = device_ms(lambda a: kernel(*a, **kw), [args], 20)
+        plain_ms = device_ms(lambda a: plain(*a, **kw), [args], 2)
+        # flash as (B, H, K, S, hd) from its (B, H, S, hd) q and k
+        shape = ([*args[0].shape[:2], args[1].shape[1], *args[0].shape[2:]]
+                 if key == "flash" else list(args[0].shape))
+        out[key] = {"shape": shape,
+                    "dtype": str(args[0].dtype).split(".")[-1],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def place_token(token, shardings, dmesh):
+    """A decode token (B, 1) placed as the step's token argument."""
+    import torch
+    from repro_torch.launch import dryrun
+    with torch.inference_mode():
+        return dryrun.place({"tokens": token}, shardings, dmesh)["tokens"]
+
+
+def gathered(t, rank0: bool):
+    """``t`` gathered on every chip (a collective), kept on chip 0."""
+    import torch
+    with torch.inference_mode(torch.is_inference(t)):
+        full = t.full_tensor()
+    return full if rank0 else None
+
+
+def logit_err(got, want) -> float:
+    """Largest |difference| over the largest |logit|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def tokens_agree(got_logits, want_logits, tol: float) -> dict:
+    """Greedy tokens of two logit sets: equal wherever the reference's
+    top-2 gap is over ``2 * tol`` of its largest |logit|."""
+    top2 = want_logits.float().topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    clear = gap > 2 * tol * want_logits.float().abs().max()
+    same = got_logits.argmax(-1) == want_logits.argmax(-1)
+    return {"clear": int(clear.sum()), "equal_where_clear":
+            bool(same[clear].all()), "equal": int(same.sum()),
+            "of": same.numel()}
+
+
+def _tree_paths(tree) -> dict:
+    from repro_torch.sharding.rules import leaves_with_path
+    return {path: leaf for path, leaf in leaves_with_path(tree)}
+
+
+def _worst(errs: dict, key: str, value: float, path) -> None:
+    """``errs[key]`` raised to ``value``, with the leaf's path beside it."""
+    if value > errs[key]:
+        errs[key], errs[key + "_leaf"] = value, "/".join(map(str, path))
+
+
+def sharded_train_leg(kern, dev, leg: str, cfg, weights, batch, mesh,
+                      microbatches: int, ref, m_tol: float) -> dict:
+    """One AdamW step of the sharded step on ``mesh`` against ``ref``,
+    the unsharded step's (loss, grad norm, signature, new parameters by
+    path, m by path) from the same weights and batch on the card: loss
+    and grad norm within SHARDED_TRAIN_RTOL, m within ``m_tol`` of each
+    leaf's largest, parameters within 2 x the learning rate and within
+    SHARDED_CLEAR_SHARE of it where the gradient is clear, the signature
+    within one flag of a row's fraction; the signature kernel once a
+    chip and forward, no other kernel, its first launch then held against
+    its plain version at that chip's shape."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_on_chips
+    from repro_torch.sharding.rules import MeshPlan
+    B, S = batch["tokens"].shape
+    plan = MeshPlan()
+    if microbatches > 1:
+        object.__setattr__(plan, "_microbatches", microbatches)
+    shape = InputShape(leg, S, B, "train")
+    loss_ref, gn_ref, sig_ref, params_ref, m_ref = ref
+
+    def chip(dmesh):
+        rank0 = dmesh.get_rank() == 0
+        step, _, _ = dryrun.build_step(cfg, shape, mesh, plan, dmesh,
+                                       params=weights, batch=batch)
+        params, state, metrics = step()
+        errs = {"params": 0.0, "m": 0.0, "clear_params": 0.0, "clear": 0,
+                "clear_over": 0, "of": 0}
+        moments = _tree_paths(state["m"])
+        for path, leaf in _tree_paths(params).items():
+            p = gathered(leaf.detach(), rank0)
+            m = gathered(moments[path].detach(), rank0)
+            if rank0:
+                p_want, m_want = params_ref[path], m_ref[path]
+                scale = max(m_want.abs().max().item(), 1e-30)
+                _worst(errs, "m", (m - m_want).abs().max().item() / scale,
+                       path)
+                d = (p - p_want).abs()
+                _worst(errs, "params", d.max().item(), path)
+                clear = m_want.abs() >= max(2 * m_tol * scale,
+                                            SHARDED_CLEAR_M)
+                if clear.any():
+                    _worst(errs, "clear_params", d[clear].max().item(),
+                           path)
+                tol = SHARDED_CLEAR_SHARE * SHARDED_LR \
+                    + 2.0 ** -22 * p_want.abs()
+                errs["clear_over"] += int((clear & (d > tol)).sum())
+                errs["clear"] += int(clear.sum())
+                errs["of"] += clear.numel()
+            del p, m
+        loss = gathered(metrics["loss"], rank0)
+        gn = gathered(metrics["grad_norm"], rank0)
+        if rank0:
+            errs["loss"] = abs(loss.item() - loss_ref) / abs(loss_ref)
+            errs["grad_norm"] = abs(gn.item() - gn_ref) / abs(gn_ref)
+            # exact counts summed over the chips: a plain tensor
+            errs["signature"] = (metrics["signature"]
+                                 - sig_ref).abs().max().item()
+        return errs if rank0 else None
+
+    chips = mesh.size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kern)                           # counts start here
+    t0 = time.perf_counter()
+    with PlainMeter(kern) as plain, KernelInputs() as inputs:
+        errs = run_on_chips(chip, mesh, SHARDED_TIMEOUT)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kern)                 # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    n = launches["launches"]
+    check(n == {"signature": chips * microbatches, "flash": 0, "scan": 0,
+                "mlstm": 0, "slstm": 0}
+          and not any(plain.calls.values()),
+          f"{leg}: launches {n} (plain calls {plain.calls}), expected the "
+          f"signature's {chips} chips x {microbatches} forwards alone")
+    check(errs["loss"] <= SHARDED_TRAIN_RTOL
+          and errs["grad_norm"] <= SHARDED_TRAIN_RTOL,
+          f"{leg}: loss or grad norm off the unsharded step's: {errs}")
+    check(errs["m"] <= m_tol, f"{leg}: AdamW m off by more than {m_tol}: "
+          f"{errs}")
+    check(errs["params"] <= 2 * SHARDED_LR, f"{leg}: parameters off: "
+          f"{errs}")
+    check(errs["clear"] > 0 and errs["clear_over"] == 0,
+          f"{leg}: parameters off by more than {SHARDED_CLEAR_SHARE} lr "
+          f"where the gradient is clear: {errs}")
+    sig_tol = 1 / (B * S) + 1e-7                   # one flag of a row's
+    check(errs["signature"] <= sig_tol, f"{leg}: the signature is off the "
+          f"unsharded step's by more than one flag ({sig_tol}): {errs}")
+    per_chip = hold_per_chip(kern, inputs.first, leg)
+    total = check_free(leg, peak)
+    record = {"leg": leg, "mesh": list(mesh.devices.shape),
+              "microbatches": microbatches, "wall_s": wall, "errors": errs,
+              "m_tol": m_tol, "signature_tol": sig_tol, "peak_bytes": peak,
+              "card_bytes": total, "per_chip": per_chip, **launches}
+    emit(phase="sharded_path", **record)
+    return record
+
+
+def unsharded_train(cfg, weights, batch, mesh):
+    """The unsharded step on the card from a copy of ``weights`` (``mesh``
+    only names the sharding rules, which it does not apply): (loss, grad
+    norm, signature, new parameters by path, m by path)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.rules import MeshPlan
+    B, S = batch["tokens"].shape
+    step, _, _ = dryrun.build_step(
+        cfg, InputShape("unsharded", S, B, "train"), mesh, MeshPlan(),
+        params=tree_map(lambda a: a.clone(), weights), batch=batch)
+    params, state, metrics = step()
+    del state["v"]
+    return (metrics["loss"].item(), metrics["grad_norm"].item(),
+            metrics["signature"],
+            {k: v.detach() for k, v in _tree_paths(params).items()},
+            _tree_paths(state["m"]))
+
+
+def sharded_prefill_leg(kern, dev, leg: str, cfg, weights, tokens, mesh,
+                        want_logits) -> dict:
+    """A prefill of the sharded step on ``mesh`` with the serving
+    runtime (the kernels at each chip's block) against ``want_logits``,
+    the unsharded prefill's: float32 logits within MESH_SLSTM_LOGIT_TOL
+    of the largest, every kernel of the config's layers once a chip and
+    layer and no plain call; each kernel's first launch then held against
+    its plain version at that chip's shape."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_on_chips
+    from repro_torch.sharding.rules import MeshPlan
+    B, S = tokens.shape
+    shape = InputShape(leg, S, B, "prefill")
+
+    def chip(dmesh):
+        step, _, _ = dryrun.build_step(cfg, shape, mesh, MeshPlan(), dmesh,
+                                       params=weights,
+                                       batch={"tokens": tokens},
+                                       use_kernels=True)
+        logits, _ = step()
+        return gathered(logits, dmesh.get_rank() == 0)
+
+    chips = mesh.size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kern)                           # counts start here
+    t0 = time.perf_counter()
+    with PlainMeter(kern) as plain, KernelInputs() as inputs:
+        logits = run_on_chips(chip, mesh, SHARDED_TIMEOUT)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kern)                 # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_prefill_launches(cfg, 0, forwards=chips)
+    check(launches["launches"] == want and not any(plain.calls.values()),
+          f"{leg}: launches {launches['launches']} (plain calls "
+          f"{plain.calls}), expected {want}: {chips} chips a layer")
+    err = logit_err(logits, want_logits)
+    check(err <= MESH_SLSTM_LOGIT_TOL, f"{leg}: logits differ by {err} "
+          f"of the largest")
+    per_chip = hold_per_chip(kern, inputs.first, leg)
+    total = check_free(leg, peak)
+    record = {"leg": leg, "mesh": list(mesh.devices.shape), "wall_s": wall,
+              "logit_err": err, "peak_bytes": peak, "card_bytes": total,
+              "per_chip": per_chip, **launches}
+    emit(phase="sharded_path", **record)
+    return record
+
+
+def sharded_decode_leg(kern, dev, leg: str, cfg, weights, caches, mesh,
+                       tokens, pos: int, want_logits) -> dict:
+    """``len(tokens)`` decode steps of the sharded step on ``mesh`` from
+    ``caches`` (each chip's blocks copied from them), fed ``tokens`` (the
+    unsharded loop's, each (B, 1)) from position ``pos``: each step's
+    logits within MESH_SLSTM_LOGIT_TOL of the largest of the unsharded
+    step's ``want_logits``, the greedy tokens equal where the top-2 gap is
+    over twice that; no kernel (decode is plain PyTorch)."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_on_chips
+    from repro_torch.sharding.rules import MeshPlan
+    B = tokens[0].shape[0]
+    S = caches[0]["l0"]["k"].shape[2]
+    shape = InputShape(leg, S, B, "decode")
+
+    def chip(dmesh):
+        rank0 = dmesh.get_rank() == 0
+        step, shardings, args = dryrun.build_step(
+            cfg, shape, mesh, MeshPlan(), dmesh, params=weights,
+            batch={"token": tokens[0], "pos": pos}, caches=caches)
+        split = any(p.is_shard(2) for p in args[2][0]["l0"]["k"].placements)
+        out = []
+        for i, token in enumerate(tokens):
+            _, logits, _ = step(place_token(token, shardings[1], dmesh),
+                                pos + i)
+            out.append(gathered(logits, rank0))
+        return (out, split) if rank0 else None
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kern)                           # counts start here
+    t0 = time.perf_counter()
+    with PlainMeter(kern) as plain:
+        got, split = run_on_chips(chip, mesh, SHARDED_TIMEOUT)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kern)                 # and are read here
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launches["launches"].values())
+          and not any(plain.calls.values()),
+          f"{leg}: decode launched {launches['launches']} (plain "
+          f"{plain.calls})")
+    errs = [logit_err(g, w) for g, w in zip(got, want_logits)]
+    agree = tokens_agree(torch.stack(got), torch.stack(want_logits),
+                         MESH_SLSTM_LOGIT_TOL)
+    check(max(errs) <= MESH_SLSTM_LOGIT_TOL,
+          f"{leg}: decode logits differ by {max(errs)} of the largest")
+    check(agree["equal_where_clear"], f"{leg}: greedy tokens differ where "
+          f"the top-2 gap is clear: {agree}")
+    total = check_free(leg, peak)
+    record = {"leg": leg, "mesh": list(mesh.devices.shape), "steps":
+              len(tokens), "wall_s": wall, "s_per_step": wall / len(tokens),
+              "cache_slots": S, "sequence_sharded": split,
+              "logit_err": max(errs), "tokens": agree, "peak_bytes": peak,
+              "card_bytes": total, **launches}
+    emit(phase="sharded_path", **record)
+    return record
+
+
+def unsharded_decode(cfg, weights, caches, first, pos: int, steps: int):
+    """``steps`` greedy decode steps of the unsharded step from a copy of
+    ``caches``, the first fed ``first``: (the tokens fed, the logits)."""
+    import torch
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.train.step import make_serve_decode
+    fn = make_serve_decode(cfg)
+    caches = tree_map(lambda a: a.clone(), caches)
+    fed, logits, token = [], [], first
+    with torch.inference_mode():
+        for i in range(steps):
+            fed.append(token)
+            nxt, out, caches = fn(weights, token, caches, pos + i)
+            logits.append(out.clone())
+            token = nxt[:, None]
+    return fed, logits
+
+
+def sharded_leg_weights(dev, cfg, expected: int):
+    """Random weights of ``cfg`` from seed 0 on the card, with the
+    expected parameter count."""
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.models import transformer as tfm
+    weights = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n = sum(t.numel() for t in tree_leaves(weights))
+    check(n == expected == tree_param_count(cfg),
+          f"sharded_path: {n} parameters of {cfg.name}, expected {expected}")
+    return weights
+
+
+def lm_batch(dev, cfg, batch: int, seq: int, seed: int, labels=True):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {"tokens": torch.randint(0, LM_DATA_VOCAB, (batch, seq),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)}
+    if labels:
+        out["labels"] = torch.randint(0, LM_DATA_VOCAB, (batch, seq),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32)
+    return out
+
+
+def sharded_mesh(shape):
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(*shape, devices=[torch.device("cuda", 0)]
+                          * (shape[0] * shape[1]))
+
+
+def sharded_lm_legs(kern, dev) -> dict:
+    """internlm2-1.8b at full width, 4 of 24 layers, float32, on the
+    (4, 2) mesh: one AdamW step at microbatches 1 and 4, a prefill whose
+    flash launches are each chip's (2, 8, 4, 512, 128), SHARDED_DECODE
+    decode steps after it, and one decode at batch 1 over a sequence-
+    sharded SHARDED_LONG cache."""
+    import gc
+
+    import torch
+    from repro_torch.launch.serve import extend_caches
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import serve_runtime
+    from repro_torch.train.step import make_serve_prefill
+    cfg = sharded_config(lm_config())
+    mesh = sharded_mesh(SHARDED_MESH)
+    weights = sharded_leg_weights(dev, cfg, SHARDED_LM_PARAMS)
+    B, S = SHARDED_BATCH
+    legs = {}
+    batch = lm_batch(dev, cfg, B, S, 1)
+    ref = unsharded_train(cfg, weights, batch, mesh)
+    legs["sharded_lm_train"] = sharded_train_leg(
+        kern, dev, "sharded_lm_train", cfg, weights, batch, mesh, 1, ref,
+        SHARDED_M_TOL)
+    legs["sharded_lm_train_mb4"] = sharded_train_leg(
+        kern, dev, "sharded_lm_train_mb4", cfg, weights, batch, mesh,
+        SHARDED_MICROBATCHES, ref, SHARDED_M_TOL)
+    del ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = lm_batch(dev, cfg, B, S, 2, labels=False)["tokens"]
+    with torch.inference_mode():
+        logits, caches = make_serve_prefill(cfg, serve_runtime())(
+            weights, {"tokens": tokens})
+    legs["sharded_lm_prefill"] = sharded_prefill_leg(
+        kern, dev, "sharded_lm_prefill", cfg, weights, tokens, mesh, logits)
+    caches = extend_caches(caches, cfg, SHARDED_DECODE)
+    fed, want = unsharded_decode(cfg, weights, caches,
+                                 logits.argmax(-1)[:, None].int(), S,
+                                 SHARDED_DECODE)
+    legs["sharded_lm_decode"] = sharded_decode_leg(
+        kern, dev, "sharded_lm_decode", cfg, weights, caches, mesh, fed, S,
+        want)
+    del caches, fed, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, slots, pos = SHARDED_LONG
+    g = torch.Generator(device=dev).manual_seed(3)
+    caches = tfm.init_cache(cfg, b, slots, device=dev)
+    for stage in caches:
+        for layer in stage.values():
+            for t in layer.values():
+                t.normal_(generator=g)
+    first = torch.randint(0, LM_DATA_VOCAB, (b, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    fed, want = unsharded_decode(cfg, weights, caches, first, pos, 1)
+    legs["sharded_lm_long_decode"] = sharded_decode_leg(
+        kern, dev, "sharded_lm_long_decode", cfg, weights, caches, mesh,
+        fed, pos, want)
+    check(legs["sharded_lm_long_decode"]["sequence_sharded"],
+          "sharded_lm_long_decode: the cache is not sequence-sharded")
+    del weights, caches
+    return legs
+
+
+def sharded_train_and_prefill(kern, dev, name: str, cfg, expected: int,
+                              train: bool = True, shape=SHARDED_MESH,
+                              m_tol: float = SHARDED_M_TOL) -> dict:
+    """``cfg`` at full width on a mesh of ``shape``, float32: one AdamW
+    step (with ``train``, its m held within ``m_tol``) and a prefill at
+    SHARDED_BATCH, each against the unsharded step on the card."""
+    import gc
+
+    import torch
+    from repro_torch.runtime import serve_runtime
+    from repro_torch.train.step import make_serve_prefill
+    cfg = sharded_config(cfg)
+    mesh = sharded_mesh(shape)
+    weights = sharded_leg_weights(dev, cfg, expected)
+    B, S = SHARDED_BATCH
+    legs = {}
+    if train:
+        batch = lm_batch(dev, cfg, B, S, 1)
+        ref = unsharded_train(cfg, weights, batch, mesh)
+        legs[f"{name}_train"] = sharded_train_leg(
+            kern, dev, f"{name}_train", cfg, weights, batch, mesh, 1, ref,
+            m_tol)
+        del ref, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens = lm_batch(dev, cfg, B, S, 2, labels=False)["tokens"]
+    with torch.inference_mode():
+        logits, caches = make_serve_prefill(cfg, serve_runtime())(
+            weights, {"tokens": tokens})
+    del caches
+    legs[f"{name}_prefill"] = sharded_prefill_leg(
+        kern, dev, f"{name}_prefill", cfg, weights, tokens, mesh, logits)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return legs
+
+
+def moe_mesh_reckoning(cfg) -> dict:
+    """The MoE leg's peak as reckoned from its bytes, on the (4, 2) mesh
+    and on (2, 2): the whole float32 weights on the card, every chip's
+    blocks (the sharding rules'), and every chip's experts gathered over
+    the mesh dims other than theirs, as the MoE region takes them."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.rules import (MeshPlan, leaves_with_path,
+                                            param_shardings)
+    with FakeTensorMode():
+        params = tfm.init_params(torch.Generator(), cfg)
+    whole = sum(leaf.numel() * leaf.element_size()
+                for _, leaf in leaves_with_path(params))
+    out = {}
+    for shape in (SHARDED_MESH, SHARDED_MOE_MESH):
+        mesh = sharded_mesh(shape)
+        chips = mesh.size
+        sh = dict(leaves_with_path(param_shardings(params, cfg, mesh,
+                                                   MeshPlan())))
+        blocks = gathered_experts = 0
+        for path, leaf in leaves_with_path(params):
+            blocks += chips * sh[path].shard_bytes(leaf)
+            if path[-1] in ("we_gate", "we_up", "we_down"):
+                experts = sh[path].shard_shape(leaf.shape)[0]
+                gathered_experts += (chips * experts * leaf[0].numel()
+                                     * leaf.element_size())
+        out[str(shape)] = {"whole": whole, "blocks": blocks,
+                           "experts_gathered": gathered_experts,
+                           "peak": whole + blocks + gathered_experts}
+    return out
+
+
+def phase_sharded_path(kern, dev) -> dict:
+    """The sharded step with values: train, prefill and decode on a
+    (data, model) DTensor mesh over ``[cuda:0] * 8``, one thread a chip,
+    collectives that move data (``launch.mesh.run_on_chips``), the
+    baseline plan, float32, random weights from seed 0, every leg against
+    the same step unsharded on the card: ``sharded_lm`` (internlm2-1.8b,
+    4 layers), ``sharded_hybrid`` (Jamba's Mamba and attention layers),
+    ``sharded_xlstm`` (one period of xlstm-125m) and ``sharded_moe``
+    (Jamba's MoE cut, prefill only, on (2, 2) where the reckoning of
+    its bytes on (4, 2) leaves under MOE_FREE_BYTES_MIN of the card
+    free, ``moe_mesh_reckoning``).  Each leg's launch counts are set to
+    0 just before its threaded run and read just after."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    legs, seconds = {}, {}
+    for name, run in (
+            ("sharded_lm", lambda: sharded_lm_legs(kern, dev)),
+            ("sharded_hybrid", lambda: sharded_train_and_prefill(
+                kern, dev, "sharded_hybrid", hybrid_config(),
+                HYBRID_PARAMS)),
+            ("sharded_xlstm", lambda: sharded_train_and_prefill(
+                kern, dev, "sharded_xlstm", xlstm_loop_config(),
+                XLSTM_LOOP_PARAMS, m_tol=SHARDED_XLSTM_M_TOL))):
+        t = time.perf_counter()
+        legs.update(run())
+        seconds[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = sharded_config(hybrid_moe_config())
+    reckoning = moe_mesh_reckoning(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    on_42 = total - reckoning[str(SHARDED_MESH)]["peak"] \
+        >= MOE_FREE_BYTES_MIN
+    moe_mesh = SHARDED_MESH if on_42 else SHARDED_MOE_MESH
+    emit(phase="sharded_path", leg="sharded_moe_mesh", reckoning=reckoning,
+         card_bytes=total, mesh=list(moe_mesh),
+         reason=None if on_42 else "the (4, 2) reckoning leaves under "
+         f"{MOE_FREE_BYTES_MIN} bytes of the card free")
+    t = time.perf_counter()
+    legs.update(sharded_train_and_prefill(
+        kern, dev, "sharded_moe", hybrid_moe_config(), MOE_PARAMS,
+        train=False, shape=moe_mesh))
+    seconds["sharded_moe"] = time.perf_counter() - t
+    launches = {k: sum(leg["launches"][k] for leg in legs.values())
+                for k in ("signature", "flash", "scan", "mlstm", "slstm")}
+    record = {"legs": {k: {key: v[key] for key in ("wall_s", "peak_bytes")}
+                       for k, v in legs.items()},
+              "seconds": seconds, "launches": launches,
+              "phase_s": time.perf_counter() - t0}
+    emit(phase="sharded_path_done", **record)
+    return legs
+
+
 def whisper_config():
     """whisper-medium as published in the reference: full width and
     depth, 24 encoder layers over 1,500 frames, 24 decoder layers."""
@@ -5580,8 +6246,10 @@ def main() -> None:
     mesh = phase_mesh_path(kern, dev)
     dense = phase_dense_configs_path(kern, dev)
     phase_dryrun_path()
+    sharded = phase_sharded_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe, **variants, **whisper, **mesh, **dense}
+             **serving, **moe, **variants, **whisper, **mesh, **dense,
+             **sharded}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -5597,6 +6265,11 @@ def main() -> None:
             by_path["lm_train"] = train["launches"]["signature"]
         record["launches_by_path"] = by_path
         record["launches"] = sum(by_path.values())
+        # each chip's block in the sharded legs: its first launch's shape,
+        # error against the plain version and times
+        record["per_chip"] = {name: p["per_chip"][key]
+                              for name, p in sharded.items()
+                              if key in p.get("per_chip", {})}
     sig_record["launches_by_route"] = {
         "cnn": cnn["signature_routes"],
         "cnn_cohort": cohort["signature_routes"],
@@ -5612,6 +6285,7 @@ def main() -> None:
     for row, legs, window in (("gemma3_local", "gemma3_", 1024),
                               ("gemma3_global", "gemma3_", -1),
                               ("mla", "mla_", -1),
+                              ("mrope", "mrope", -1),
                               ("whisper", "whisper_", -1),
                               ("gemma2_local", "gemma2_", 4096),
                               ("gemma2_global", "gemma2_", -1),

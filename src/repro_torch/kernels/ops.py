@@ -68,8 +68,17 @@ def signature(x: torch.Tensor, *, tau: float = 0.05,
     ``models.layers.activation_signature``.
     """
     flat = x.reshape(-1, x.shape[-1])
-    sums, w = _bucket_sums(signature_counts(flat[None], tau)[0], n_sig)
-    return sums * _reciprocal(flat.shape[0] * w)
+    return signature_of_counts(signature_counts(flat[None], tau)[0],
+                               flat.shape[0], n_sig=n_sig)
+
+
+def signature_of_counts(counts: torch.Tensor, rows: int, *,
+                        n_sig: int = 64) -> torch.Tensor:
+    """The bucketed signature (n_sig,) of exact per-channel flag
+    ``counts`` (d,) over ``rows`` rows: :func:`signature` after its
+    kernel call."""
+    sums, w = _bucket_sums(counts, n_sig)
+    return sums * _reciprocal(rows * w)
 
 
 def signature_buckets(h: torch.Tensor, *, tau: float = 0.05,

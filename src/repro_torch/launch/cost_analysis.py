@@ -23,7 +23,9 @@ The cost model is the reference's (matmul-centric, a TPU-style roofline):
           Views, elementwise chains and dtype casts carry no bytes.
   colls : the result bytes of each collective, by the reference's kind
           (``all-reduce``, ``all-gather``, ``reduce-scatter``,
-          ``all-to-all``, ``collective-permute``).
+          ``all-to-all``, ``collective-permute``: the port's
+          ``repro_torch.collective_permute``, the blocks a fused
+          projection's halves move, ``sharding.dtensor.halves``).
 
 Sharded programs (``launch.dryrun``): on DTensors over a fake process
 group the mode steps aside for each DTensor operation, so DTensor picks
@@ -96,14 +98,15 @@ _RESULT_BYTES = {
     aten.index_add.default, aten.index_put.default,
 }
 # functional collectives by the reference's kind names (prefixes of the
-# op names of ``_c10d_functional``, its autograd twin and ``_dtensor``)
+# op names of ``_c10d_functional``, its autograd twin, ``_dtensor`` and the
+# port's own, ``repro_torch.collective_permute``)
 _COLLECTIVE_KINDS = (("all_reduce", "all-reduce"),
                      ("all_gather", "all-gather"),
                      ("reduce_scatter", "reduce-scatter"),
                      ("all_to_all", "all-to-all"),
                      ("shard_dim_alltoall", "all-to-all"))
 _COLLECTIVE_NAMESPACES = {"_c10d_functional", "_c10d_functional_autograd",
-                          "_dtensor"}
+                          "_dtensor", "repro_torch"}
 _UPDATES = {aten.copy_.default, aten.index_put_.default,
             aten.scatter_.src, aten.scatter_.value, aten.index_copy_.default}
 

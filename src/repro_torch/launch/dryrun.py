@@ -24,6 +24,10 @@ HLO.  The port counts the same sharded step in eager PyTorch, on the CPU:
     applies the reference's cost model to them, its Mamba and sLSTM step
     loops folded (``launch.cost_analysis.folded``).
 
+:func:`build_step` also runs the step with values: given the caller's
+tensors and a mesh of ``launch.mesh.run_on_chips``, whose collectives
+move data, each chip copies its blocks out of them and computes its own.
+
 Per chip, then: FLOPs and cost-model bytes of the local program;
 collective bytes by the reference's kinds; argument bytes from the
 sharding rules; the peak of the bytes the step's own storages hold
@@ -35,13 +39,11 @@ time.
 
 What differs from XLA's partitioner: DTensor picks its own
 redistributions (an all-reduce or a reduce-scatter where XLA may pick
-the other, a gather where XLA may all-to-all); a fused projection's
-halves move nothing (``sharding.dtensor.halves``), where XLA permutes
-them and all-to-alls their gradient; and the regions follow XLA's plans
-only where written out.  The peak is eager liveness, freed as references
-drop, not XLA's buffer assignment: on the reduced 4 x 2 cases it reads
-0.25 to 7.2 times XLA's ``temp_size_in_bytes``, so ``fits_hbm`` is an
-estimate, not a verdict.
+the other, a gather where XLA may all-to-all), and the regions follow
+XLA's plans only where written out.  The peak is eager liveness, freed
+as references drop, not XLA's buffer assignment: on the reduced 4 x 2
+cases it reads 0.25 to 7.2 times XLA's ``temp_size_in_bytes``, so
+``fits_hbm`` is an estimate, not a verdict.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xlstm-125m \\
         --shape decode_32k
@@ -63,7 +65,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
@@ -140,32 +142,55 @@ def make_plan(cfg: ArchConfig, multi_pod: bool, plan_mode: str = "baseline",
 def place(tree, shardings, dmesh):
     """``tree`` with each tensor leaf a DTensor on ``dmesh`` holding its
     block under its sharding (``sharding.rules.dtensor_placements``),
-    split locally (no collective)."""
+    split locally (no collective).  Each block is a copy on the chip's
+    device: no two chips share storage, and none shares the caller's, so
+    an in-place update on one chip (the optimizer's) changes its block
+    alone."""
     sh = dict(leaves_with_path(shardings))
+    device = torch.device(dmesh.device_type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
 
     def put(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return distribute_tensor(leaf, dmesh, dtensor_placements(
-            sh[path].spec, dmesh), src_data_rank=None)
+        placements = dtensor_placements(sh[path].spec, dmesh)
+        block = distribute_tensor(leaf, dmesh, placements,
+                                  src_data_rank=None).to_local()
+        return DTensor.from_local(block.to(device, copy=True), dmesh,
+                                  placements, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
     return map_with_path(put, tree)
 
 
 def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan,
-               dmesh=None):
-    """Call under ``FakeTensorMode``: (step, its arguments' shardings,
-    the arguments), the step a closure over shape-only arguments.
+               dmesh=None, *, params=None, opt_state=None, batch=None,
+               caches=None, use_kernels: bool = False):
+    """(step, its arguments' shardings, the arguments), the step a
+    closure over its arguments.
 
-    With ``dmesh`` (``launch.mesh.dtensor_mesh(mesh)``) the arguments are
-    DTensors placed by the sharding rules and the runtime carries the
+    The arguments are the caller's where given: ``params``, the training
+    step's ``opt_state`` (default: the optimizer's fresh state),
+    ``batch`` (as :func:`input_specs` makes it: decode's ``{"token",
+    "pos"}``, ``pos`` a Python int) and decode's ``caches`` (default:
+    zeros).  Without them the step is the count's, over shape-only
+    arguments: call it under ``FakeTensorMode``.  ``use_kernels`` has the
+    serving steps launch the kernels, as ``runtime.serve_runtime``.
+
+    With ``dmesh`` (``launch.mesh.dtensor_mesh(mesh)`` for a count,
+    ``launch.mesh.run_on_chips`` for values) the arguments are DTensors
+    placed by the sharding rules (:func:`place`), the runtime carries the
     mesh and the batch axes, as the reference's ``in_shardings`` and
-    ``Runtime``; the training step places its new parameters and state
-    back at their shardings (``train.step``).  Without it, the unsharded
-    step on one device."""
-    params = tfm.init_params(torch.Generator(), cfg)
+    ``Runtime``, and the training step places its new parameters and
+    state back at their shardings (``train.step``); the step returns
+    DTensors (``full_tensor()`` gathers one).  Without it, the unsharded
+    step on the arguments' device."""
+    if params is None:
+        params = tfm.init_params(torch.Generator(), cfg)
     params_sh = param_shardings(params, cfg, mesh, plan)
-    batch = input_specs(cfg, shape)
-    runtime = Runtime(want_signature=shape.mode == "train")
+    batch = input_specs(cfg, shape) if batch is None else batch
+    runtime = Runtime(want_signature=shape.mode == "train",
+                      use_kernels=use_kernels and shape.mode != "train")
     if dmesh is not None:
         runtime = dataclasses.replace(
             runtime, batch_axes=tuple(plan.batch_axes), dmesh=dmesh,
@@ -185,16 +210,17 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan,
         if dmesh is None:
             return fn
 
-        def run():
+        def run(*a, **kw):
             with implicit_replication():
-                return fn()
+                return fn(*a, **kw)
         return run
 
     if shape.mode == "train":
         step, opt = make_train_step(
             cfg, runtime=runtime,
             microbatches=getattr(plan, "_microbatches", 0) or 1)
-        opt_state = opt.init(params)
+        if opt_state is None:
+            opt_state = opt.init(params)
         shardings = [params_sh, opt_state_shardings(opt_state, params_sh,
                                                     mesh),
                      batch_shardings(batch, mesh, plan)]
@@ -206,13 +232,19 @@ def build_step(cfg: ArchConfig, shape: InputShape, mesh, plan: MeshPlan,
         args = placed([params, batch], shardings)
         return sharded(lambda: fn(*args)), shardings, args
     fn = make_serve_decode(cfg, runtime)
-    caches = tfm.init_cache(cfg, shape.global_batch, shape.seq_len)
+    if caches is None:
+        caches = tfm.init_cache(cfg, shape.global_batch, shape.seq_len)
     token = {"tokens": batch["token"]}
     shardings = [params_sh, batch_shardings(token, mesh, plan),
                  cache_shardings(caches, cfg, mesh, plan)]
     args = placed([params, token, caches], shardings)
-    return (sharded(lambda: fn(args[0], args[1]["tokens"], args[2],
-                               batch["pos"])), shardings, args)
+
+    def decode(token=None, pos=None):
+        """One decode step on the placed caches; a later step takes its
+        token (placed as ``shardings[1]["tokens"]``) and position."""
+        return fn(args[0], args[1]["tokens"] if token is None else token,
+                  args[2], batch["pos"] if pos is None else pos)
+    return sharded(decode), shardings, args
 
 
 def argument_bytes_per_chip(shardings, trees) -> int:

@@ -24,13 +24,22 @@ joins "data" for batch and FSDP sharding.  The dry run builds these over
 of the same axes and shape over a ``"fake"`` process group of one rank
 (rank 0) among ``mesh.size``, on the CPU.  No collective moves data, so
 the dry run counts the sharded program of one chip without the chips.
+
+:func:`run_on_chips` is the third: the same ``DeviceMesh`` over torch's
+threaded process group, one thread a chip, each chip's blocks on its
+entry of ``mesh.devices``, and collectives that move data between the
+threads.  It runs the sharded step with values, the counterpart of the
+reference's one controller driving its forced host devices.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import itertools
+import threading
+import time
 from collections import OrderedDict
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -125,6 +134,21 @@ def make_cohort_mesh(n_clients: int, axis: str = "clients", data: int = 1,
                 (axis, data_axis))
 
 
+def _device_mesh(mesh: Mesh, device_type: str):
+    """The ``DeviceMesh`` of ``mesh``'s axis names and shape over the
+    process group this thread has initialised, with the flattened meshes
+    of every two or more of its axes made: one collective over several
+    axes runs on one of them (``sharding.dtensor``), and a group is made
+    by every rank at once, here, not inside a step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dmesh = init_device_mesh(device_type, tuple(mesh.devices.shape),
+                             mesh_dim_names=mesh.axis_names)
+    for n in range(2, dmesh.ndim + 1):
+        for names in itertools.combinations(mesh.axis_names, n):
+            dmesh[names]._flatten()
+    return dmesh
+
+
 @contextlib.contextmanager
 def dtensor_mesh(mesh: Mesh):
     """A ``torch.distributed.device_mesh.DeviceMesh`` with ``mesh``'s axis
@@ -134,7 +158,6 @@ def dtensor_mesh(mesh: Mesh):
     and destroyed on exit.  Raises if a process group is already
     initialised."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     # registers the "fake" backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -143,17 +166,187 @@ def dtensor_mesh(mesh: Mesh):
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
     try:
-        dmesh = init_device_mesh("cpu", tuple(mesh.devices.shape),
-                                 mesh_dim_names=mesh.axis_names)
-        # the flattened meshes of every two or more axes, made here (not
-        # under fake tensors): one collective over several axes runs on
-        # one of them (``train.step``)
-        for n in range(2, dmesh.ndim + 1):
-            for names in itertools.combinations(mesh.axis_names, n):
-                dmesh[names]._flatten()
-        yield dmesh
+        yield _device_mesh(mesh, "cpu")
     finally:
         dist.destroy_process_group()
+
+
+class _Turns:
+    """One chip thread runs at a time, and hands its turn on where it
+    waits for the others (a collective, a group's store barrier).  Each
+    torch operation lets go of the GIL, so eight threads that all run
+    would pass it back and forth at every operation, at about ten times
+    the cost of running one after another; one card runs the chips'
+    kernels one after another on its stream anyway."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.holder = threading.local()
+
+    @contextlib.contextmanager
+    def turn(self):
+        self.lock.acquire()
+        self.holder.held = True
+        try:
+            yield
+        finally:
+            self.holder.held = False
+            self.lock.release()
+
+    def waiting(self, wait):
+        """``wait`` made to give the turn up while it blocks."""
+        def run(*args, **kwargs):
+            if not getattr(self.holder, "held", False):
+                return wait(*args, **kwargs)
+            self.holder.held = False
+            self.lock.release()
+            try:
+                return wait(*args, **kwargs)
+            finally:
+                self.lock.acquire()
+                self.holder.held = True
+        return run
+
+
+# the torch internals the turns wrap, by the leading parameters they are
+# known by: a torch that renames or reshapes one fails here, not in a run
+# whose threads wait on a wait that no longer gives the turn up
+_WAIT_PARAMS = {"join": ("self", "rank", "data"),
+                "_store_based_barrier": ("rank", "store", "group_name")}
+
+
+def _blocking_wait(owner, attr: str):
+    """``owner.attr``, checked to be the blocking wait it is known as."""
+    fn = getattr(owner, attr, None)
+    want = _WAIT_PARAMS[attr]
+    got = (tuple(inspect.signature(fn).parameters)[:len(want)]
+           if callable(fn) else None)
+    if got != want:
+        raise RuntimeError(f"torch {torch.__version__}: "
+                           f"{getattr(owner, '__name__', owner)}.{attr} is "
+                           f"not the blocking wait that run_on_chips wraps "
+                           f"(parameters {got}, expected {want})")
+    return fn
+
+
+@contextlib.contextmanager
+def _threaded_world():
+    """Torch's threaded process group installed for this process (each
+    thread its own world and group registry), the threads taking turns
+    (:class:`_Turns`, yielded: DTensor's sharding propagation is not
+    thread-safe, and runs in one thread at a time), the models' step
+    loops unfolded (a count's fold is process-wide, and a run with values
+    steps through them), and all of it undone on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg
+
+    from repro_torch.models import layers
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    c10d = torch._C._distributed_c10d
+    fold = layers.LOOP_FOLD
+    turns = _Turns()
+    waits = [(multi_threaded_pg.Collective, "join"),
+             (multi_threaded_pg, "_store_based_barrier"),
+             (dist.distributed_c10d, "_store_based_barrier")]
+    blocking = [_blocking_wait(owner, attr) for owner, attr in waits]
+    if not hasattr(c10d, "_set_thread_isolation_mode"):
+        raise RuntimeError(f"torch {torch.__version__} has no c10d "
+                           "_set_thread_isolation_mode")
+    c10d._set_thread_isolation_mode(True)
+    world = type(multi_threaded_pg._install_threaded_pg())
+    # some versions' c10d reads the world's ``comms``, which their
+    # threaded world lacks: each thread's own, empty
+    lacks_comms = not hasattr(world, "comms")
+    if lacks_comms:
+        world.comms = property(
+            lambda self: self._get_world().__dict__.setdefault("comms", []))
+    for (owner, attr), wait in zip(waits, blocking):
+        setattr(owner, attr, turns.waiting(wait))
+    layers.LOOP_FOLD = None
+    try:
+        yield multi_threaded_pg.ProcessLocalGroup, turns
+    finally:
+        layers.LOOP_FOLD = fold
+        for (owner, attr), wait in zip(waits, blocking):
+            setattr(owner, attr, wait)
+        multi_threaded_pg.ProcessLocalGroup.reset()
+        multi_threaded_pg._uninstall_threaded_pg()
+        if lacks_comms:
+            del world.comms
+        c10d._set_thread_isolation_mode(False)
+
+
+def run_on_chips(fn: Callable, mesh: Mesh, timeout: float = 600.0) -> list:
+    """``fn(dmesh)`` on every chip of ``mesh``, one thread a chip: each
+    thread is one rank of torch's threaded process group over
+    ``mesh.size`` ranks, ``dmesh`` the ``DeviceMesh`` that
+    :func:`dtensor_mesh` makes (axis names, shape, flattened meshes), and
+    its collectives move data between the threads.  Rank ``r``'s device
+    (``torch.cuda.set_device`` on a card) is ``mesh.devices.flat[r]``;
+    every device of the mesh is of one type.  Returns every rank's
+    result, in rank order.
+
+    The threads take turns (:class:`_Turns`): one runs ``fn`` until it
+    waits in a collective, so module-level counts (the kernels' launch
+    counters) add up.  Each thread starts in the caller's grad mode.  An
+    exception in any thread fails the call (the others, waiting in a
+    collective, are woken and stop), and so does a thread still running
+    ``timeout`` seconds after the start.  No process group is left
+    initialised afterwards.  Raises if one is initialised before."""
+    import torch.distributed as dist
+
+    devices = list(mesh.devices.flat)
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh of one device type, got {sorted(kinds)}")
+    device_type = kinds.pop()
+    n = mesh.size
+    grad = torch.is_grad_enabled()
+    results: list = [None] * n
+    errors: list = []
+    with _threaded_world() as (group, turns):
+        store = dist.HashStore()
+
+        def chip(rank: int) -> None:
+            try:
+                dist.init_process_group("threaded", rank=rank, world_size=n,
+                                        store=store)
+                try:
+                    if device_type == "cuda":
+                        torch.cuda.set_device(devices[rank])
+                    dmesh = _device_mesh(mesh, device_type)
+                    with turns.turn(), torch.set_grad_enabled(grad):
+                        results[rank] = fn(dmesh)
+                finally:
+                    dist.destroy_process_group()
+            except BaseException as exc:   # noqa: BLE001 -- reported below
+                errors.append((rank, exc))
+                group.exception_handle(exc)
+
+        threads = [threading.Thread(target=chip, args=(r,), daemon=True,
+                                    name=f"chip-{r}") for r in range(n)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.0))
+        late = [r for r, t in enumerate(threads) if t.is_alive()]
+        if late:
+            group.exception_handle(TimeoutError())
+            for t in threads:
+                t.join(5.0)
+    if late:
+        raise TimeoutError(f"chips {late} still running after {timeout} s")
+    # the first failure, not the exits it caused in the other threads
+    failures = sorted((r, e) for r, e in errors
+                      if not isinstance(e, SystemExit)) or sorted(errors)
+    if failures:
+        rank, exc = failures[0]
+        raise RuntimeError(f"chip {rank} of {n} failed: "
+                           f"{type(exc).__name__}: {exc}") from exc
+    return results
 
 
 # NVIDIA H100 SXM published peaks (data sheet, dense, at 700 W): the dry

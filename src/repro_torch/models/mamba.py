@@ -31,6 +31,7 @@ hands its final ``h`` over as that state.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -130,15 +131,15 @@ def mamba_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
     xbf = xb.float()
 
     if runtime is not None and runtime.use_kernels:
-        y, h_last = ops.selective_scan(xbf, dt, A, Bc, Cc, state["h"])
+        scan = ops.selective_scan
     else:
-        # on a DTensor mesh, chip by chip over its rows and channels
-        y, h_last = dtensor.on_chips(
-            lambda *a: selective_scan_ref(*a, chunk=mc.chunk),
-            (xbf, dt, A, Bc, Cc, state["h"]),
-            (_ROWS_CHANS, _ROWS_CHANS, {"chan": 0}, {"batch": 0},
-             {"batch": 0}, {"batch": 0, "chan": 1}),
-            (_ROWS_CHANS, {"batch": 0, "chan": 1}))
+        scan = functools.partial(selective_scan_ref, chunk=mc.chunk)
+    # on a DTensor mesh, chip by chip over its rows and channels
+    y, h_last = dtensor.on_chips(
+        scan, (xbf, dt, A, Bc, Cc, state["h"]),
+        (_ROWS_CHANS, _ROWS_CHANS, {"chan": 0}, {"batch": 0},
+         {"batch": 0}, {"batch": 0, "chan": 1}),
+        (_ROWS_CHANS, {"batch": 0, "chan": 1}))
     y = y + xbf * params["D"]
     out = (y.to(compute) * F.silu(z)) @ params["out_proj"].to(compute)
     new_state = {"h": h_last, "conv": xp[:, -(mc.d_conv - 1):].float()}

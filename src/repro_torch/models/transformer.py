@@ -402,7 +402,8 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     first, over ``batch["enc_embed"]``.  ``aux["moe_aux"]`` is the MoE layers'
     summed router losses (float32, 0 without MoE layers).  With
     ``runtime.want_signature``, ``aux["signature"]`` is the bucketed Eq. 3
-    signature of ``h`` (``kernels.ops.signature``).
+    signature of ``h`` (``kernels.ops.signature``; on a DTensor mesh
+    each chip counts its block, ``sharding.dtensor.row_counts``).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -427,9 +428,12 @@ def forward_hidden(params, batch, cfg: ArchConfig,
     aux = {"moe_aux": aux_total}
     if runtime.want_signature:
         # counts have no gradient: the kernel takes the detached output
-        aux["signature"] = ops.signature(x.detach(),
-                                         tau=runtime.signature_tau,
-                                         n_sig=runtime.signature_dims)
+        counts, rows = dtensor.row_counts(
+            lambda t: ops.signature_counts(t[None],
+                                           runtime.signature_tau)[0],
+            x.detach())
+        aux["signature"] = ops.signature_of_counts(
+            counts, rows, n_sig=runtime.signature_dims)
     if collect_cache:
         return x, aux, caches
     return x, aux

@@ -239,8 +239,11 @@ def mlstm_forward(params, x, *, cfg: ArchConfig, state=None, runtime=None):
         state = init_mlstm_state(cfg, B, device=x.device)
     q, k, v, i_gate, f_gate, z, xm = _mlstm_qkvif(params, x, cfg, compute)
     if fresh and runtime is not None and runtime.use_kernels:
-        h, core = ops.mlstm_chunkwise(q, k, v, i_gate, f_gate,
-                                      chunk=xc.chunk, h_dtype=torch.float32)
+        # the kernel starts from the zero state
+        h, core = _on_heads(
+            lambda *a: ops.mlstm_chunkwise(*a[:5], chunk=xc.chunk,
+                                           h_dtype=torch.float32),
+            q, k, v, i_gate, f_gate, state)
     else:
         h, core = _on_heads(
             lambda *a: mlstm_chunkwise(*a, chunk=xc.chunk),

@@ -24,17 +24,22 @@ XLA's partitioner takes the reference's program:
   microbatches (:func:`microbatches`) and the optimizer's shardwise
   update (:func:`shardwise`).
 
-Count-only sites.  A few sites give each chip a block with the shapes and
-the work of XLA's partitioned program but not its values: :func:`halves`
-(each chip halves its own block of a fused projection, where XLA permutes
-the halves between the chips), the kv heads of a chip's query groups
-(:func:`attention_on_chips`), a chip's share of the experts and of a
-spread group's tokens (:func:`chips_share`), a sequence-sharded cache's
-slot (:func:`write_slot`) and chip-major microbatches
-(:func:`microbatches`).  These run on fake tensors only and raise
-``NotImplementedError`` on a DTensor that holds values.
+Sites that move a chip's block to where XLA's partitioned program has
+it: :func:`halves` (a fused projection's halves, permuted between the
+chips, their gradient's concatenation an all-to-all: :func:`_exchange`),
+the kv heads of a chip's query groups (:func:`attention_on_chips`, a
+local cut), a chip's share of the experts and of a spread group's tokens
+(:func:`chips_share`, by the chip's coordinate in its region), a
+sequence-sharded cache's slot (:func:`write_slot`, written by the chip
+whose block holds it) and the microbatches (:func:`microbatches`, the
+reference's rows, moved by an all-to-all).  Every chip computes its own
+block's values, over the dry run's fake group (shapes only) and over the
+threaded group of ``launch.mesh.run_on_chips`` alike.
 """
 from __future__ import annotations
+
+import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -50,14 +55,123 @@ def is_dtensor(t) -> bool:
     return DTensor is not None and isinstance(t, DTensor)
 
 
-def _count_only(what: str, *tensors) -> None:
-    """Raises unless every tensor is fake (``FakeTensorMode``, the dry
-    run's): ``what`` gives a chip the shapes and work of its block, not
-    its values (module docstring)."""
-    from torch._subclasses.fake_tensor import is_fake
-    if not all(is_fake(t) for t in tensors):
-        raise NotImplementedError(
-            f"{what} is the dry run's count: it takes fake tensors only")
+# the chip's block of each logical axis inside the innermost
+# :func:`on_chips` region of this thread ({axis: (index, ways)})
+_regions = threading.local()
+
+
+def _block_index(dmesh, dims) -> int:
+    """This chip's block along a tensor dim that mesh dims ``dims`` shard,
+    major to minor as DTensor orders nested shards."""
+    index = 0
+    for i in dims:
+        index = index * dmesh.size(i) + dmesh.get_local_rank(i)
+    return index
+
+
+def _sharding_dims(t, dim: int) -> list:
+    """The mesh dims that shard ``dim`` of the DTensor ``t``."""
+    dim %= t.dim()
+    return [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+
+
+def region_block(axis: str):
+    """(index, ways) of this chip's block of ``axis`` in the innermost
+    :func:`on_chips` region running here; (0, 1) outside one or where the
+    region keeps ``axis`` whole."""
+    stack = getattr(_regions, "stack", None)
+    return stack[-1].get(axis, (0, 1)) if stack else (0, 1)
+
+
+# -- collectives that are not a redistribution --------------------------------
+
+
+@torch.library.custom_op("repro_torch::collective_permute", mutates_args=())
+def _collective_permute(x: torch.Tensor, out_splits: list[int],
+                        in_splits: list[int], group: str) -> torch.Tensor:
+    """Rows of ``x`` sent to the group's ranks (``in_splits`` rows each,
+    in rank order), rows received (``out_splits``): XLA's
+    collective-permute, one op so that a count names it so."""
+    return _all_to_all(x, out_splits, in_splits, group)
+
+
+@_collective_permute.register_fake
+def _(x, out_splits, in_splits, group):
+    return x.new_empty((sum(out_splits), *x.shape[1:]))
+
+
+def _all_to_all(x, out_splits, in_splits, group: str) -> torch.Tensor:
+    functional = torch.ops._c10d_functional
+    return functional.wait_tensor(functional.all_to_all_single(
+        x.contiguous(), out_splits, in_splits, group))
+
+
+class _Exchange(torch.autograd.Function):
+    """Rows along dim 0 exchanged between a group's ranks, forward as a
+    collective-permute (``permute``) or an all-to-all, backward as the
+    inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group, permute):
+        ctx.splits = (out_splits, in_splits, group)
+        if permute:
+            return torch.ops.repro_torch.collective_permute(
+                x.contiguous(), out_splits, in_splits, group)
+        return _all_to_all(x, out_splits, in_splits, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out_splits, in_splits, group = ctx.splits
+        return (_all_to_all(grad, in_splits, out_splits, group), None, None,
+                None, None)
+
+
+def _group_name(dmesh, dims) -> str:
+    """The process group over mesh dims ``dims`` (their flattened mesh
+    where there are several; ``launch.mesh`` makes them all up front):
+    its ranks in the order of :func:`_block_index`."""
+    if len(dims) == 1:
+        return dmesh.get_group(dims[0]).group_name
+    names = tuple(dmesh.mesh_dim_names[i] for i in dims)
+    return dmesh[names]._flatten().get_group().group_name
+
+
+def _exchange(pieces, wanted, me: int, ways: int, group: str,
+              permute: bool) -> list:
+    """Blocks moved between the ``ways`` ranks of ``group``, this one
+    ``me``.  ``pieces`` are this rank's blocks, ``(peer, key, tensor)``:
+    the tensor, cut along dim 0, goes to ``peer`` under ``key``;
+    ``wanted`` lists ``(peer, key, rows)`` in the order the result takes.
+    Every rank names its sends and receives alike, in one order.  A
+    rank's blocks for itself stay local; the rest move in one collective
+    (:class:`_Exchange`), each pair's blocks in the order listed.
+    Returns the wanted tensors."""
+    sends = [[] for _ in range(ways)]
+    own = {}
+    for peer, key, t in pieces:
+        if peer == me:
+            own[key] = t
+        else:
+            sends[peer].append(t)
+    rows = [0] * ways
+    for peer, _, n in wanted:
+        if peer != me:
+            rows[peer] += n
+    moved = None
+    if any(rows) or any(sends):
+        x = torch.cat([t for ts in sends for t in ts]
+                      or [pieces[0][2][:0]])
+        moved = _Exchange.apply(x, rows, [sum(t.shape[0] for t in ts)
+                                          for ts in sends], group, permute)
+    starts = [sum(rows[:p]) for p in range(ways)]
+    out = []
+    for peer, key, n in wanted:
+        if peer == me:
+            out.append(own[key])
+        else:
+            out.append(moved[starts[peer]:starts[peer] + n])
+            starts[peer] += n
+    return out
 
 
 def _ways(t, dim: int) -> int:
@@ -71,11 +185,27 @@ def _ways(t, dim: int) -> int:
     return ways
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a local block's
+    gradient becomes a DTensor whose global strides are read off the
+    block's, and a transposed one (a product's backward gives some) then
+    fails DTensor's next view."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def _local(t, placements, grads=None):
     """The DTensor ``t`` at ``placements``, its local block, whose
     gradient arrives at ``grads`` (default ``placements``)."""
-    return t.redistribute(t.device_mesh, placements).to_local(
+    local = t.redistribute(t.device_mesh, placements).to_local(
         grad_placements=grads or placements)
+    return _ContiguousGrad.apply(local) if local.requires_grad else local
 
 
 # -- constraints --------------------------------------------------------------
@@ -95,13 +225,15 @@ def shard_batch(x, runtime):
     replicated over the others: the reference's
     ``with_sharding_constraint``, which keeps XLA's propagation from
     replicating the batch.  Only on a DTensor mesh and where the batch
-    divides the axes; otherwise ``x`` as it is (a tensor's device is its
-    placement)."""
+    divides the axes; otherwise ``x`` with its pending partial sums
+    reduced (:func:`summed`: a checkpointed period must not take a
+    pending vocab-masked lookup, whose mask its first use releases), a
+    plain tensor as it is (its device is its placement)."""
     from repro_torch.sharding.rules import P, dtensor_placements
     dmesh = runtime.dmesh
     if (dmesh is None or not runtime.batch_axes or x.dim() < 2
             or x.shape[0] % max(runtime.batch_axis_size, 1)):
-        return x
+        return summed(x)
     return constrained(x, dtensor_placements(P(tuple(runtime.batch_axes)),
                                              dmesh))
 
@@ -178,21 +310,34 @@ def summed_onto_features(t):
 
 def halves(t: torch.Tensor):
     """``t.chunk(2, dim=-1)``: the two halves of a fused projection's
-    output.  On a DTensor whose last dim is sharded each chip halves its
-    own block, as two projections sharded alike would give it: the
-    halves' shapes and work, not their values (count only; XLA permutes
-    one half between the chips, and its gradient's concatenation is an
-    all-to-all, which this counts as nothing)."""
+    output.  On a DTensor whose last dim is sharded ``w`` ways, each half
+    comes out sharded alike, as XLA partitions the split: chip ``j``'s
+    block is the global sub-blocks ``2j`` and ``2j + 1`` of width
+    ``W / 2w``, and sub-block ``g`` belongs to half ``g // w`` on chip
+    ``g % w``; the sub-blocks that change chips move in one
+    collective-permute among the chips of the sharded mesh dims, and
+    their gradient comes back by the inverse all-to-all."""
     ways = _ways(t, -1)
     if ways == 1 or (t.shape[-1] // 2) % ways:
         return t.chunk(2, dim=-1)
-    _count_only("halving each chip's block of a fused projection", t)
+    mesh = t.device_mesh
+    dims = _sharding_dims(t, -1)
+    me = _block_index(mesh, dims)
+    local = t.to_local(grad_placements=t.placements)
+    # sub-blocks along dim 0 for the exchange
+    subs = local.movedim(-1, 0).chunk(2)
+    pieces = [((2 * me + s) % ways, (2 * me + s) // ways, subs[s])
+              for s in (0, 1)]
+    # half h of chip me is sub-block h * ways + me, on chip (h * ways +
+    # me) // 2
+    wanted = [((h * ways + me) // 2, h, subs[0].shape[0]) for h in (0, 1)]
+    got = _exchange(pieces, wanted, me, ways, _group_name(mesh, dims),
+                    permute=True)
     shape = (*t.shape[:-1], t.shape[-1] // 2)
     stride = torch.empty(shape, device="meta").stride()
-    return tuple(DTensor.from_local(h, t.device_mesh, t.placements,
+    return tuple(DTensor.from_local(h.movedim(0, -1), mesh, t.placements,
                                     run_check=False, shape=shape,
-                                    stride=stride)
-                 for h in t.to_local().chunk(2, dim=-1))
+                                    stride=stride) for h in got)
 
 
 def placed_like(t: torch.Tensor, ref, dim: int) -> torch.Tensor:
@@ -286,8 +431,9 @@ def on_chips(fn, inputs, dims, out_dims):
     and one that lacks it goes in whole, its gradient then a partial sum
     over that mesh dim.  Any other mesh dim is gathered and computed on
     every chip alike.  An axis an output lacks is replicated or, named
-    ``"sum"`` or ``"avg"``, a pending reduction.  Without a DTensor among
-    the inputs, ``fn(*inputs)``."""
+    ``"sum"`` or ``"avg"``, a pending reduction.  Inside ``fn``,
+    :func:`region_block` gives the chip's block of each split axis.
+    Without a DTensor among the inputs, ``fn(*inputs)``."""
     mesh_of = next((x for x in inputs if is_dtensor(x)), None)
     if mesh_of is None:
         return fn(*inputs)
@@ -305,19 +451,33 @@ def on_chips(fn, inputs, dims, out_dims):
             x, [Shard(d[a]) if a in d else Replicate() for a in axes],
             [Shard(d[a]) if a in d else
              Partial() if a is not None else Replicate() for a in axes]))
-    outs = fn(*local)
+    blocks = {}
+    for a in set(axes) - {None}:
+        dims = [i for i, b in enumerate(axes) if b == a]
+        blocks[a] = (_block_index(dmesh, dims),
+                     math.prod(dmesh.size(i) for i in dims))
+    stack = _regions.__dict__.setdefault("stack", [])
+    stack.append(blocks)
+    try:
+        outs = fn(*local)
+    finally:
+        stack.pop()
     single = not isinstance(outs, tuple)
     wrapped = []
     for y, d in zip((outs,) if single else outs, out_dims):
         if y is None or d is None:
             wrapped.append(y)
             continue
-        placements = []
-        for a in axes:
+        placements, share = [], 1
+        for a, n in zip(axes, dmesh.shape):
             v = d.get(a) if a is not None else None
+            share *= n if v == "avg" else 1
             placements.append(Shard(v) if isinstance(v, int) else
-                              Partial(v) if v else Replicate())
-        wrapped.append(DTensor.from_local(y, dmesh, placements,
+                              Partial() if v else Replicate())
+        # a mean as a sum of shares: DTensor hands a pending mean's
+        # local term the whole gradient, not its share
+        wrapped.append(DTensor.from_local(y / share if share > 1 else y,
+                                          dmesh, placements,
                                           run_check=False))
     return wrapped[0] if single else tuple(wrapped)
 
@@ -327,10 +487,11 @@ def attention_on_chips(fn, q, k, v, *rest):
     DTensors run on each chip's block, as XLA partitions attention over
     batch and heads: the batch stays on its shards (q's or the keys', the
     larger's layout kept), the heads on the keys' shards with q's alike,
-    or, where the kv heads do not split, as many kv heads as the chip's
-    query groups use cut from their replicas (count only: the first
-    ones, not the chip's own; their gradient then a partial sum); any
-    other placement is gathered first.  ``rest`` is replicated."""
+    or, where the kv heads do not split, the kv heads of the chip's query
+    groups cut from their replicas by its coordinate on the mesh dims
+    that split q's heads (a local cut; their gradient then a partial
+    sum); any other placement is gathered first.  ``rest`` is
+    replicated."""
     if not is_dtensor(q):
         return fn(q, k, v, *rest)
     dmesh = q.device_mesh
@@ -361,15 +522,21 @@ def attention_on_chips(fn, q, k, v, *rest):
         kv_ways *= size if pk.is_shard(2) else 1
     h_loc, G = H // heads, H // K
     k_loc = K // kv_ways
+    first = 0
     if kv_ways != heads:           # cut the kv heads the chip's groups use
-        if h_loc % G and G % h_loc:
+        q_dims = [i for i, p in enumerate(qp) if p.is_shard(2)]
+        kv_dims = [i for i, p in enumerate(kp) if p.is_shard(2)]
+        first = (_block_index(dmesh, q_dims) * h_loc // G
+                 - _block_index(dmesh, kv_dims) * k_loc)
+        used = max(h_loc // G, 1)
+        if (h_loc % G and G % h_loc) or not 0 <= first <= k_loc - used:
             return attention_on_chips(fn, q.redistribute(dmesh, [
                 Replicate() if p.is_shard(2) else p for p in q.placements]),
                 k, v, *rest)
-        _count_only("the kv heads of a chip's query groups", q, k, v)
-        k_loc = max(h_loc // G, 1)
+        k_loc = used
     whole = [Replicate()] * dmesh.ndim
-    kl, vl = (_local(t, kp, kgrad)[:, :, :k_loc] for t in (k, v))
+    kl, vl = (_local(t, kp, kgrad)[:, :, first:first + k_loc]
+              for t in (k, v))
     rest = [_local(r, whole) if is_dtensor(r) else r for r in rest]
     return DTensor.from_local(fn(_local(q, qp), kl, vl, *rest), dmesh, qp,
                               run_check=False)
@@ -404,6 +571,19 @@ def slstm_region(recurrence, params, xconv, state, runtime):
     return rows_of(hs), {k: rows_of(v) for k, v in core.items()}
 
 
+def row_counts(count, x):
+    """(``count`` of ``x``'s rows, the number of rows): ``count`` maps
+    rows (T, d) to exact per-channel counts (d,).  On a DTensor each chip
+    counts its block, and the counts are summed over the chips of the
+    rows (one all-reduce) and gathered on every chip."""
+    counts = on_chips(lambda t: count(t.reshape(-1, t.shape[-1])), (x,),
+                      ({"rows": 0, "chan": x.dim() - 1},),
+                      ({"rows": "sum", "chan": 0},))
+    if is_dtensor(counts):
+        counts = counts.full_tensor()
+    return counts, x.numel() // x.shape[-1]
+
+
 # -- the experts --------------------------------------------------------------
 
 
@@ -413,15 +593,18 @@ def expert_layout(x, n_groups: int):
     its own whole groups; or one group's tokens over all of them, its
     routing gathered and its experts' inputs summed (XLA's plan; then
     ``spread`` is (gather, reduce), :func:`_spread_over`); or, else,
-    every group on every chip, the tokens gathered.  A plain ``x``: each
-    its own groups, no spread."""
-    rows, means = {"batch": 0}, {"batch": "avg"}
+    every group on every chip, the tokens gathered.  The router means
+    are the same on every chip of the experts' mesh dims, each chip's
+    computed from the whole routing: they are averaged there, so their
+    gradient into the router, whose own gradient sums over those dims, is
+    counted once.  A plain ``x``: each its own groups, no spread."""
+    rows = {"batch": 0}
     ways = _ways(x, 0)
     if ways > 1 and n_groups % ways:
         if n_groups == 1:
-            return rows, {}, _spread_over(x)
-        return {}, {}, None
-    return rows, means, None
+            return rows, {"expert": "avg"}, _spread_over(x)
+        return {}, {"expert": "avg"}, None
+    return rows, {"batch": "avg", "expert": "avg"}, None
 
 
 def _spread_over(x):
@@ -445,16 +628,17 @@ def _spread_over(x):
 
 def chips_share(dispatch, gates, experts: int, tokens=None):
     """A chip's share of a group's routing ``dispatch`` (G, S_g, E, C)
-    and ``gates``: as many experts as the chip holds and, with
-    ``tokens``, as many of a spread group's tokens as it holds.  The
-    first ones, not the chip's own: the shapes and work, not the values
-    (count only)."""
-    _count_only("a chip's share of the experts", dispatch, gates)
+    and ``gates``: the ``experts`` experts it holds and, with ``tokens``,
+    the ``tokens`` tokens of a spread group it holds, each by the chip's
+    block of the ``"expert"`` and ``"batch"`` axes in its
+    :func:`on_chips` region."""
     held, g = dispatch, gates
     if experts < dispatch.shape[2]:
-        held, g = held[:, :, :experts], g[:, :, :experts]
+        e = region_block("expert")[0] * experts
+        held, g = held[:, :, e:e + experts], g[:, :, e:e + experts]
     if tokens is not None:
-        held, g = held[:, :tokens], g[:, :tokens]
+        t = region_block("batch")[0] * tokens
+        held, g = held[:, t:t + tokens], g[:, t:t + tokens]
     return held, g
 
 
@@ -469,20 +653,26 @@ def seq_sharded(t) -> bool:
 
 def write_slot(cache, pos: int, new) -> None:
     """``cache[:, pos] = new`` in place (cast to the cache's type).  On a
-    DTensor cache whose sequence is sharded, each chip writes slot ``pos``
-    modulo its block, ``new`` cut to the cache's other shards: one slot's
-    write on every chip, as XLA's dynamic-update-slice on a sharded dim
-    (count only: a plain index would gather the whole cache)."""
+    DTensor cache whose sequence is sharded, ``new`` is cut to the
+    cache's other shards on every chip, and only the chip whose sequence
+    block holds ``pos`` writes it, at ``pos`` less its block's first
+    slot; the others leave their block alone."""
     if not seq_sharded(cache):
         cache[:, pos] = new.to(cache.dtype)
         return
-    _count_only("a write into a sequence-sharded cache", cache, new)
     placements = [Replicate() if p.is_shard(1) else
                   Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else p
                   for p in cache.placements]
+    block = new.redistribute(cache.device_mesh,
+                             placements).to_local().to(cache.dtype)
     local = cache.to_local()
-    local[:, pos % local.shape[1]] = new.redistribute(
-        cache.device_mesh, placements).to_local().to(cache.dtype)
+    dims = _sharding_dims(cache, 1)
+    if cache.shape[1] % _ways(cache, 1):
+        raise ValueError(f"a cache of {cache.shape[1]} slots does not split "
+                         f"{_ways(cache, 1)} ways")
+    start = _block_index(cache.device_mesh, dims) * local.shape[1]
+    if start <= pos < start + local.shape[1]:
+        local[:, pos - start] = block
 
 
 def gathered_where_keys_split(q, keys):
@@ -607,23 +797,63 @@ def gradient_placed(grad, param):
 
 
 def microbatches(leaf, axis: int, n: int):
-    """``leaf.chunk(n, dim=axis)``; a DTensor sharded on ``axis`` is cut
-    chip by chip: microbatch ``i`` holds each chip's ``i``-th slice of its
-    rows, so each chip's block has the shape the reference's
-    ``reshape(n, B / n, ...)`` gives it and no rows move (chunking the
-    global axis would all-gather it).  Those are not the reference's rows
-    (count only)."""
+    """``leaf.chunk(n, dim=axis)``: microbatch ``i`` holds the rows
+    ``[i B/n, (i+1) B/n)``, the reference's ``reshape(n, B/n, ...)``.  A
+    DTensor sharded on ``axis`` over ``w`` chips gives microbatches
+    sharded alike where ``w`` divides B/n, else replicated on those mesh
+    dims; each chip's rows for them come from the chips that hold them,
+    in one all-to-all (chunking the global axis would all-gather it)."""
     if not (is_dtensor(leaf)
             and any(p.is_shard(axis) for p in leaf.placements)):
         return leaf.chunk(n, dim=axis)
-    _count_only("chip-major microbatches", leaf)
-    local = leaf.to_local()
-    if local.shape[axis] % n:
-        raise ValueError(f"a chip's {local.shape[axis]} rows do not "
-                         f"split into {n} microbatches")
-    return [DTensor.from_local(piece, leaf.device_mesh, leaf.placements,
-                               run_check=False)
-            for piece in local.chunk(n, dim=axis)]
+    mesh = leaf.device_mesh
+    dims = _sharding_dims(leaf, axis)
+    ways = _ways(leaf, axis)
+    B = leaf.shape[axis]
+    if B % n or B % ways:
+        raise ValueError(f"{B} rows do not split into {n} microbatches "
+                         f"over {ways} chips")
+    split = (B // n) % ways == 0
+    me = _block_index(mesh, dims)
+    own = B // ways
+    local = leaf.to_local().movedim(axis, 0)
+
+    def wants(chip, i):
+        """The global rows chip ``chip`` holds of microbatch ``i``."""
+        m = B // n
+        if not split:
+            return i * m, (i + 1) * m
+        return i * m + chip * m // ways, i * m + (chip + 1) * m // ways
+
+    def spans(chip, i):
+        """(owner, first row, rows) of chip ``chip``'s rows of microbatch
+        ``i``, by the chips that hold them, in row order."""
+        a, b = wants(chip, i)
+        return [(o, max(a, o * own), min(b, (o + 1) * own) - max(a, o * own))
+                for o in range(a // own, -(-b // own))]
+
+    # a replicated microbatch's gradient is whole on every chip: each
+    # chip's rows take their own copy's, not the sum of the copies'
+    pieces = [(chip, (chip, i, r0),
+               local[r0 - me * own:r0 - me * own + rows]
+               if split or chip == me else
+               local[r0 - me * own:r0 - me * own + rows].detach())
+              for chip in range(ways) for i in range(n)
+              for o, r0, rows in spans(chip, i) if o == me]
+    wanted = [(o, (me, i, r0), rows)
+              for i in range(n) for o, r0, rows in spans(me, i)]
+    got = _exchange(pieces, wanted, me, ways, _group_name(mesh, dims),
+                    permute=False)
+    placements = list(leaf.placements) if split else [
+        Replicate() if p.is_shard(axis) else p for p in leaf.placements]
+    out, k = [], 0
+    for i in range(n):
+        count = len(spans(me, i))
+        block = torch.cat(got[k:k + count]).movedim(0, axis)
+        k += count
+        out.append(DTensor.from_local(block, mesh, placements,
+                                      run_check=False))
+    return out
 
 
 def shardwise(fn, g, m, v, p):

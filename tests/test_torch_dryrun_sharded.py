@@ -11,11 +11,15 @@ leaves (no collective), and the folded step loops (equal to the loops run
 step by step: FLOPs, bytes, operations and collectives).  Every leaf the
 dry run places holds the block the sharding rules give it.
 
-The count-only sites of ``sharding.dtensor`` refuse a DTensor that holds
-values, and a count over tensors that hold values runs the step loops
-unfolded; the DTensor paths' own arithmetic (the softmax across key
-shards, the vocab-blocked cross-entropy and argmax) equals the plain
-paths' on plain tensors.
+The sites of ``sharding.dtensor`` that place a block by the chip's
+coordinate (a fused projection's halves, the kv heads of a chip's query
+groups, a chip's experts and tokens, a sequence-sharded cache's slot,
+the microbatches) give every chip its own block on a (4, 2) mesh of
+threads whose collectives move data (``launch.mesh.run_on_chips``), and
+a count over tensors that hold values runs the step loops unfolded; the
+DTensor paths' own arithmetic (the softmax across key shards, the
+vocab-blocked cross-entropy and argmax) equals the plain paths' on plain
+tensors.
 
 Then the five reduced cases of ``tests/test_dryrun_small.py`` (and
 xlstm-125m) against the reference's ``analyze_hlo`` of the same step
@@ -50,7 +54,7 @@ from repro_torch.configs.base import InputShape, Stage  # noqa: E402
 from repro_torch.launch import cost_analysis, dryrun  # noqa: E402
 from repro_torch.launch.cost_analysis import CostCount  # noqa: E402
 from repro_torch.launch.mesh import (dtensor_mesh, make_host_mesh,  # noqa: E402
-                                     make_production_mesh)
+                                     make_production_mesh, run_on_chips)
 from repro_torch.models import attention, xlstm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.optim.optimizers import adamw, apply_updates  # noqa: E402
@@ -102,9 +106,8 @@ print(json.dumps(out))
 
 # The collective kinds the port's plan has and the reference's has not
 # (extra) or the other way round (missing), by case; every other kind is
-# in both or in neither.  XLA splits a fused projection's output
-# (``split``) with a collective-permute and concatenates the halves'
-# gradients with an all-to-all; the port's halves move nothing
+# in both or in neither.  A fused projection's halves move as XLA moves
+# them, a collective-permute forward and an all-to-all backward
 # (``sharding.dtensor.halves``).  Where XLA all-reduces a partial sum,
 # DTensor reduce-scatters some onto a sharded dim: Mamba's dt projection
 # onto its channels (``summed_onto_features``), FSDP gradients onto their
@@ -114,9 +117,8 @@ print(json.dumps(out))
 # gathers (whisper's all-gather).
 KIND_DIFFERENCES = {
     "internlm2-1.8b": (set(), set()),
-    "jamba-v0.1-52b": ({"reduce-scatter"},
-                       {"collective-permute", "all-to-all"}),
-    "xlstm-125m": ({"reduce-scatter"}, {"collective-permute"}),
+    "jamba-v0.1-52b": ({"reduce-scatter"}, set()),
+    "xlstm-125m": ({"reduce-scatter"}, set()),
     "deepseek-v2-236b": ({"reduce-scatter"}, set()),
     "whisper-medium": ({"all-gather", "reduce-scatter"}, set()),
 }
@@ -271,8 +273,10 @@ def test_column_then_row_parallel_mlp_hand_count():
 
 def test_data_parallel_step_all_reduces_the_gradient_bytes():
     """``small_model_plan`` on the (4, 2) mesh: the batch over both axes,
-    no tensor parallelism, no FSDP; the step's one collective is each
-    float32 gradient's all-reduce over all eight chips."""
+    no tensor parallelism, no FSDP; the step's collectives are each
+    float32 gradient's all-reduce over all eight chips and the Eq. 3
+    signature's, its d_model float32 per-channel counts summed over the
+    chips once."""
     cfg = _cfg("internlm2-1.8b")
     plan = small_model_plan(("data",), "model", cfg.param_count())
     assert not plan.enable_tp and not plan.enable_fsdp
@@ -280,7 +284,7 @@ def test_data_parallel_step_all_reduces_the_gradient_bytes():
         grad_bytes = sum(4 * leaf.numel() for _, leaf in leaves_with_path(
             tfm.init_params(torch.Generator(), cfg)))
     cost = _sharded_count(cfg, "train", 8, 64, plan)
-    assert dict(cost.colls) == {"all-reduce": grad_bytes}
+    assert dict(cost.colls) == {"all-reduce": grad_bytes + 4 * cfg.d_model}
 
 
 @pytest.mark.parametrize("seq", [8, 16])
@@ -377,38 +381,153 @@ def test_folded_loops_count_as_unfolded(monkeypatch, record_property, arch,
     assert folded.peak_bytes > 0
 
 
-# -- count only, and the DTensor paths' arithmetic ----------------------------
+# -- each chip's own block, and the DTensor paths' arithmetic -----------------
 
 
-def _real(shape, dmesh, placements):
-    return distribute_tensor(torch.randn(shape), dmesh, placements,
-                             src_data_rank=None)
+def _cut(t, dmesh, placements):
+    """The block of the plain tensor ``t`` this chip holds at
+    ``placements``."""
+    return distribute_tensor(t, dmesh, placements,
+                             src_data_rank=None).to_local()
 
 
-_COUNT_ONLY = {
-    "halves": lambda dm: dtensor.halves(
-        _real((2, 4, 16), dm, [Replicate(), Shard(2)])),
-    "kv_heads": lambda dm: dtensor.attention_on_chips(
-        lambda q, k, v: q, _real((2, 3, 4, 8), dm, [Replicate(), Shard(2)]),
-        _real((2, 3, 1, 8), dm, [Replicate(), Replicate()]),
-        _real((2, 3, 1, 8), dm, [Replicate(), Replicate()])),
-    "experts": lambda dm: dtensor.chips_share(
-        torch.zeros(1, 8, 4, 2), torch.zeros(1, 8, 4), 2),
-    "cache_slot": lambda dm: dtensor.write_slot(
-        _real((8, 16, 2, 8), dm, [Shard(0), Shard(1)]), 9,
-        _real((8, 2, 8), dm, [Shard(0), Replicate()])),
-    "microbatches": lambda dm: dtensor.microbatches(
-        _real((8, 4), dm, [Shard(0), Replicate()]), 0, 2),
-}
+def _leaf(t, dmesh, placements):
+    """The plain ``t`` placed as a DTensor leaf that takes a gradient."""
+    return distribute_tensor(t.detach().clone(), dmesh, placements,
+                             src_data_rank=None).requires_grad_()
 
 
-@pytest.mark.parametrize("site", sorted(_COUNT_ONLY))
-def test_count_only_sites_refuse_values(site):
-    """A DTensor that holds values (no ``FakeTensorMode``) is refused
-    where a chip's block has the count's shapes but not its values."""
-    with dtensor_mesh(_host_mesh()) as dmesh:
-        with pytest.raises(NotImplementedError):
-            _COUNT_ONLY[site](dmesh)
+def _halves(dm):
+    """A fused projection's output (8, 3, 16), rows over data and
+    features over model: each half's block and the input's gradient."""
+    g = torch.Generator().manual_seed(0)
+    t, wa, wb = (torch.randn(8, 3, 16, generator=g) for _ in range(3))
+    wa, wb = wa[..., :8], wb[..., :8]
+    place = [Shard(0), Shard(2)]
+    plain = t.clone().requires_grad_()
+    a, b = plain.chunk(2, dim=-1)
+    ((a * wa).sum() + (b * wb).sum()).backward()
+    leaf = _leaf(t, dm, place)
+    got = dtensor.halves(leaf)
+    for h, want in zip(got, (a, b)):
+        assert h.placements == tuple(place)
+        assert torch.equal(h.to_local(), _cut(want.detach(), dm, place))
+    (got[0] * distribute_tensor(wa, dm, place, src_data_rank=None)
+     + got[1] * distribute_tensor(wb, dm, place, src_data_rank=None)
+     ).sum().backward()
+    assert torch.equal(leaf.grad.to_local(), _cut(plain.grad, dm, place))
+
+
+def _gqa(q, k, v):
+    G = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+
+
+def _kv_heads(dm):
+    """Four query heads over model in two groups, the two kv heads
+    replicated: each chip attends with its own groups' kv head."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(4, 5, 4, 8, generator=g)
+    k, v = (torch.randn(4, 5, 2, 8, generator=g) for _ in range(2))
+    heads, rows = [Shard(0), Shard(2)], [Shard(0), Replicate()]
+    kp, vp = (t.clone().requires_grad_() for t in (k, v))
+    want = _gqa(q, kp, vp)
+    want.square().sum().backward()
+    kl, vl = _leaf(k, dm, rows), _leaf(v, dm, rows)
+    got = dtensor.attention_on_chips(
+        _gqa, distribute_tensor(q, dm, heads, src_data_rank=None), kl, vl)
+    assert got.placements == tuple(heads)
+    assert torch.allclose(got.to_local(), _cut(want.detach(), dm, heads),
+                          atol=1e-6)
+    got.square().sum().backward()
+    for leaf, plain in ((kl, kp), (vl, vp)):
+        assert torch.allclose(leaf.grad.full_tensor(), plain.grad, atol=1e-5)
+
+
+def _experts(dm):
+    """One group of 8 tokens spread over data, 4 experts over model: each
+    chip's share of the routing is its tokens' rows and its experts'."""
+    g = torch.Generator().manual_seed(2)
+    dispatch = torch.rand(1, 8, 4, 2, generator=g)
+    gates = torch.rand(1, 8, 4, generator=g)
+    x = distribute_tensor(torch.randn(4, 2, 3, generator=g), dm,
+                          [Shard(0), Replicate()], src_data_rank=None)
+    we = distribute_tensor(torch.randn(4, 3, generator=g), dm,
+                           [Replicate(), Shard(0)], src_data_rank=None)
+
+    def share(x, we):
+        return dtensor.chips_share(dispatch, gates, we.shape[0],
+                                   x.shape[0] * x.shape[1])
+
+    held, gh = dtensor.on_chips(share, (x, we),
+                                ({"batch": 0}, {"expert": 0}),
+                                ({"batch": 1, "expert": 2},
+                                 {"batch": 1, "expert": 2}))
+    place = [Shard(1), Shard(2)]
+    assert torch.equal(held.to_local(), _cut(dispatch, dm, place))
+    assert torch.equal(gh.to_local(), _cut(gates, dm, place))
+
+
+def _cache_slot(dm):
+    """A cache (2, 16, 2, 8), sequence over data and kv heads over model:
+    slot 9 is written by the chip whose block holds it, at 9 less its
+    first slot; the other blocks stay as they were."""
+    g = torch.Generator().manual_seed(3)
+    cache = torch.randn(2, 16, 2, 8, generator=g)
+    new = torch.randn(2, 2, 8, generator=g)
+    place = [Shard(1), Shard(2)]
+    sharded = distribute_tensor(cache.clone(), dm, place, src_data_rank=None)
+    dtensor.write_slot(sharded, 9, distribute_tensor(
+        new, dm, [Replicate(), Shard(1)], src_data_rank=None))
+    want = cache.clone()
+    want[:, 9] = new
+    assert torch.equal(sharded.to_local(), _cut(want, dm, place))
+
+
+def _microbatches(dm):
+    """Rows over data cut into microbatches: each holds the reference's
+    rows ``[i B/n, (i+1) B/n)``, sharded where the chips divide them and
+    replicated where they do not; M-RoPE positions on axis 1; and the
+    rows' gradient."""
+    g = torch.Generator().manual_seed(4)
+    for n, shape, axis in ((2, (8, 3), 0), (4, (8, 3), 0),
+                           (4, (3, 8, 5), 1)):
+        t = torch.randn(shape, generator=g)
+        ws = torch.randn(shape, generator=g).chunk(n, dim=axis)
+        place = [Shard(axis), Replicate()]
+        plain = t.clone().requires_grad_()
+        sum((p * w).sum() for p, w in zip(plain.chunk(n, dim=axis), ws)
+            ).backward()
+        leaf = _leaf(t, dm, place)
+        got = dtensor.microbatches(leaf, axis, n)
+        split = (shape[axis] // n) % 4 == 0
+        for mb, want in zip(got, t.chunk(n, dim=axis)):
+            assert mb.placements == tuple(place if split else [
+                Replicate(), Replicate()])
+            assert torch.equal(mb.full_tensor(), want)
+            assert torch.equal(mb.to_local(), _cut(want, dm, mb.placements))
+        sum((mb * distribute_tensor(w, dm, mb.placements,
+                                    src_data_rank=None)).sum()
+            for mb, w in zip(got, ws)).backward()
+        assert torch.allclose(leaf.grad.full_tensor(), plain.grad)
+
+
+_SITES = {"halves": _halves, "kv_heads": _kv_heads, "experts": _experts,
+          "cache_slot": _cache_slot, "microbatches": _microbatches}
+
+
+@pytest.mark.parametrize("site", sorted(_SITES))
+def test_site_gives_each_chip_its_own_block(site):
+    """Each site of ``sharding.dtensor`` that places a block by the
+    chip's coordinate, on a (4, 2) mesh of threads whose collectives
+    move data: every rank's block is the same cut of the unsharded
+    operation, and for the halves and the microbatches so is the
+    gradient."""
+    mesh = make_host_mesh(4, 2, devices=[torch.device("cpu")] * 8)
+    with torch.random.fork_rng():
+        run_on_chips(_SITES[site], mesh)
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
