@@ -5,6 +5,8 @@ of a checkout:
 
     python3 chip_probes.py memory   # the train legs past their sizes
     python3 chip_probes.py remat    # train_local with remat on and off
+    python3 chip_probes.py store    # a host-resting model store's copies
+    python3 chip_probes.py host     # host memory as a store fills, empties
 
 ``memory`` builds the kernels and runs ``chip_smoke.moe_train_leg`` (10
 AdamW steps of ``launch.train.train_single``, with every gate of the leg)
@@ -16,6 +18,27 @@ gate it failed, or that it ran out of memory.
 LM, hybrid and xLSTM paths' configs (xlstm-125m whole and as the loop's
 one period), with the default runtime's ``remat`` set on and off in
 turns after one warm-up of each: ms a step and peak by setting.
+
+``store`` reads the host's memory (``/proc/meminfo``), then copies
+Jamba's MoE cut (``chip_smoke.hybrid_moe_config``, 14.72 GB in float32)
+from the card to host memory and back, tree by tree, in turns: by
+``Tensor.to`` (pageable memory, the driver's own staging), by
+``core.dag.PinnedStaging`` (two pinned buffers of 128 MiB, of 32 MiB,
+its default, and of 8 MiB), and through a pinned copy of the host tree (the time to pin it
+reported apart); each way's seconds and GB/s.  Then the peak of one
+``LMBackend.train_local`` call (2 SGD steps) from a model fetched from
+host memory, with the caller holding the aggregate and with the
+aggregate passed as a temporary that the call frees once it has its
+clone, at 8 x 512 and 4 x 512 for Jamba's cut and at 8 x 512 for
+gemma2-2b whole (no kernel runs in training, so nothing is built).
+
+``host`` puts Jamba's MoE cut into a ``core.dag.ModelStore("cpu")`` five
+times (73.6 GB of host memory, as ``dag_moe``'s store holds), reading
+each put's seconds and the host's MemAvailable after it, then fetches
+each model back to the card (seconds), empties the store and reads
+MemAvailable at once, after ``gc.collect()``, after glibc's
+``malloc_trim(0)`` and 2, 10 and 30 s later: whether the memory of one
+leg's store comes back before the next leg.
 
 Each measurement prints one JSON line; the card's name and power limit
 come first.
@@ -126,17 +149,170 @@ def remat_probe(dev) -> None:
         tfm.loss_fn.__defaults__ = default
 
 
+def store_probe(dev) -> None:
+    import torch
+    from repro_torch.core.aggregate import (tree_leaves, tree_map,
+                                            tree_size_bytes)
+    from repro_torch.core.dag import PinnedStaging
+    from repro_torch.fl.backend import LMBackend
+
+    cs.emit(probe="store", host=cs.meminfo(), threads=torch.get_num_threads())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def pinned_copy(host):
+        """The host tree pinned (timed apart), then copied to the card."""
+        pinned, pin_s = timed(lambda: tree_map(
+            lambda t: t.pin_memory(), host))
+        back, s = timed(lambda: tree_map(
+            lambda t: t.to(dev, non_blocking=True), pinned))
+        return back, s, pin_s
+
+    backend = LMBackend(cs.hybrid_moe_config(), lr=3e-3, local_steps=2,
+                        batch_size=8, seq_len=512)
+    model = backend.init(torch.Generator(device=dev).manual_seed(0))
+    size = tree_size_bytes(model)
+    ways = {"to": lambda t, d: t.to(d),
+            "staged_128MiB": PinnedStaging(1 << 27).copy,
+            "staged_32MiB": PinnedStaging(1 << 25).copy,
+            "staged_8MiB": PinnedStaging(1 << 23).copy}
+    order = ["to", "staged_128MiB", "staged_32MiB", "staged_8MiB", "pinned",
+             "pinned", "staged_8MiB", "staged_32MiB", "staged_128MiB", "to"]
+    cpu = torch.device("cpu")
+    for way in order:
+        copy = ways.get(way, ways["to"])
+        host, down_s = timed(lambda: tree_map(lambda t: copy(t, cpu), model))
+        record = {"probe": "store_copy", "way": way, "bytes": size,
+                  "to_host_s": down_s, "to_host_gb_s": size / down_s / 1e9}
+        if way == "pinned":
+            back, up_s, record["pin_s"] = pinned_copy(host)
+        else:
+            back, up_s = timed(lambda: tree_map(lambda t: copy(t, dev),
+                                                host))
+        record.update(to_card_s=up_s, to_card_gb_s=size / up_s / 1e9,
+                      equal=all(torch.equal(a, b) for a, b in zip(
+                          tree_leaves(model), tree_leaves(back))),
+                      rss_peak_bytes=cs.host_peak_bytes())
+        del host, back
+        gc.collect()
+        cs.emit(**record)
+    host = tree_map(lambda t: t.to(cpu), model)
+    del model
+    streams, _ = cs.lm_streams(1)
+
+    def train_peak(backend, host, held: bool):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        t0 = time.perf_counter()
+        if held:
+            agg = tree_map(lambda t: t.to(dev), host)
+            trained, _ = backend.train_local(agg, streams[0], seed=1)
+            del agg
+        else:
+            trained, _ = backend.train_local(
+                tree_map(lambda t: t.to(dev), host), streams[0], seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del trained
+        return {"peak_bytes": torch.cuda.max_memory_allocated(),
+                "alloc_retries": torch.cuda.memory_stats().get(
+                    "num_alloc_retries", 0) - retries, "wall_s": wall}
+
+    runs = [("jamba_moe", backend, 8, True), ("jamba_moe", backend, 8, False),
+            ("jamba_moe", backend, 4, False)]
+    for name, backend, batch, held in runs:
+        backend.batch_size = batch
+        try:
+            record = train_peak(backend, host, held)
+        except torch.cuda.OutOfMemoryError:
+            record = {"failed": "out of memory",
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        cs.emit(probe="store_train", config=name, batch=batch, seq_len=512,
+                aggregate_held=held, model_bytes=size,
+                card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                **record)
+    del host
+    gc.collect()
+    backend = LMBackend(cs.gemma2_config(), lr=3e-3, local_steps=2,
+                        batch_size=8, seq_len=512)
+    model = backend.init(torch.Generator(device=dev).manual_seed(0))
+    host = tree_map(lambda t: t.to(cpu), model)
+    size = tree_size_bytes(model)
+    del model
+    for held in (True, False):
+        try:
+            record = train_peak(backend, host, held)
+        except torch.cuda.OutOfMemoryError:
+            record = {"failed": "out of memory",
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        cs.emit(probe="store_train", config="gemma2", batch=8, seq_len=512,
+                aggregate_held=held, model_bytes=size,
+                card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                **record)
+
+
+def host_probe(dev) -> None:
+    import ctypes
+
+    import torch
+    from repro_torch.core.aggregate import tree_size_bytes
+    from repro_torch.core.dag import ModelStore
+    from repro_torch.fl.backend import LMBackend
+
+    backend = LMBackend(cs.hybrid_moe_config(), local_steps=2, batch_size=8,
+                        seq_len=512)
+    model = backend.init(torch.Generator(device=dev).manual_seed(0))
+    size = tree_size_bytes(model)
+    store = ModelStore("cpu")
+    cs.emit(probe="host", step="start", bytes=size, host=cs.meminfo())
+    for i in range(5):
+        before = store.readings()["in_s"]
+        store.put(f"m{i}", model)
+        cs.emit(probe="host", step=f"put {i}", bytes=size,
+                seconds=store.readings()["in_s"] - before,
+                host=cs.meminfo())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i in range(5):
+        before = store.readings()["out_s"]
+        fetched = store.get(f"m{i}", dev)
+        del fetched
+        cs.emit(probe="host", step=f"get {i}", bytes=size,
+                seconds=store.readings()["out_s"] - before)
+    del store
+    cs.emit(probe="host", step="freed", host=cs.meminfo())
+    gc.collect()
+    cs.emit(probe="host", step="gc", host=cs.meminfo())
+    trimmed = ctypes.CDLL("libc.so.6").malloc_trim(0)
+    cs.emit(probe="host", step="malloc_trim", returned=trimmed,
+            host=cs.meminfo())
+    for wait in (2, 8, 20):
+        time.sleep(wait)
+        cs.emit(probe="host", step=f"after {wait} s more", host=cs.meminfo())
+
+
 def main(argv) -> None:
     import torch
-    if len(argv) != 1 or argv[0] not in ("memory", "remat"):
-        raise SystemExit("usage: chip_probes.py memory|remat")
+    if len(argv) != 1 or argv[0] not in ("memory", "remat", "store",
+                                         "host"):
+        raise SystemExit("usage: chip_probes.py memory|remat|store|host")
     if not torch.cuda.is_available():
         raise SystemExit("chip_probes: CUDA is not available")
     from repro_torch import runtime
     from repro_torch.kernels import build
     dev = runtime.resolve_device("cuda")
     print(cs.phase_environment(build), flush=True)
-    {"memory": memory_probe, "remat": remat_probe}[argv[0]](dev)
+    {"memory": memory_probe, "remat": remat_probe, "store": store_probe,
+     "host": host_probe}[argv[0]](dev)
 
 
 if __name__ == "__main__":

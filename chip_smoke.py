@@ -256,14 +256,40 @@ Phases, each printing one JSON line:
    x (512 + 64); ``qwen2_train``, 10 AdamW steps at 8 x 512 on its
    deepest cut of whole layers that leaves 5 GB free and runs without an
    allocator retry (``qwen2_train_config``).
-20. the dry run's sharded count (``dryrun_path``), in a subprocess on the
+20. the DAG-AFL loop over the large configs with the model store in
+   host memory (``dag_large_path``): ``phase_lm_loop``'s world (the
+   sub-vocabulary's streams, ``LMBackend``, SGD with momentum, 2 rounds of
+   2 local steps at 512 positions) through ``DagAflCoordinator(...,
+   store_device="cpu")``, random weights from seed 0, parameters counted
+   leaf by leaf, each run with the launch counts set to 0 just before and
+   read just after: ``dag_moe``, Jamba's MoE cut (``hybrid_moe_config``,
+   3,678,941,184 parameters) on the first of 3 or 2 clients whose store
+   (the genesis and 2 models a client) the host's MemAvailable holds with
+   DAG_HOST_HEADROOM to spare (waiting while the host takes back the
+   memory of a freed store); ``store_parity``, the LM path's world
+   (internlm2's 4-layer cut, 4 clients, batch 8) with the store on the
+   card and in host memory: the same tx ids, Eq. 7 hashes, tips,
+   accuracies, signatures, ``chain_len`` and bytes read, and the final
+   ``global_model()`` bit for bit; ``dag_gemma2``, gemma2-2b whole, as
+   ``dag_moe``.  The large legs run at the largest of 8, 4 and 2 x 512
+   whose ``train_local`` from a host model leaves 5 GB of the card free
+   without an allocator retry (``dag_batch``).  Gates of every run: ``chain_len == 1 + rounds``, the DAG
+   verified, every stored leaf on the store's device, flash once an
+   attention layer an eval or signature forward (all sm90, counted by
+   window), the scan once a Mamba layer a forward, one signature launch a
+   signature call (all vec), no plain call, the peak leaving 5 GB of the
+   card free, no allocator retry.  Readings: ``s_per_round``, seconds by
+   backend call, the store's copy bytes and seconds each way and its peak
+   resting bytes, the card's peak, the process's peak resident bytes, the
+   accuracies.
+21. the dry run's sharded count (``dryrun_path``), in a subprocess on the
    card's host (its torch may not be the tests'; the fake process group
    is a ``torch.testing._internal`` module): ``launch.dryrun.build_step``
    on DTensors over a fake (4, 2) mesh for the five reduced cases of
    DRYRUN_CASES, each counted once: per-chip FLOPs, collective bytes by
    kind and peak bytes printed; every count positive, collectives in
    every case, no process group left initialised.
-21. the sharded step with values (``sharded_path``): ``launch.dryrun.
+22. the sharded step with values (``sharded_path``): ``launch.dryrun.
    build_step`` given the weights and inputs, on a (4, 2) ("data",
    "model") DTensor mesh over ``[cuda:0] * 8``, one thread a chip and
    collectives that move data (``launch.mesh.run_on_chips``), the
@@ -358,6 +384,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # the reference's
 # against the running rather than the final row max (2e-3 absolute)
 FLASH_TC_TOL = {"atol": 2e-3, "rtol": 2 ** -7}
 LM_DATA_VOCAB = 2048
+LM_PARAMS = 630_736_896              # internlm2-1.8b, 4 layers
 # the hybrid path: jamba-v0.1-52b at full width, batch 8 of 512 positions
 SCAN_MAIN = (8, 512, 8192, 16)       # B, S, d_in, N
 # tests/test_kernels.py SCAN_CASES (B, S, d_in, N), one with d_in % 4 != 0
@@ -487,6 +514,21 @@ def check_free(leg: str, peak: int) -> int:
     return total
 
 
+def meminfo() -> dict:
+    """The host's MemTotal and MemAvailable (``/proc/meminfo``), bytes."""
+    with open("/proc/meminfo") as f:
+        fields = dict(line.split(":", 1) for line in f)
+    return {key: int(fields[key].split()[0]) * 1024
+            for key in ("MemTotal", "MemAvailable")}
+
+
+def host_peak_bytes() -> int:
+    """This process's peak resident bytes so far (``ru_maxrss``; the card
+    machine's ``/proc/self/status`` has no VmHWM)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
@@ -563,7 +605,7 @@ def phase_environment(build) -> str:
     if importlib.util.find_spec("triton") is not None:
         import triton
         triton = triton.__version__
-    emit(phase="environment", python=sys.version.split()[0],
+    emit(phase="environment", python=sys.version.split()[0], host=meminfo(),
          torch=torch.__version__, torch_cuda=torch.version.cuda,
          triton=triton,
          nvcc=run([build._nvcc(), "--version"]).splitlines()[-1],
@@ -5365,6 +5407,358 @@ def phase_dense_configs_path(kern, dev) -> dict:
     return legs
 
 
+# the DAG-AFL loop over the large configs with the model store in host
+# memory (dag_large_path): 2 rounds of 2 local SGD steps, 512 positions
+DAG_LARGE_SEQ = 512
+# the batches tried, largest first: the first whose training step from a
+# model fetched out of host memory leaves MOE_FREE_BYTES_MIN of the card
+# free without an allocator retry.  A training client holds three float32
+# copies of the model (the clone it trains, its gradients, SGD's momentum:
+# 44.2 GB at Jamba's cut, 31.4 GB at gemma2's) beside the activations; the
+# aggregate it cloned is freed first (core.coordinator._dispatch_one)
+DAG_LARGE_BATCHES = (8, 4, 2)
+DAG_LARGE_CLIENTS = (3, 2)      # the first whose store the host can hold
+# the card machine's host returns a freed store's memory some seconds
+# later (73.6 GB: 30 % of it back 2 s after the free, 100 % after 30 s;
+# chip_probes.py host, call 4, PR 29): a leg waits up to this long for
+# the memory its store needs
+DAG_HOST_WAIT_S = 90.0
+DAG_PARITY_CLIENTS = 4          # store_parity: the LM path's world
+# host bytes kept free beside the store (the process's own 6.2 GB are
+# resident before the leg reads MemAvailable; call 3, PR 29)
+DAG_HOST_HEADROOM = 4e9
+
+
+def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
+                  store_device, genesis, expected_params: int) -> tuple:
+    """One sequential DAG-AFL run over ``clients`` ``LMBackend`` clients
+    (``phase_lm_loop``'s world: the sub-vocabulary's streams, SGD with
+    momentum, 2 rounds of 2 local steps at ``batch`` x 512) with the
+    published models resting on ``store_device``, from ``genesis`` (on the
+    card, or in host memory for a host store), with every kernel's launch
+    count set to 0 just before the run and read just after.  Gates: the
+    rounds, ``chain_len == 1 + rounds``, the DAG verified, flash once an
+    attention layer an eval or signature forward (all sm90, counted by
+    window), the scan once a Mamba layer a forward, one signature launch a
+    signature call (all vec), no plain call, every stored leaf on the
+    store's device, the peak leaving MOE_FREE_BYTES_MIN of the card free
+    and no allocator retry.  Returns (record, coordinator, result)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.aggregate import tree_leaves, tree_size_bytes
+    from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
+    from repro_torch.core.verify import verify_full_dag
+    from repro_torch.fl.backend import LMBackend
+
+    streams, global_test = lm_streams(clients)
+    client_data = [{"train": s, "val": s, "test": s} for s in streams]
+    backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
+                        seq_len=DAG_LARGE_SEQ)
+    check(backend.device.type == "cuda", f"{leg}: backend is not on the "
+          f"card")
+    n_params = sum(p.numel() for p in tree_leaves(genesis))
+    check(n_params == tree_param_count(cfg) == expected_params,
+          f"{leg}: {n_params} parameters, expected {expected_params}")
+    model_bytes = tree_size_bytes(genesis)
+    calls = dict.fromkeys(("train_local", "evaluate", "signature"), 0)
+    seconds = dict.fromkeys(calls, 0.0)
+    inner = {name: getattr(backend, name) for name in calls}
+
+    def train_local(params, stream, seed=0, epochs=None):
+        box = [params]        # the coordinator's aggregate goes on to
+        del params            # train_local as its only reference
+        t0 = time.perf_counter()
+        out = inner["train_local"](box.pop(), stream, seed=seed,
+                                   epochs=epochs)
+        calls["train_local"] += 1
+        seconds["train_local"] += time.perf_counter() - t0
+        return out
+
+    def counted(name):
+        def call(params, stream):
+            t0 = time.perf_counter()
+            out = inner[name](params, stream)
+            calls[name] += 1
+            seconds[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    backend.train_local = train_local
+    backend.evaluate = counted("evaluate")
+    backend.signature = counted("signature")
+    coord = DagAflCoordinator(backend, client_data, global_test,
+                              DagAflConfig(n_clients=clients, max_rounds=2,
+                                           local_epochs=2),
+                              store_device=store_device)
+    box = [genesis]           # the run's store holds the genesis alone
+    del genesis
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    with PlainMeter(kern) as plain:
+        reset_launches(kern)                       # counts start here
+        t0 = time.perf_counter()
+        result = coord.run(init_model=box.pop())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted_launches = read_launches(kern)     # and are read here
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    peak = torch.cuda.max_memory_allocated()
+    seconds["rest"] = wall - sum(seconds.values())
+    store = coord.store.readings()
+    rounds = result.rounds
+    ok, why = verify_full_dag(coord.ledger)
+    forwards = calls["evaluate"] + calls["signature"]
+    expected = expected_prefill_launches(cfg, prefills=0,
+                                         signatures=calls["signature"],
+                                         forwards=forwards)
+    windows = expected_flash_windows(cfg, DAG_LARGE_SEQ, forwards)
+    resting = {leaf.device.type for tx in coord.ledger.transactions()
+               for leaf in tree_leaves(coord.store.resting(tx.model_ref))}
+    want_resting = {"cpu" if store_device == "cpu" else "cuda"}
+    accs = [result.final_accuracy, result.best_accuracy,
+            result.extra["tip_mean_accuracy"],
+            result.extra["client_mean_accuracy"]]
+    accs += [a for _, a in result.history]
+    check(rounds == 2 * clients,
+          f"{leg}: expected {2 * clients} rounds, got {rounds}")
+    check(result.extra["chain_len"] == 1 + rounds,
+          f"{leg}: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(result.extra["verify_failures"] == 0, f"{leg}: path "
+          f"verification")
+    check(ok, f"{leg}: verify_full_dag: {why}")
+    check(counted_launches["launches"] == expected
+          and calls["signature"] == rounds,
+          f"{leg}: launches {counted_launches['launches']}, expected "
+          f"{expected} for {forwards} eval and signature forwards and "
+          f"{calls['signature']} signature calls")
+    check(counted_launches["flash_routes"] == {"sm90": expected["flash"],
+                                               "fma": 0},
+          f"{leg}: flash launches by route "
+          f"{counted_launches['flash_routes']}")
+    check(counted_launches["flash_windows"] == windows, f"{leg}: flash "
+          f"launches by window {counted_launches['flash_windows']}, "
+          f"expected {windows}")
+    check(counted_launches["signature_routes"] == {
+        "vec": calls["signature"], "strided": 0},
+        f"{leg}: signature launches by route "
+        f"{counted_launches['signature_routes']}")
+    check(not any(plain.calls.values()),
+          f"{leg}: the path ran a plain version: {plain.calls}")
+    check(resting == want_resting, f"{leg}: stored leaves rest on "
+          f"{resting}, expected {want_resting}")
+    check(all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs),
+          f"{leg}: accuracies {accs}")
+    check(retries == 0, f"{leg}: {retries} allocator retries")
+    card = check_free(leg, peak)
+    record = dict(
+        phase="dag_large_path", leg=leg, model=cfg.name,
+        layers=[spec.kind for spec in cfg.layer_specs()],
+        d_model=cfg.d_model, n_params=n_params, model_bytes=model_bytes,
+        clients=clients, rounds=rounds, batch=batch, seq_len=DAG_LARGE_SEQ,
+        local_steps=2, data_vocab=LM_DATA_VOCAB, store_device=store_device,
+        chain_len=result.extra["chain_len"], wall_s=wall,
+        s_per_round=wall / rounds, calls=calls, seconds=seconds,
+        store=store, store_bytes_transferred=result.extra[
+            "store_bytes_transferred"],
+        peak_bytes=peak, card_bytes=card, alloc_retries=retries,
+        host_peak_rss_bytes=host_peak_bytes(),
+        final_accuracy=result.final_accuracy,
+        tip_mean_accuracy=result.extra["tip_mean_accuracy"],
+        client_mean_accuracy=result.extra["client_mean_accuracy"],
+        history=result.history, sim_time=result.sim_time,
+        plain_calls=plain.calls, verify_full_dag=why, **counted_launches)
+    emit(**record)
+    return record, coord, result
+
+
+def dag_batch(leg: str, dev, cfg, host_genesis) -> dict:
+    """The largest of DAG_LARGE_BATCHES x 512 whose ``train_local`` call
+    (the loop's 2 SGD steps from a card copy of the host model, passed as
+    the coordinator passes its aggregate) leaves MOE_FREE_BYTES_MIN of the
+    card free without an allocator retry; each size's peak."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.core.dag import PinnedStaging
+    from repro_torch.fl.backend import LMBackend
+
+    staging = PinnedStaging()
+    streams, _ = lm_streams(1)
+    tried = {}
+    card = torch.cuda.get_device_properties(0).total_memory
+    for batch in DAG_LARGE_BATCHES:
+        backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
+                            seq_len=DAG_LARGE_SEQ)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        try:
+            trained, _ = backend.train_local(
+                tree_map(lambda t: staging.copy(t, dev), host_genesis),
+                streams[0], seed=0)
+            del trained
+            torch.cuda.synchronize()
+            failed = None
+        except torch.cuda.OutOfMemoryError:
+            failed = "out of memory"
+        peak = torch.cuda.max_memory_allocated()
+        retries = (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                   - retries)
+        tried[batch] = {"peak_bytes": peak, "alloc_retries": retries,
+                        "failed": failed}
+        if failed is None and retries == 0 and \
+                card - peak >= MOE_FREE_BYTES_MIN:
+            return {"batch": batch, "tried": tried}
+    raise SystemExit(f"chip_smoke: FAILED: {leg}: no batch of "
+                     f"{DAG_LARGE_BATCHES} x {DAG_LARGE_SEQ} leaves "
+                     f"{MOE_FREE_BYTES_MIN} bytes of the card free: {tried}")
+
+
+def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
+    """``dag_store_leg`` over a large config with the store in host
+    memory: the genesis drawn on the card from seed 0 and copied to host
+    memory, the clients the host can hold (DAG_LARGE_CLIENTS: the store
+    peaks at the genesis and 2 models a client, beside DAG_HOST_HEADROOM),
+    and the batch ``dag_batch`` picks."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_size_bytes
+    from repro_torch.core.dag import ModelStore
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_leg = time.perf_counter()
+    genesis = draw_genesis(cfg, dev)
+    model_bytes = tree_size_bytes(genesis)
+    host_genesis = ModelStore("cpu").rest(genesis)
+    del genesis
+
+    def fits(available):
+        return [c for c in DAG_LARGE_CLIENTS if (1 + 2 * c) * model_bytes
+                <= available - DAG_HOST_HEADROOM]
+
+    # wait while the host is still taking freed memory back: until the
+    # most clients fit, MemAvailable rises by under 1 GB in 3 s, or
+    # DAG_HOST_WAIT_S has passed
+    t_wait, seen = time.perf_counter(), [meminfo()["MemAvailable"]]
+    while (fits(seen[-1])[:1] != list(DAG_LARGE_CLIENTS[:1])
+           and time.perf_counter() - t_wait < DAG_HOST_WAIT_S
+           and (len(seen) < 4 or seen[-1] - seen[-4] >= 1e9)):
+        time.sleep(1.0)
+        seen.append(meminfo()["MemAvailable"])
+    host, host_wait_s = meminfo(), time.perf_counter() - t_wait
+    clients = fits(host["MemAvailable"])
+    check(bool(clients), f"{leg}: the host's {host} cannot hold a store "
+          f"of {1 + 2 * DAG_LARGE_CLIENTS[-1]} models of {model_bytes} "
+          f"bytes")
+    sized = dag_batch(leg, dev, cfg, host_genesis)
+    record, coord, result = dag_store_leg(
+        kern, dev, leg=leg, cfg=cfg, clients=clients[0],
+        batch=sized["batch"],
+        store_device="cpu", genesis=host_genesis,
+        expected_params=expected_params)
+    del coord, result, host_genesis
+    record.update(host_at_start=host, host_wait_s=host_wait_s,
+                  batches_tried=sized["tried"],
+                  leg_s=time.perf_counter() - t_leg)
+    emit(phase="dag_large_path", leg=f"{leg}_sizes", clients=clients[0],
+         clients_tried=DAG_LARGE_CLIENTS, host_at_start=host,
+         host_wait_s=host_wait_s,
+         model_bytes=model_bytes, batch=sized["batch"],
+         batches_tried=sized["tried"], leg_s=record["leg_s"])
+    return record
+
+
+def draw_genesis(cfg, dev):
+    """A genesis of ``cfg`` drawn on the card from seed 0, as
+    ``LMBackend.init`` draws it."""
+    import torch
+    from repro_torch.fl.backend import LMBackend
+    backend = LMBackend(cfg, local_steps=2, batch_size=1,
+                        seq_len=DAG_LARGE_SEQ)
+    genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return genesis
+
+
+def store_parity_leg(kern, dev) -> dict:
+    """The LM path's world (internlm2's 4-layer cut, 4 clients, batch 8)
+    run twice: the store on the card, then in host memory.  The tx ids,
+    Eq. 7 hashes, tips, each transaction's accuracy and signature, the
+    run's accuracies and ``chain_len`` must be equal, and the final
+    ``global_model()`` bit for bit."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+
+    t_leg = time.perf_counter()
+    cfg, runs = lm_config(), {}
+    for device in (None, "cpu"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"store_parity_{'card' if device is None else 'host'}"
+        record, coord, result = dag_store_leg(
+            kern, dev, leg=name, cfg=cfg, clients=DAG_PARITY_CLIENTS,
+            batch=8, store_device=device, genesis=draw_genesis(cfg, dev),
+            expected_params=LM_PARAMS)
+        txs = sorted(coord.ledger.transactions(), key=lambda t: t.seq)
+        tips = set(coord.ledger.tips())
+        ledger = [(t.tx_id, coord.ledger.hash_of(t.tx_id), t.parents,
+                   t.metadata.model_accuracy, t.metadata.signature,
+                   t.tx_id in tips) for t in txs]
+        outcome = (result.final_accuracy, result.best_accuracy,
+                   result.extra["tip_mean_accuracy"],
+                   result.extra["client_mean_accuracy"],
+                   result.extra["chain_len"], result.rounds, result.history,
+                   result.extra["store_bytes_transferred"])
+        runs[name] = (record, ledger, outcome, coord.global_model())
+        del coord, result
+    (card, card_ledger, card_out, card_gm), (host, host_ledger, host_out,
+                                             host_gm) = runs.values()
+    same_ledger = card_ledger == host_ledger
+    same_outcome = card_out == host_out
+    same_model = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(card_gm), tree_leaves(host_gm)))
+    check(same_ledger, "store_parity: the ledgers differ between the store "
+          "on the card and in host memory")
+    check(same_outcome, f"store_parity: results {card_out} (card) and "
+          f"{host_out} (host) differ")
+    check(same_model and len(tree_leaves(card_gm)) == len(
+        tree_leaves(host_gm)), "store_parity: the final global models "
+          "differ")
+    record = {"phase": "dag_large_path", "leg": "store_parity",
+              "transactions": len(card_ledger), "same_ledger": same_ledger,
+              "same_results": same_outcome, "same_global_model": same_model,
+              "s_per_round": {"card": card["s_per_round"],
+                              "host": host["s_per_round"]},
+              "leg_s": time.perf_counter() - t_leg}
+    emit(**record)
+    return {"store_parity_card": card, "store_parity_host": host}
+
+
+def phase_dag_large_path(kern, dev) -> dict:
+    """The sequential DAG-AFL loop over Jamba's MoE cut (``dag_moe``,
+    ``hybrid_moe_config``) and gemma2-2b whole (``dag_gemma2``) with the
+    model store in host memory (``DagAflCoordinator(store_device="cpu")``),
+    then ``store_parity``: the LM path's world with the store on the card
+    and in host memory, equal to the bit (between the two large legs)."""
+    t0 = time.perf_counter()
+    legs = {"dag_moe": dag_large_leg(kern, dev, "dag_moe",
+                                     hybrid_moe_config(), MOE_PARAMS)}
+    # store_parity's small stores run while the host takes dag_moe's back
+    legs.update(store_parity_leg(kern, dev))
+    legs["dag_gemma2"] = dag_large_leg(kern, dev, "dag_gemma2",
+                                       gemma2_config(), GEMMA2_PARAMS)
+    emit(phase="dag_large_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
 _DRYRUN_COUNT = r"""
 import dataclasses, json, sys, time
 sys.path.insert(0, "src")
@@ -5435,7 +5829,9 @@ def phase_dryrun_path() -> dict:
 SHARDED_MESH = (4, 2)
 SHARDED_MOE_MESH = (2, 2)               # where (4, 2) would not fit
 SHARDED_BATCH = (8, 512)                # batch, tokens: train and prefill
-SHARDED_DECODE = 16                     # decode steps after the prefill
+# decode steps after the prefill: 4, not 16, to keep the script within
+# its time limit beside dag_large_path (a step is host-paced, 1.66 s)
+SHARDED_DECODE = 4
 SHARDED_LONG = (1, 32768, 20000)        # batch, cache slots, position
 SHARDED_MICROBATCHES = 4
 SHARDED_LM_PARAMS = 630_736_896         # internlm2-1.8b, 4 layers
@@ -6245,11 +6641,12 @@ def main() -> None:
     whisper = phase_whisper_path(kern, dev)
     mesh = phase_mesh_path(kern, dev)
     dense = phase_dense_configs_path(kern, dev)
+    dag_large = phase_dag_large_path(kern, dev)
     phase_dryrun_path()
     sharded = phase_sharded_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
              **serving, **moe, **variants, **whisper, **mesh, **dense,
-             **sharded}
+             **dag_large, **sharded}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -6287,16 +6684,20 @@ def main() -> None:
                               ("mla", "mla_", -1),
                               ("mrope", "mrope", -1),
                               ("whisper", "whisper_", -1),
-                              ("gemma2_local", "gemma2_", 4096),
-                              ("gemma2_global", "gemma2_", -1),
+                              ("gemma2_local", ("gemma2_", "dag_gemma2"),
+                               4096),
+                              ("gemma2_global", ("gemma2_", "dag_gemma2"),
+                               -1),
                               ("qwen2", "qwen2_", -1)):
         flash_record[row]["launches"] = sum(
             p["flash_windows"].get(window, 0) for name, p in paths.items()
             if name.startswith(legs))
+    # the DAG loops over the large configs sign at their models' widths
+    also = {"hybrid": ("moe", "dag_moe"), "gemma2": ("dag_gemma2",),
+            "lm": ("store_parity",)}
     for width in sig_record["widths"]:
         # every CNN path signs at the CNN width, the MoE legs at Jamba's
-        prefixes = (width["path"],) + (("moe",) if width["path"] == "hybrid"
-                                       else ())
+        prefixes = (width["path"],) + also.get(width["path"], ())
         width["launches"] = sum(
             n for name, n in sig_record["launches_by_path"].items()
             if any(name == pre or name.startswith(pre + "_")

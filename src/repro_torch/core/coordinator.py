@@ -37,6 +37,19 @@ with it on or off.  ``mesh`` spreads the cohort engine over a device mesh
 the same mesh (``core.aggregate.stacked_weighted``).
 ``run(init_model=None)`` takes the genesis model itself where the reference
 takes a JAX PRNG key.
+
+``store_device`` says where the published models rest
+(:class:`repro_torch.core.dag.ModelStore`): ``None``, the reference's map,
+keeps them where the backend made them; ``"cpu"`` keeps them in host
+memory, the port's own choice for models that the card cannot hold beside
+a training client.  Every read then copies a model to the backend's device
+when the loop needs it, one at a time where the loop allows: a tip's
+validation, Eq. 6 (streamed leaf by leaf, ``tree_mean_streamed``), the
+global model, and the final sweep, which on the sequential path fetches and
+evaluates one client's model at a time.  A trained model moves to the
+store's device as soon as it is validated and signed, ahead of its publish
+time.  No value changes: the same float32 operations run in the same order
+on the backend's device.
 """
 from __future__ import annotations
 
@@ -46,7 +59,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import (stacked_weighted, tree_mean,
+from repro_torch.core.aggregate import (stacked_weighted, tree_mean_streamed,
                                         tree_size_bytes, tree_stack,
                                         tree_unstack)
 from repro_torch.core.dag import (BoundedDAGLedger, DAGLedger, ModelStore,
@@ -144,11 +157,16 @@ class DagAflCoordinator:
     def __init__(self, backend, client_data: List[Dict], global_test,
                  cfg: DagAflConfig, cost: Optional[CostModel] = None,
                  profiles: Optional[List[ClientProfile]] = None,
-                 cohort_engine=None):
+                 cohort_engine=None, store_device=None):
         """client_data[k]: {"train": ..., "val": ..., "test": ...} per client
         (backend-specific containers).  ``cohort_engine`` lets callers reuse
-        one :class:`repro_torch.fl.cohort.CohortBackend` across runs."""
+        one :class:`repro_torch.fl.cohort.CohortBackend` across runs.
+        ``store_device``: where the published models rest (module
+        docstring)."""
         self.backend = backend
+        # where reads of the store put a model: the backend's device (a
+        # backend without one reads models where they rest)
+        self._device = getattr(backend, "device", None)
         self.scenario = as_scenario(cfg.scenario, cfg.n_clients)
         if self.scenario is not None:
             # poisoned shards exist before anything reads the data
@@ -163,7 +181,7 @@ class DagAflCoordinator:
             self.ledger = BoundedDAGLedger(evict_fn=self._on_prune)
         else:
             self.ledger = DAGLedger()
-        self.store = ModelStore()
+        self.store = ModelStore(store_device)
         # model refs whose tx was pruned while still being a client's
         # LATEST (needed by the final per-client sweep); evicted as soon as
         # the client publishes again
@@ -229,7 +247,8 @@ class DagAflCoordinator:
     def _evaluate_tip(self, client: int, tx_id: str) -> float:
         key = (client, tx_id)
         if key not in self._acc_cache:
-            model = self.store.get(self.ledger.get_tx(tx_id).model_ref)
+            model = self.store.get(self.ledger.get_tx(tx_id).model_ref,
+                                   self._device)
             acc = self.backend.evaluate(model, self.client_data[client]["val"])
             self._acc_cache[key] = acc
             self._evals_total += 1
@@ -241,8 +260,8 @@ class DagAflCoordinator:
         missing = [t for t in tx_ids if (client, t) not in self._acc_cache]
         if not missing:
             return
-        models = [self.store.get(self.ledger.get_tx(t).model_ref)
-                  for t in missing]
+        models = [self.store.get(self.ledger.get_tx(t).model_ref,
+                                 self._device) for t in missing]
         accs = self.cohort.evaluate_many(models,
                                          self.client_data[client]["val"])
         for t, acc in zip(missing, accs):
@@ -369,14 +388,24 @@ class DagAflCoordinator:
         simulated completion time.  Used by the sequential path and by
         cohort windows of one."""
         client = rd["client"]
-        agg = tree_mean([self.store.get(r) for r in rd["refs"]])
-        model, _ = self.backend.train_local(
-            agg, self.client_data[client]["train"], seed=rd["seed"],
-            epochs=self.cfg.local_epochs)
-        if self.scenario is not None:
+        train = self.client_data[client]["train"]
+        if self.scenario is None:
+            # nothing reads the aggregate once training has cloned it:
+            # passed as a temporary, it is freed there, before the
+            # gradients and the optimizer state take the card's memory
+            model, _ = self.backend.train_local(
+                tree_mean_streamed(self.store, rd["refs"], self._device),
+                train, seed=rd["seed"], epochs=self.cfg.local_epochs)
+        else:
+            agg = tree_mean_streamed(self.store, rd["refs"], self._device)
+            model, _ = self.backend.train_local(
+                agg, train, seed=rd["seed"], epochs=self.cfg.local_epochs)
             model = self._scenario_update_one(client, agg, model)
+            del agg
         acc = self.backend.evaluate(model, self.client_data[client]["val"])
-        sig = self.backend.signature(model, self.client_data[client]["train"])
+        sig = self.backend.signature(model, train)
+        # the model waits for its publish time where the store keeps it
+        model = self.store.rest(model)
         total = rd["t_front"] + rd["t_train"] + self._t_post(
             self.profiles[client])
         self.loop.schedule(
@@ -406,7 +435,7 @@ class DagAflCoordinator:
             ref = self.ledger.get_tx(prev).model_ref
             if ref in self.store:
                 sc.updates_lazy += 1
-                return self.store.get(ref)
+                return self.store.get(ref, self._device)
         return model
 
     def _scenario_update_cohort(self, rounds, agg_stacked, new_stacked):
@@ -475,7 +504,8 @@ class DagAflCoordinator:
         # under a mesh the M stacked tip models spread over the mesh (both
         # axes of a 2-D one), and one sum of the devices' einsums gives
         # every client's Eq. 6 aggregate (see core/aggregate.py)
-        stacked_tips = tree_stack([self.store.get(r) for r in uniq])
+        stacked_tips = tree_stack([self.store.get(r, self._device)
+                                   for r in uniq])
         agg_stacked = stacked_weighted(stacked_tips, weights,
                                        mesh=self.cohort.mesh,
                                        axis_name=self.cohort.clients_axis,
@@ -509,10 +539,9 @@ class DagAflCoordinator:
 
     def global_model(self):
         """Average of the models at the current tips (publisher's view)."""
-        tips = self.ledger.tips()
-        models = [self.store.get(self.ledger.get_tx(t).model_ref)
-                  for t in tips]
-        return tree_mean(models) if models else None
+        refs = [self.ledger.get_tx(t).model_ref for t in self.ledger.tips()]
+        return (tree_mean_streamed(self.store, refs, self._device) if refs
+                else None)
 
     def _serving_config(self):
         """The effective ServingConfig, or None when serving is off."""
@@ -535,7 +564,8 @@ class DagAflCoordinator:
                                             make_query_driver)
         done = lambda: self.tracker.done  # noqa: E731
         self.publisher = ConsensusPublisher(self.ledger, self.store,
-                                            self.loop, scfg.every, stop=done)
+                                            self.loop, scfg.every, stop=done,
+                                            device=self._device)
         driver = make_query_driver(scfg, self.backend, self.global_test)
         self.query_stream = QueryStream(self.publisher, driver, self.loop,
                                         self.ledger, scfg.query_rate,
@@ -550,8 +580,9 @@ class DagAflCoordinator:
         if init_model is None:
             init_model = self.backend.init(
                 torch.Generator().manual_seed(self.cfg.seed))
-        ref = self.store.put("genesis", init_model)
         self.cost.model_bytes = max(tree_size_bytes(init_model), 1)
+        ref = self.store.put("genesis", init_model)
+        del init_model          # a store on the host keeps its own copy
         meta = TxMetadata(client_id=-1, signature=(0.0,) * 16,
                           model_accuracy=0.0, current_epoch=0,
                           validation_node_id=-1)
@@ -573,7 +604,7 @@ class DagAflCoordinator:
 
         # paper Table II reports AVERAGE accuracy across participants:
         # evaluate each client's latest model on the global test set
-        latest_models = []
+        latest_refs = []
         for c in range(self.cfg.n_clients):
             tx = self.ledger.latest_of(c)
             if tx is None:
@@ -583,13 +614,16 @@ class DagAflCoordinator:
                    else self.ledger.get_tx(tx).model_ref)
             if ref is None or ref not in self.store:
                 continue
-            latest_models.append(self.store.get(ref))
-        if self.cohort is not None and latest_models:
-            client_accs = self.cohort.evaluate_many(latest_models,
-                                                    self.global_test)
+            latest_refs.append(ref)
+        if self.cohort is not None and latest_refs:
+            client_accs = self.cohort.evaluate_many(
+                [self.store.get(r, self._device) for r in latest_refs],
+                self.global_test)
         else:
-            client_accs = [self.backend.evaluate(m, self.global_test)
-                           for m in latest_models]
+            # one client's model on the backend's device at a time
+            client_accs = [self.backend.evaluate(
+                self.store.get(r, self._device), self.global_test)
+                for r in latest_refs]
         gm = self.global_model()
         tip_mean_acc = self.backend.evaluate(gm, self.global_test)
         client_mean = float(np.mean(client_accs)) if client_accs else 0.0

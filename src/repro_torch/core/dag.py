@@ -2,8 +2,9 @@
 
 PyTorch port of ``repro.core.dag``: the ledger is framework-free and is
 copied as it is, so hashes, tips and reachability agree with the reference
-on the same operation sequence.  Only :meth:`ModelStore.get` differs: it
-counts the bytes of a model tree of torch tensors.
+on the same operation sequence.  Only :class:`ModelStore` differs: it
+counts the bytes of a model tree of torch tensors, and it can keep its
+models on a device of its own (host memory) and copy them to the reader's.
 
 Transactions carry ONLY metadata (paper §III-A: ``<ClientId, Signature,
 ModelAccuracy, CurrentEpoch, ValidationNodeId>``); model weights travel peer
@@ -39,12 +40,15 @@ from __future__ import annotations
 import hashlib
 import heapq
 import json
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Protocol, Sequence, Tuple, runtime_checkable)
 
-from repro_torch.core.aggregate import tree_size_bytes
+import torch
+
+from repro_torch.core.aggregate import tree_map, tree_size_bytes
 
 
 @dataclass(frozen=True)
@@ -169,28 +173,199 @@ class LedgerView(Protocol):
     def __len__(self) -> int: ...
 
 
+def _indexed(device) -> torch.device:
+    """``device`` as a ``torch.device``; a card without an index is the
+    current card, so that tensors on it compare equal to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class PinnedStaging:
+    """Tensor copies between host memory and a card through two fixed
+    pinned buffers of ``chunk_bytes``: the card's copy engine fills or
+    drains one buffer while the host copies the other to or from the
+    pageable tensor (``copy_`` on the host runs on torch's intra-op
+    threads).  On an H100's host (``chip_probes.py store``) this moved a
+    14.7 GB model to the card 4-6x faster than ``Tensor.to`` from pageable
+    memory, and to the host 1.5-2x faster, where page faults in the fresh
+    host tensor bound both.  A pinned copy of every stored model would pin
+    tens of GB of the host's memory and pays the same faults when it is
+    made.  Any other pair of devices copies directly; a copy to the
+    tensor's own device is a clone.  The card's copies run on its current
+    stream, so the work queued there before and after stays ordered
+    around them."""
+
+    def __init__(self, chunk_bytes: int = 1 << 25):
+        self.chunk_bytes = chunk_bytes
+        self._buffers: List[torch.Tensor] = []
+        self._events: Dict[torch.device, List] = {}
+
+    def copy(self, t: torch.Tensor, device) -> torch.Tensor:
+        device = _indexed(device)
+        if t.device == device:
+            return t.clone()
+        if {t.device.type, device.type} != {"cpu", "cuda"} or t.numel() == 0:
+            return t.to(device)
+        card = device if device.type == "cuda" else t.device
+        if not self._buffers:
+            self._buffers = [torch.empty(self.chunk_bytes, dtype=torch.uint8,
+                                         pin_memory=True) for _ in range(2)]
+        if card not in self._events:
+            with torch.cuda.device(card):
+                self._events[card] = [torch.cuda.Event() for _ in range(2)]
+        out = torch.empty(t.shape, dtype=t.dtype, device=device)
+        src = t.contiguous().view(-1).view(torch.uint8)
+        dst = out.view(-1).view(torch.uint8)
+        with torch.cuda.device(card):
+            if device.type == "cpu":
+                self._to_host(src, dst, self._events[card])
+            else:
+                self._to_card(src, dst, self._events[card])
+        return out
+
+    def _chunks(self, n: int):
+        for i, start in enumerate(range(0, n, self.chunk_bytes)):
+            yield i % 2, slice(start, min(start + self.chunk_bytes, n))
+
+    def _to_host(self, src, dst, events) -> None:
+        """Card -> host: the copy engine fills buffer b while the host
+        drains the other, filled one chunk earlier."""
+        pending = None
+        for b, part in self._chunks(src.numel()):
+            n = part.stop - part.start
+            self._buffers[b][:n].copy_(src[part], non_blocking=True)
+            events[b].record()
+            if pending is not None:
+                self._drain(pending, dst, events)
+            pending = (b, part)
+        if pending is not None:
+            self._drain(pending, dst, events)
+
+    def _drain(self, pending, dst, events) -> None:
+        b, part = pending
+        events[b].synchronize()
+        dst[part].copy_(self._buffers[b][:part.stop - part.start])
+
+    def _to_card(self, src, dst, events) -> None:
+        """Host -> card: the host fills buffer b once the copy engine has
+        read it (its event), then queues its copy to the card."""
+        for b, part in self._chunks(src.numel()):
+            n = part.stop - part.start
+            events[b].synchronize()
+            self._buffers[b][:n].copy_(src[part])
+            dst[part].copy_(self._buffers[b][:n], non_blocking=True)
+            events[b].record()
+
+
 class ModelStore:
     """P2P weight transport stand-in: tx_id -> model pytree.
 
     Peers share one card here, so the store is an in-memory map of model
     trees: the DAG provably never carries weights.
+
+    ``device`` says where the stored models rest.  ``None`` (the
+    reference's map) keeps each model where it was produced and hands the
+    same objects back.  A device (``"cpu"``: host memory, the port's own
+    choice for models that the card cannot hold beside a training client)
+    makes the store keep each model there: :meth:`put` copies in what
+    rests elsewhere (:meth:`rest`), and each read copies the model, or one
+    leaf of it (:meth:`resting` and :meth:`fetch`), out to the device the
+    reader names, so a reader's in-place change never reaches the stored
+    model.
+    A store that rests models on the card raises when the card is full;
+    nothing moves to the host on its own.  Copies between the host and a
+    card go through :class:`PinnedStaging`.
+
+    ``bytes_transferred`` counts every read as the reference counts a
+    ``get``.  ``readings()`` adds the store's own copy bytes and seconds
+    each way and the peak bytes resting in it.
     """
 
-    def __init__(self):
+    def __init__(self, device=None):
+        self.device = None if device is None else _indexed(device)
         self._store: Dict[str, object] = {}
         self.bytes_transferred = 0
+        self._staging = PinnedStaging()
+        self._copied = {"in": [0, 0.0], "out": [0, 0.0]}   # bytes, seconds
+        self._resting_bytes = 0
+        self._peak_resting_bytes = 0
 
     def put(self, key: str, model) -> str:
+        if self.device is not None:
+            self.evict(key)
+            model = self.rest(model)
+            self._resting_bytes += tree_size_bytes(model)
+            self._peak_resting_bytes = max(self._peak_resting_bytes,
+                                           self._resting_bytes)
         self._store[key] = model
         return key
 
-    def get(self, key: str):
+    def rest(self, model):
+        """``model`` on the resting device: its leaves already there are
+        kept, the others copied in (the same tree without a device)."""
+        if self.device is None:
+            return model
+        return tree_map(lambda leaf: leaf if not isinstance(
+            leaf, torch.Tensor) or leaf.device == self.device
+            else self._copy(leaf, self.device, "in"), model)
+
+    def get(self, key: str, device=None):
+        """The model stored under ``key``; where the store rests models, a
+        copy of it on ``device`` (default: the resting device)."""
+        model = self.resting(key)
+        if self.device is None:
+            return model
+        return tree_map(lambda leaf: self.fetch(leaf, device), model)
+
+    def resting(self, key: str):
+        """The stored tree itself, counted as one :meth:`get`: for a reader
+        that copies it out leaf by leaf with :meth:`fetch` and changes
+        nothing in it (``core.aggregate.tree_mean_streamed``)."""
         model = self._store[key]
         self.bytes_transferred += tree_size_bytes(model)
         return model
 
+    def fetch(self, leaf, device=None):
+        """One leaf of a :meth:`resting` tree on ``device`` (default: the
+        resting device): a copy where the store rests models, else the
+        leaf itself."""
+        if self.device is None:
+            return leaf
+        return self._copy(leaf, self.device if device is None
+                          else _indexed(device), "out")
+
+    def _copy(self, leaf, device: torch.device, way: str):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        cards = {d for d in (leaf.device, device) if d.type == "cuda"}
+        for card in cards:              # the copy's own time, not the
+            torch.cuda.synchronize(card)  # queued work's before it
+        t0 = time.perf_counter()
+        out = self._staging.copy(leaf, device)
+        for card in cards:
+            torch.cuda.synchronize(card)
+        self._copied[way][0] += leaf.numel() * leaf.element_size()
+        self._copied[way][1] += time.perf_counter() - t0
+        return out
+
+    def readings(self) -> Dict[str, object]:
+        """Copy bytes and seconds into the store (``in``: each
+        :meth:`put`) and out of it (``out``: each read), and the bytes
+        resting in it now and at most."""
+        return {"device": None if self.device is None else str(self.device),
+                "in_bytes": self._copied["in"][0],
+                "in_s": self._copied["in"][1],
+                "out_bytes": self._copied["out"][0],
+                "out_s": self._copied["out"][1],
+                "resting_bytes": self._resting_bytes,
+                "peak_resting_bytes": self._peak_resting_bytes}
+
     def evict(self, key: str):
-        self._store.pop(key, None)
+        model = self._store.pop(key, None)
+        if model is not None and self.device is not None:
+            self._resting_bytes -= tree_size_bytes(model)
 
     def __contains__(self, key):
         return key in self._store

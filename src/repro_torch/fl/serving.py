@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import tree_leaves, tree_mean
+from repro_torch.core.aggregate import tree_leaves, tree_mean_streamed
 
 
 # -- configuration -----------------------------------------------------------
@@ -78,9 +78,11 @@ class ServingReplica:
     published_at: float               # simulated publish time
 
 
-def consensus_over_refs(store, refs):
-    """Eq. 6 over an explicit ref list (the replica's pinned frontier)."""
-    return tree_mean([store.get(r) for r in refs])
+def consensus_over_refs(store, refs, device=None):
+    """Eq. 6 over an explicit ref list (the replica's pinned frontier), on
+    ``device`` where the store rests its models elsewhere (host memory):
+    streamed from the store leaf by leaf, with ``tree_mean``'s bits."""
+    return tree_mean_streamed(store, refs, device)
 
 
 def frontier_snapshot(ledger) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
@@ -100,9 +102,12 @@ def trees_bitwise_equal(a, b) -> bool:
 
 
 def replica_parity(replica: ServingReplica, store) -> bool:
-    """Does the replica's params equal a fresh Eq. 6 over its own refs?"""
-    return trees_bitwise_equal(replica.params,
-                               consensus_over_refs(store, replica.model_refs))
+    """Does the replica's params equal a fresh Eq. 6 over its own refs,
+    computed on the replica's device?"""
+    device = next((leaf.device for leaf in tree_leaves(replica.params)
+                   if isinstance(leaf, torch.Tensor)), None)
+    return trees_bitwise_equal(replica.params, consensus_over_refs(
+        store, replica.model_refs, device))
 
 
 # -- publisher ---------------------------------------------------------------
@@ -122,11 +127,13 @@ class ConsensusPublisher:
 
     def __init__(self, ledger, store, loop, every: float,
                  stop: Optional[Callable[[], bool]] = None,
-                 on_swap: Optional[Callable[[ServingReplica], None]] = None):
+                 on_swap: Optional[Callable[[ServingReplica], None]] = None,
+                 device=None):
         if every <= 0.0:
             raise ValueError(f"publish cadence must be > 0, got {every!r}")
         self.ledger = ledger
         self.store = store
+        self.device = device          # where replicas are built
         self.loop = loop
         self.every = float(every)
         self._stop = stop
@@ -188,7 +195,7 @@ class ConsensusPublisher:
         frontier, refs = frontier_snapshot(self.ledger)
         replica = ServingReplica(
             version=self.publishes,
-            params=consensus_over_refs(self.store, refs),
+            params=consensus_over_refs(self.store, refs, self.device),
             frontier=frontier, model_refs=refs,
             ledger_seq=head, published_at=self.loop.now)
         back = 1 - self._active

@@ -1291,3 +1291,51 @@ def test_argmax_takes_the_first_of_ties_on_card(card, E):
     assert torch.equal(got, rows.cpu().argmax(-1))
     assert bool((got[::3] == 0).all())
     assert torch.equal(got[1::3], first.cpu())
+
+
+@pytest.mark.parametrize("chunk", [1 << 10, 1 << 25])
+def test_model_store_in_host_memory_round_trip_on_card(card, chunk):
+    """A store in host memory: ``put`` copies a card model to the host
+    through the pinned staging buffers (chunk sizes that split the leaves
+    and that hold them whole), ``get`` copies it back to the card bit for
+    bit, a changed copy leaves the stored model as it was, and the
+    streamed Eq. 6 on the card equals ``tree_mean`` over the fetched
+    models bit for bit."""
+    from repro_torch.core.aggregate import (tree_leaves, tree_mean,
+                                            tree_mean_streamed)
+    from repro_torch.core.dag import ModelStore, PinnedStaging
+    g = torch.Generator(device=card).manual_seed(3)
+    models = [{"w": torch.randn(1000, 37, generator=g, device=card),
+               "b": [torch.randn(3, generator=g, device=card),
+                     torch.randint(0, 9, (5,), device=card)],
+               "h": torch.randn(4, 4, generator=g, device=card).half()}
+              for _ in range(3)]
+    store = ModelStore("cpu")
+    store._staging = PinnedStaging(chunk)
+    refs = [store.put(f"m{i}", m) for i, m in enumerate(models)]
+    for ref, model in zip(refs, models):
+        assert all(t.device.type == "cpu"
+                   for t in tree_leaves(store.resting(ref)))
+        back = store.get(ref, card)
+        assert all(a.device == b.device and torch.equal(a, b) for a, b in
+                   zip(tree_leaves(back), tree_leaves(model)))
+        for leaf in tree_leaves(back):
+            leaf.add_(1)
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            tree_leaves(store.get(ref, card)), tree_leaves(model)))
+    want = tree_mean([store.get(r, card) for r in refs])
+    got = tree_mean_streamed(store, refs, card)
+    assert all(a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    readings = store.readings()
+    assert readings["in_bytes"] == readings["resting_bytes"] > 0
+    assert readings["out_bytes"] > 0 and readings["out_s"] > 0
+    # a store resting on the card ("cuda", no index) keeps the model it
+    # was given and hands out copies
+    on_card = ModelStore("cuda")
+    on_card.put("m", models[0])
+    assert all(a is b for a, b in zip(tree_leaves(on_card.resting("m")),
+                                      tree_leaves(models[0])))
+    got = on_card.get("m", "cuda")
+    assert all(a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+               for a, b in zip(tree_leaves(got), tree_leaves(models[0])))

@@ -27,12 +27,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import reduced as j_reduced  # noqa: E402
+from repro.configs.base import LayerSpec as JLayerSpec  # noqa: E402
+from repro.configs.base import Stage as JStage  # noqa: E402
 from repro.core.coordinator import DagAflConfig as JConfig  # noqa: E402
 from repro.core.coordinator import DagAflCoordinator as JCoord  # noqa: E402
 from repro.data import make_lm_dataset  # noqa: E402
 from repro.fl.backend import LMBackend as JBackend  # noqa: E402
 from repro.models import transformer as j_tfm  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import LayerSpec, Stage  # noqa: E402
 from repro_torch.core.aggregate import tree_leaves  # noqa: E402
 from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator  # noqa: E402
 from repro_torch.core.verify import verify_full_dag  # noqa: E402
@@ -142,6 +145,23 @@ def test_moe_coordinator_runs_agree():
     ``test_torch_mamba.py``'s): training routes with the training
     capacity, the eval and signature forwards with the generous one."""
     _coordinator_runs_agree(*_backends("llama4-maverick-400b-a17b"))
+
+
+def test_gemma2_coordinator_runs_agree():
+    """The same run over a reduced gemma2: local layers of window 8, which
+    the 64 positions pass, alternating with global layers (two periods),
+    soft-caps of 50 on the scores and 30 on the logits, head dim 16; the
+    eval and signature forwards on the reference's interpret-mode flash
+    kernel with the window and the cap, and on the port's plain version."""
+    jc, tc = _configs("gemma2-2b")
+    jc = dataclasses.replace(jc, n_layers=4, stages=(JStage(
+        (JLayerSpec(window=8), JLayerSpec()), 2),))
+    tc = dataclasses.replace(tc, n_layers=4, stages=(Stage(
+        (LayerSpec(window=8), LayerSpec()), 2),))
+    assert (tc.attn_softcap, tc.final_softcap, tc.head_dim) == (50.0, 30.0,
+                                                                16)
+    _coordinator_runs_agree(JBackend(jc, kernel_policy="interpret", **KW),
+                            LMBackend(tc, device="cpu", **KW))
 
 
 def _coordinator_runs_agree(jb, tb):
