@@ -263,25 +263,29 @@ Phases, each printing one JSON line:
    store_device="cpu")``, random weights from seed 0, parameters counted
    leaf by leaf, each run with the launch counts set to 0 just before and
    read just after: ``dag_moe``, Jamba's MoE cut (``hybrid_moe_config``,
-   3,678,941,184 parameters) on the first of 3 or 2 clients whose store
-   (the genesis and 2 models a client) the host's MemAvailable holds with
-   DAG_HOST_HEADROOM to spare (waiting while the host takes back the
-   memory of a freed store); ``store_parity``, the LM path's world
-   (internlm2's 4-layer cut, 4 clients, batch 8) with the store on the
-   card and in host memory: the same tx ids, Eq. 7 hashes, tips,
-   accuracies, signatures, ``chain_len`` and bytes read, and the final
-   ``global_model()`` bit for bit; ``dag_gemma2``, gemma2-2b whole, as
-   ``dag_moe``.  The large legs run at the largest of 8, 4 and 2 x 512
-   whose ``train_local`` from a host model leaves 5 GB of the card free
-   without an allocator retry (``dag_batch``).  Gates of every run: ``chain_len == 1 + rounds``, the DAG
-   verified, every stored leaf on the store's device, flash once an
-   attention layer an eval or signature forward (all sm90, counted by
-   window), the scan once a Mamba layer a forward, one signature launch a
-   signature call (all vec), no plain call, the peak leaving 5 GB of the
-   card free, no allocator retry.  Readings: ``s_per_round``, seconds by
+   3,678,941,184 parameters) on DAG_MOE_CLIENTS = 2 clients, whose store
+   (the genesis and 2 models a client) the host's MemAvailable must hold
+   with DAG_HOST_HEADROOM to spare (the leg waits up to DAG_HOST_WAIT_S
+   while the host takes back the memory of a freed store, then fails);
+   ``store_parity``, the LM path's world (internlm2's 4-layer cut, 4
+   clients, batch 8) with the store on the card and in host memory: the
+   same tx ids, Eq. 7 hashes, tips, accuracies, signatures,
+   ``chain_len`` and bytes read, and the final ``global_model()`` bit for
+   bit; ``dag_gemma2``, gemma2-2b whole, as ``dag_moe`` on
+   DAG_GEMMA2_CLIENTS = 3.  The large legs run at the largest of 8, 4 and
+   2 x 512 whose ``train_local`` from a host model leaves 5 GB of the
+   card free without an allocator retry (``dag_batch``).  Gates of every
+   run: ``chain_len == 1 + rounds``, the DAG verified, every stored leaf
+   on the store's device, flash once an attention layer an eval or
+   signature forward (all sm90, counted by window), the scan once a Mamba
+   layer a forward, one signature launch a signature call (all vec), no
+   plain call, the peak leaving 5 GB of the card free, no allocator
+   retry; then each kernel's first launch of the run (flash's at each
+   window) held against its plain version at the loop's own shapes and
+   timed (``hold_per_chip``).  Readings: ``s_per_round``, seconds by
    backend call, the store's copy bytes and seconds each way and its peak
    resting bytes, the card's peak, the process's peak resident bytes, the
-   accuracies.
+   accuracies, the held kernels' errors and times.
 21. the dry run's sharded count (``dryrun_path``), in a subprocess on the
    card's host (its torch may not be the tests'; the fake process group
    is a ``torch.testing._internal`` module): ``launch.dryrun.build_step``
@@ -5417,11 +5421,15 @@ DAG_LARGE_SEQ = 512
 # 44.2 GB at Jamba's cut, 31.4 GB at gemma2's) beside the activations; the
 # aggregate it cloned is freed first (core.coordinator._dispatch_one)
 DAG_LARGE_BATCHES = (8, 4, 2)
-DAG_LARGE_CLIENTS = (3, 2)      # the first whose store the host can hold
+# clients a leg: its store peaks at the genesis and 2 models a client.
+# Jamba's cut runs 2, not 3: the card machine's host has 108.4 GB
+# (103.5 available), and 7 of its 14.72 GB models take 103 GB
+DAG_MOE_CLIENTS = 2
+DAG_GEMMA2_CLIENTS = 3          # 7 models of 10.46 GB
 # the card machine's host returns a freed store's memory some seconds
 # later (73.6 GB: 30 % of it back 2 s after the free, 100 % after 30 s;
 # chip_probes.py host, call 4, PR 29): a leg waits up to this long for
-# the memory its store needs
+# the memory its store needs, and fails if it is not there by then
 DAG_HOST_WAIT_S = 90.0
 DAG_PARITY_CLIENTS = 4          # store_parity: the LM path's world
 # host bytes kept free beside the store (the process's own 6.2 GB are
@@ -5442,7 +5450,10 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     window), the scan once a Mamba layer a forward, one signature launch a
     signature call (all vec), no plain call, every stored leaf on the
     store's device, the peak leaving MOE_FREE_BYTES_MIN of the card free
-    and no allocator retry.  Returns (record, coordinator, result)."""
+    and no allocator retry.  Each kernel's first launch in the run
+    (flash's at each window) is then held against its plain version at
+    the loop's own shapes and timed (``hold_per_chip``).  Returns (record,
+    coordinator, result)."""
     import numpy as np
     import torch
     from repro_torch.core.aggregate import tree_leaves, tree_size_bytes
@@ -5495,7 +5506,7 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    with PlainMeter(kern) as plain:
+    with PlainMeter(kern) as plain, KernelInputs() as inputs:
         reset_launches(kern)                       # counts start here
         t0 = time.perf_counter()
         result = coord.run(init_model=box.pop())
@@ -5513,8 +5524,7 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
                                          signatures=calls["signature"],
                                          forwards=forwards)
     windows = expected_flash_windows(cfg, DAG_LARGE_SEQ, forwards)
-    resting = {leaf.device.type for tx in coord.ledger.transactions()
-               for leaf in tree_leaves(coord.store.resting(tx.model_ref))}
+    resting = {d.split(":")[0] for d in store["resting_devices"]}
     want_resting = {"cpu" if store_device == "cpu" else "cuda"}
     accs = [result.final_accuracy, result.best_accuracy,
             result.extra["tip_mean_accuracy"],
@@ -5551,6 +5561,13 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
           f"{leg}: accuracies {accs}")
     check(retries == 0, f"{leg}: {retries} allocator retries")
     card = check_free(leg, peak)
+    # flash's first launch is taken at each window it ran at
+    launched = {k for k, n in counted_launches["launches"].items()
+                if n and k != "flash"}
+    launched |= {"flash" if w == -1 else f"flash@{w}" for w in windows}
+    check(set(inputs.first) == launched, f"{leg}: first launches taken "
+          f"of {sorted(inputs.first)}, launched {sorted(launched)}")
+    held = hold_per_chip(kern, inputs.first, leg)
     record = dict(
         phase="dag_large_path", leg=leg, model=cfg.name,
         layers=[spec.kind for spec in cfg.layer_specs()],
@@ -5567,7 +5584,8 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
         tip_mean_accuracy=result.extra["tip_mean_accuracy"],
         client_mean_accuracy=result.extra["client_mean_accuracy"],
         history=result.history, sim_time=result.sim_time,
-        plain_calls=plain.calls, verify_full_dag=why, **counted_launches)
+        plain_calls=plain.calls, verify_full_dag=why, held=held,
+        **counted_launches)
     emit(**record)
     return record, coord, result
 
@@ -5618,12 +5636,14 @@ def dag_batch(leg: str, dev, cfg, host_genesis) -> dict:
                      f"{MOE_FREE_BYTES_MIN} bytes of the card free: {tried}")
 
 
-def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
-    """``dag_store_leg`` over a large config with the store in host
-    memory: the genesis drawn on the card from seed 0 and copied to host
-    memory, the clients the host can hold (DAG_LARGE_CLIENTS: the store
-    peaks at the genesis and 2 models a client, beside DAG_HOST_HEADROOM),
-    and the batch ``dag_batch`` picks."""
+def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int,
+                  clients: int) -> dict:
+    """``dag_store_leg`` over a large config on ``clients`` clients with
+    the store in host memory: the genesis drawn on the card from seed 0
+    and copied to host memory, and the batch ``dag_batch`` picks.  The
+    store peaks at the genesis and 2 models a client: the leg waits up to
+    DAG_HOST_WAIT_S for the host's MemAvailable to hold it beside
+    DAG_HOST_HEADROOM, and fails if it does not."""
     import gc
 
     import torch
@@ -5637,38 +5657,26 @@ def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int) -> dict:
     model_bytes = tree_size_bytes(genesis)
     host_genesis = ModelStore("cpu").rest(genesis)
     del genesis
-
-    def fits(available):
-        return [c for c in DAG_LARGE_CLIENTS if (1 + 2 * c) * model_bytes
-                <= available - DAG_HOST_HEADROOM]
-
-    # wait while the host is still taking freed memory back: until the
-    # most clients fit, MemAvailable rises by under 1 GB in 3 s, or
-    # DAG_HOST_WAIT_S has passed
-    t_wait, seen = time.perf_counter(), [meminfo()["MemAvailable"]]
-    while (fits(seen[-1])[:1] != list(DAG_LARGE_CLIENTS[:1])
-           and time.perf_counter() - t_wait < DAG_HOST_WAIT_S
-           and (len(seen) < 4 or seen[-1] - seen[-4] >= 1e9)):
+    need = (1 + 2 * clients) * model_bytes + DAG_HOST_HEADROOM
+    t_wait = time.perf_counter()
+    while (meminfo()["MemAvailable"] < need
+           and time.perf_counter() - t_wait < DAG_HOST_WAIT_S):
         time.sleep(1.0)
-        seen.append(meminfo()["MemAvailable"])
     host, host_wait_s = meminfo(), time.perf_counter() - t_wait
-    clients = fits(host["MemAvailable"])
-    check(bool(clients), f"{leg}: the host's {host} cannot hold a store "
-          f"of {1 + 2 * DAG_LARGE_CLIENTS[-1]} models of {model_bytes} "
-          f"bytes")
+    check(host["MemAvailable"] >= need, f"{leg}: after {host_wait_s:.0f} "
+          f"s the host's {host} cannot hold a store of {1 + 2 * clients} "
+          f"models of {model_bytes} bytes beside {DAG_HOST_HEADROOM:.0f}")
     sized = dag_batch(leg, dev, cfg, host_genesis)
     record, coord, result = dag_store_leg(
-        kern, dev, leg=leg, cfg=cfg, clients=clients[0],
-        batch=sized["batch"],
+        kern, dev, leg=leg, cfg=cfg, clients=clients, batch=sized["batch"],
         store_device="cpu", genesis=host_genesis,
         expected_params=expected_params)
     del coord, result, host_genesis
     record.update(host_at_start=host, host_wait_s=host_wait_s,
                   batches_tried=sized["tried"],
                   leg_s=time.perf_counter() - t_leg)
-    emit(phase="dag_large_path", leg=f"{leg}_sizes", clients=clients[0],
-         clients_tried=DAG_LARGE_CLIENTS, host_at_start=host,
-         host_wait_s=host_wait_s,
+    emit(phase="dag_large_path", leg=f"{leg}_sizes", clients=clients,
+         host_at_start=host, host_wait_s=host_wait_s,
          model_bytes=model_bytes, batch=sized["batch"],
          batches_tried=sized["tried"], leg_s=record["leg_s"])
     return record
@@ -5750,11 +5758,13 @@ def phase_dag_large_path(kern, dev) -> dict:
     and in host memory, equal to the bit (between the two large legs)."""
     t0 = time.perf_counter()
     legs = {"dag_moe": dag_large_leg(kern, dev, "dag_moe",
-                                     hybrid_moe_config(), MOE_PARAMS)}
+                                     hybrid_moe_config(), MOE_PARAMS,
+                                     DAG_MOE_CLIENTS)}
     # store_parity's small stores run while the host takes dag_moe's back
     legs.update(store_parity_leg(kern, dev))
     legs["dag_gemma2"] = dag_large_leg(kern, dev, "dag_gemma2",
-                                       gemma2_config(), GEMMA2_PARAMS)
+                                       gemma2_config(), GEMMA2_PARAMS,
+                                       DAG_GEMMA2_CLIENTS)
     emit(phase="dag_large_path_done", seconds=time.perf_counter() - t0)
     return legs
 
@@ -5867,8 +5877,10 @@ def sharded_config(cfg):
 class KernelInputs:
     """While entered, the inputs of each kernel's first launch, cloned,
     taken where ``kernels.ops`` calls the kernels; restores them on
-    exit.  The chips take turns (``launch.mesh.run_on_chips``), so the
-    first launch is one chip's, at its block's shape."""
+    exit.  Flash's are taken at each sliding window it runs at (keyed
+    ``flash@<window>``; ``flash`` without one).  The chips take turns
+    (``launch.mesh.run_on_chips``), so the first launch is one chip's, at
+    its block's shape."""
     NAMES = {"flash": "flash_attention_bhsd", "scan": "selective_scan_bsd",
              "mlstm": "mlstm_chunkwise_bshd", "slstm": "slstm_scan_bsd",
              "signature": "signature_counts"}
@@ -5883,6 +5895,8 @@ class KernelInputs:
         self.inner = {k: getattr(ops, n) for k, n in self.NAMES.items()}
         for key, name in self.NAMES.items():
             def kept(*a, _key=key, _fn=self.inner[key], **kw):
+                if _key == "flash" and kw.get("window", -1) > 0:
+                    _key = f"flash@{kw['window']}"
                 if _key not in self.first:
                     self.first[_key] = (
                         [t.detach().clone() if torch.is_tensor(t) else t
@@ -5906,9 +5920,10 @@ def _outputs(x) -> list:
 
 
 def hold_per_chip(kern, captured: dict, leg: str) -> dict:
-    """Each kernel's first launch of a leg, at one chip's block, held
-    against its plain version on the same inputs at the tolerances of
-    the kernel phases (the signature bit for bit), and timed beside it."""
+    """Each kernel's first launch of a leg (``KernelInputs``; on a mesh,
+    at one chip's block) held against its plain version on the same
+    inputs at the tolerances of the kernel phases (the signature bit for
+    bit), and timed beside it."""
     import torch
     fa, ss, ml, sl, sig = (kern[k] for k in ("fa", "ss", "ml", "sl", "sig"))
     pairs = {"flash": (fa.flash_attention_bhsd, fa.flash_attention_plain),
@@ -5918,27 +5933,27 @@ def hold_per_chip(kern, captured: dict, leg: str) -> dict:
              "signature": (sig.signature_counts, sig.signature_counts_plain)}
     out = {}
     for key, (args, kw) in captured.items():
-        kernel, plain = pairs[key]
+        kernel, plain = pairs[key.split("@")[0]]
         got, want = _outputs(kernel(*args, **kw)), _outputs(plain(*args,
                                                                   **kw))
         tols = {"flash": [FLASH_TOL[str(args[0].dtype).split(".")[-1]]],
                 "scan": [SCAN_TOL], "mlstm": [MLSTM_TOL],
                 "slstm": [SLSTM_TOL["hs"]] + [SLSTM_TOL["state"]] * 4,
-                "signature": [0.0]}[key]
+                "signature": [0.0]}[key.split("@")[0]]
         err = 0.0
         for i, (a, b) in enumerate(zip(got, want)):
             tol = tols[min(i, len(tols) - 1)]
             diff = (a.float() - b.float()).abs()
             err = max(err, diff.max().item())
             check(bool((diff <= tol + tol * b.float().abs()).all()),
-                  f"{leg}: the {key} kernel at one chip's "
+                  f"{leg}: the {key} kernel at "
                   f"{[list(t.shape) for t in args if torch.is_tensor(t)]} "
                   f"!= its plain version: max |diff| {err}")
         ms = device_ms(lambda a: kernel(*a, **kw), [args], 20)
         plain_ms = device_ms(lambda a: plain(*a, **kw), [args], 2)
         # flash as (B, H, K, S, hd) from its (B, H, S, hd) q and k
         shape = ([*args[0].shape[:2], args[1].shape[1], *args[0].shape[2:]]
-                 if key == "flash" else list(args[0].shape))
+                 if key.startswith("flash") else list(args[0].shape))
         out[key] = {"shape": shape,
                     "dtype": str(args[0].dtype).split(".")[-1],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -6667,6 +6682,12 @@ def main() -> None:
         record["per_chip"] = {name: p["per_chip"][key]
                               for name, p in sharded.items()
                               if key in p.get("per_chip", {})}
+        # the DAG loops over the large configs: the first launch at the
+        # loop's own shapes (flash's at each window, ``leg@window``)
+        record["dag_loop"] = {name + held[len(key):]: p["held"][held]
+                              for name, p in dag_large.items()
+                              for held in p["held"]
+                              if held.split("@")[0] == key}
     sig_record["launches_by_route"] = {
         "cnn": cnn["signature_routes"],
         "cnn_cohort": cohort["signature_routes"],

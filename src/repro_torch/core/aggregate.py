@@ -134,35 +134,21 @@ def f32_mean(x: torch.Tensor, dim=None, keepdim: bool = False
     return total * float(np.float32(1) / np.float32(n))
 
 
-def _leaf_mean(leaves: Sequence, scale: float):
-    """One leaf of Eq. 6: the float32 sum left to right times ``scale``;
-    a non-float leaf is the first model's."""
+def leaf_mean(leaves: Sequence):
+    """One leaf of Eq. 6 over k models' copies of it: the float32 sum left
+    to right times the float32 reciprocal of k; a non-float leaf is the
+    first model's."""
     if not leaves[0].is_floating_point():
         return leaves[0]
     acc = leaves[0].float()
     for leaf in leaves[1:]:
         acc = acc + leaf.float()
-    return acc * scale
+    return acc * float(np.float32(1) / np.float32(len(leaves)))
 
 
 def tree_mean(models: Sequence):
     """Eq. 6: w = (1/N) * sum_i w_i  over a list of congruent trees."""
-    scale = float(np.float32(1) / np.float32(len(models)))
-    return tree_map(lambda *leaves: _leaf_mean(leaves, scale), *models)
-
-
-def tree_mean_streamed(store, refs: Sequence[str], device=None):
-    """Eq. 6 over the models a ``core.dag.ModelStore`` keeps under
-    ``refs``, on ``device``, one leaf at a time: the k models' copies of a
-    leaf are fetched, added in :func:`tree_mean`'s order and scaled by the
-    same float32 reciprocal, so the result has :func:`tree_mean`'s bits
-    over the whole models fetched to ``device``, while ``device`` holds at
-    most the result and k copies of one leaf.  Each ref counts as one
-    ``get`` in ``store.bytes_transferred``."""
-    models = [store.resting(r) for r in refs]
-    scale = float(np.float32(1) / np.float32(len(models)))
-    return tree_map(lambda *leaves: _leaf_mean(
-        [store.fetch(leaf, device) for leaf in leaves], scale), *models)
+    return tree_map(lambda *leaves: leaf_mean(leaves), *models)
 
 
 def tree_weighted(models: Sequence, weights: Sequence[float]):

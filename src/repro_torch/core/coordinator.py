@@ -44,7 +44,7 @@ keeps them where the backend made them; ``"cpu"`` keeps them in host
 memory, the port's own choice for models that the card cannot hold beside
 a training client.  Every read then copies a model to the backend's device
 when the loop needs it, one at a time where the loop allows: a tip's
-validation, Eq. 6 (streamed leaf by leaf, ``tree_mean_streamed``), the
+validation, Eq. 6 (streamed leaf by leaf, ``ModelStore.mean``), the
 global model, and the final sweep, which on the sequential path fetches and
 evaluates one client's model at a time.  A trained model moves to the
 store's device as soon as it is validated and signed, ahead of its publish
@@ -59,9 +59,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import (stacked_weighted, tree_mean_streamed,
-                                        tree_size_bytes, tree_stack,
-                                        tree_unstack)
+from repro_torch.core.aggregate import (stacked_weighted, tree_size_bytes,
+                                        tree_stack, tree_unstack)
 from repro_torch.core.dag import (BoundedDAGLedger, DAGLedger, ModelStore,
                                   TxMetadata)
 from repro_torch.core.signature import SimilarityContract
@@ -389,17 +388,17 @@ class DagAflCoordinator:
         cohort windows of one."""
         client = rd["client"]
         train = self.client_data[client]["train"]
-        if self.scenario is None:
-            # nothing reads the aggregate once training has cloned it:
-            # passed as a temporary, it is freed there, before the
-            # gradients and the optimizer state take the card's memory
-            model, _ = self.backend.train_local(
-                tree_mean_streamed(self.store, rd["refs"], self._device),
-                train, seed=rd["seed"], epochs=self.cfg.local_epochs)
-        else:
-            agg = tree_mean_streamed(self.store, rd["refs"], self._device)
-            model, _ = self.backend.train_local(
-                agg, train, seed=rd["seed"], epochs=self.cfg.local_epochs)
+        # the aggregate is kept only where a scenario reads it after
+        # training; else it goes to train_local as a temporary and is
+        # freed once cloned, before the gradients and the optimizer state
+        # take the card's memory
+        agg = (self.store.mean(rd["refs"], self._device)
+               if self.scenario is not None else None)
+        model, _ = self.backend.train_local(
+            agg if agg is not None
+            else self.store.mean(rd["refs"], self._device),
+            train, seed=rd["seed"], epochs=self.cfg.local_epochs)
+        if agg is not None:
             model = self._scenario_update_one(client, agg, model)
             del agg
         acc = self.backend.evaluate(model, self.client_data[client]["val"])
@@ -540,8 +539,7 @@ class DagAflCoordinator:
     def global_model(self):
         """Average of the models at the current tips (publisher's view)."""
         refs = [self.ledger.get_tx(t).model_ref for t in self.ledger.tips()]
-        return (tree_mean_streamed(self.store, refs, self._device) if refs
-                else None)
+        return self.store.mean(refs, self._device) if refs else None
 
     def _serving_config(self):
         """The effective ServingConfig, or None when serving is off."""

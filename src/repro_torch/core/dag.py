@@ -42,13 +42,15 @@ import heapq
 import json
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Protocol, Sequence, Tuple, runtime_checkable)
 
 import torch
 
-from repro_torch.core.aggregate import tree_map, tree_size_bytes
+from repro_torch.core.aggregate import (leaf_mean, tree_leaves, tree_map,
+                                        tree_mean, tree_size_bytes)
 
 
 @dataclass(frozen=True)
@@ -184,8 +186,8 @@ def _indexed(device) -> torch.device:
 
 class PinnedStaging:
     """Tensor copies between host memory and a card through two fixed
-    pinned buffers of ``chunk_bytes``: the card's copy engine fills or
-    drains one buffer while the host copies the other to or from the
+    pinned buffers of ``chunk_bytes`` a card: the card's copy engine fills
+    or drains one buffer while the host copies the other to or from the
     pageable tensor (``copy_`` on the host runs on torch's intra-op
     threads).  On an H100's host (``chip_probes.py store``) this moved a
     14.7 GB model to the card 4-6x faster than ``Tensor.to`` from pageable
@@ -195,12 +197,13 @@ class PinnedStaging:
     made.  Any other pair of devices copies directly; a copy to the
     tensor's own device is a clone.  The card's copies run on its current
     stream, so the work queued there before and after stays ordered
-    around them."""
+    around them.  Each card has buffers and events of its own, so a copy
+    queued to one card never reads a buffer that a copy to another is
+    refilling."""
 
     def __init__(self, chunk_bytes: int = 1 << 25):
         self.chunk_bytes = chunk_bytes
-        self._buffers: List[torch.Tensor] = []
-        self._events: Dict[torch.device, List] = {}
+        self._staged: Dict[torch.device, Tuple[List, List]] = {}
 
     def copy(self, t: torch.Tensor, device) -> torch.Tensor:
         device = _indexed(device)
@@ -209,53 +212,59 @@ class PinnedStaging:
         if {t.device.type, device.type} != {"cpu", "cuda"} or t.numel() == 0:
             return t.to(device)
         card = device if device.type == "cuda" else t.device
-        if not self._buffers:
-            self._buffers = [torch.empty(self.chunk_bytes, dtype=torch.uint8,
-                                         pin_memory=True) for _ in range(2)]
-        if card not in self._events:
-            with torch.cuda.device(card):
-                self._events[card] = [torch.cuda.Event() for _ in range(2)]
         out = torch.empty(t.shape, dtype=t.dtype, device=device)
         src = t.contiguous().view(-1).view(torch.uint8)
         dst = out.view(-1).view(torch.uint8)
         with torch.cuda.device(card):
+            buffers, events = self._card(card)
             if device.type == "cpu":
-                self._to_host(src, dst, self._events[card])
+                self._to_host(src, dst, buffers, events)
             else:
-                self._to_card(src, dst, self._events[card])
+                self._to_card(src, dst, buffers, events)
         return out
+
+    def _card(self, card: torch.device) -> Tuple[List, List]:
+        """The card's two pinned buffers and their events, made at its
+        first copy."""
+        if card not in self._staged:
+            self._staged[card] = (
+                [torch.empty(self.chunk_bytes, dtype=torch.uint8,
+                             pin_memory=True) for _ in range(2)],
+                [torch.cuda.Event() for _ in range(2)])
+        return self._staged[card]
 
     def _chunks(self, n: int):
         for i, start in enumerate(range(0, n, self.chunk_bytes)):
             yield i % 2, slice(start, min(start + self.chunk_bytes, n))
 
-    def _to_host(self, src, dst, events) -> None:
+    def _to_host(self, src, dst, buffers, events) -> None:
         """Card -> host: the copy engine fills buffer b while the host
         drains the other, filled one chunk earlier."""
         pending = None
         for b, part in self._chunks(src.numel()):
             n = part.stop - part.start
-            self._buffers[b][:n].copy_(src[part], non_blocking=True)
+            buffers[b][:n].copy_(src[part], non_blocking=True)
             events[b].record()
             if pending is not None:
-                self._drain(pending, dst, events)
+                self._drain(pending, dst, buffers, events)
             pending = (b, part)
         if pending is not None:
-            self._drain(pending, dst, events)
+            self._drain(pending, dst, buffers, events)
 
-    def _drain(self, pending, dst, events) -> None:
+    @staticmethod
+    def _drain(pending, dst, buffers, events) -> None:
         b, part = pending
         events[b].synchronize()
-        dst[part].copy_(self._buffers[b][:part.stop - part.start])
+        dst[part].copy_(buffers[b][:part.stop - part.start])
 
-    def _to_card(self, src, dst, events) -> None:
+    def _to_card(self, src, dst, buffers, events) -> None:
         """Host -> card: the host fills buffer b once the copy engine has
         read it (its event), then queues its copy to the card."""
         for b, part in self._chunks(src.numel()):
             n = part.stop - part.start
             events[b].synchronize()
-            self._buffers[b][:n].copy_(src[part])
-            dst[part].copy_(self._buffers[b][:n], non_blocking=True)
+            buffers[b][:n].copy_(src[part])
+            dst[part].copy_(buffers[b][:n], non_blocking=True)
             events[b].record()
 
 
@@ -270,13 +279,12 @@ class ModelStore:
     same objects back.  A device (``"cpu"``: host memory, the port's own
     choice for models that the card cannot hold beside a training client)
     makes the store keep each model there: :meth:`put` copies in what
-    rests elsewhere (:meth:`rest`), and each read copies the model, or one
-    leaf of it (:meth:`resting` and :meth:`fetch`), out to the device the
-    reader names, so a reader's in-place change never reaches the stored
-    model.
-    A store that rests models on the card raises when the card is full;
-    nothing moves to the host on its own.  Copies between the host and a
-    card go through :class:`PinnedStaging`.
+    rests elsewhere (:meth:`rest`), and each read copies the model out to
+    the device the reader names, so a reader's in-place change never
+    reaches the stored model; :meth:`mean` copies one leaf of each model
+    at a time.  A store that rests models on the card raises when the card
+    is full; nothing moves to the host on its own.  Copies between the
+    host and a card go through :class:`PinnedStaging`.
 
     ``bytes_transferred`` counts every read as the reference counts a
     ``get``.  ``readings()`` adds the store's own copy bytes and seconds
@@ -307,60 +315,90 @@ class ModelStore:
         kept, the others copied in (the same tree without a device)."""
         if self.device is None:
             return model
-        return tree_map(lambda leaf: leaf if not isinstance(
-            leaf, torch.Tensor) or leaf.device == self.device
-            else self._copy(leaf, self.device, "in"), model)
+        away = [leaf for leaf in tree_leaves(model)
+                if isinstance(leaf, torch.Tensor)
+                and leaf.device != self.device]
+        with self._timed("in", [leaf.device for leaf in away]):
+            return tree_map(lambda leaf: leaf if not isinstance(
+                leaf, torch.Tensor) or leaf.device == self.device
+                else self._copy(leaf, self.device, "in"), model)
 
     def get(self, key: str, device=None):
         """The model stored under ``key``; where the store rests models, a
         copy of it on ``device`` (default: the resting device)."""
-        model = self.resting(key)
+        model = self._read(key)
         if self.device is None:
             return model
-        return tree_map(lambda leaf: self.fetch(leaf, device), model)
+        device = self._target(device)
+        with self._timed("out", [device]):
+            return tree_map(lambda leaf: self._copy(leaf, device, "out"),
+                            model)
 
-    def resting(self, key: str):
-        """The stored tree itself, counted as one :meth:`get`: for a reader
-        that copies it out leaf by leaf with :meth:`fetch` and changes
-        nothing in it (``core.aggregate.tree_mean_streamed``)."""
+    def mean(self, refs: Sequence[str], device=None):
+        """Eq. 6 over the models stored under ``refs``: ``tree_mean``'s
+        bits over the models :meth:`get` would return on ``device``.  Where
+        the store rests models, it copies the k models' copies of one leaf
+        at a time to ``device`` and adds them there
+        (``core.aggregate.leaf_mean``), so ``device`` holds at most the
+        result and k copies of one leaf.  Each ref counts as one
+        :meth:`get`."""
+        models = [self._read(r) for r in refs]
+        if self.device is None:
+            return tree_mean(models)
+        device = self._target(device)
+        with self._timed("out", [device]):
+            return tree_map(lambda *leaves: leaf_mean(
+                [self._copy(leaf, device, "out") for leaf in leaves]),
+                *models)
+
+    def _read(self, key: str):
         model = self._store[key]
         self.bytes_transferred += tree_size_bytes(model)
         return model
 
-    def fetch(self, leaf, device=None):
-        """One leaf of a :meth:`resting` tree on ``device`` (default: the
-        resting device): a copy where the store rests models, else the
-        leaf itself."""
-        if self.device is None:
-            return leaf
-        return self._copy(leaf, self.device if device is None
-                          else _indexed(device), "out")
+    def _target(self, device) -> torch.device:
+        return self.device if device is None else _indexed(device)
 
     def _copy(self, leaf, device: torch.device, way: str):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        cards = {d for d in (leaf.device, device) if d.type == "cuda"}
-        for card in cards:              # the copy's own time, not the
-            torch.cuda.synchronize(card)  # queued work's before it
-        t0 = time.perf_counter()
-        out = self._staging.copy(leaf, device)
+        self._copied[way][0] += leaf.numel() * leaf.element_size()
+        return self._staging.copy(leaf, device)
+
+    @contextmanager
+    def _timed(self, way: str, devices: Iterable[torch.device]):
+        """The seconds of one tree's copies (of one :meth:`mean`, its adds
+        on the card too), added to ``way``'s: each card involved finishes
+        the work queued before, which is not counted, and the copies."""
+        cards = {d for d in (*devices, self.device)
+                 if d is not None and d.type == "cuda"}
         for card in cards:
             torch.cuda.synchronize(card)
-        self._copied[way][0] += leaf.numel() * leaf.element_size()
-        self._copied[way][1] += time.perf_counter() - t0
-        return out
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            for card in cards:
+                torch.cuda.synchronize(card)
+            self._copied[way][1] += time.perf_counter() - t0
 
     def readings(self) -> Dict[str, object]:
         """Copy bytes and seconds into the store (``in``: each
-        :meth:`put`) and out of it (``out``: each read), and the bytes
-        resting in it now and at most."""
+        :meth:`put`) and out of it (``out``: each read; a :meth:`mean`'s
+        seconds include its adds, which read each copy once more at the
+        card's memory rate), the bytes resting in it now and at most, and
+        the devices its leaves rest on."""
         return {"device": None if self.device is None else str(self.device),
                 "in_bytes": self._copied["in"][0],
                 "in_s": self._copied["in"][1],
                 "out_bytes": self._copied["out"][0],
                 "out_s": self._copied["out"][1],
                 "resting_bytes": self._resting_bytes,
-                "peak_resting_bytes": self._peak_resting_bytes}
+                "peak_resting_bytes": self._peak_resting_bytes,
+                "resting_devices": sorted({
+                    str(leaf.device) for model in self._store.values()
+                    for leaf in tree_leaves(model)
+                    if isinstance(leaf, torch.Tensor)})}
 
     def evict(self, key: str):
         model = self._store.pop(key, None)

@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import tree_leaves, tree_mean_streamed
+from repro_torch.core.aggregate import tree_leaves
 
 
 # -- configuration -----------------------------------------------------------
@@ -82,7 +82,7 @@ def consensus_over_refs(store, refs, device=None):
     """Eq. 6 over an explicit ref list (the replica's pinned frontier), on
     ``device`` where the store rests its models elsewhere (host memory):
     streamed from the store leaf by leaf, with ``tree_mean``'s bits."""
-    return tree_mean_streamed(store, refs, device)
+    return store.mean(refs, device)
 
 
 def frontier_snapshot(ledger) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:

@@ -1301,8 +1301,7 @@ def test_model_store_in_host_memory_round_trip_on_card(card, chunk):
     bit, a changed copy leaves the stored model as it was, and the
     streamed Eq. 6 on the card equals ``tree_mean`` over the fetched
     models bit for bit."""
-    from repro_torch.core.aggregate import (tree_leaves, tree_mean,
-                                            tree_mean_streamed)
+    from repro_torch.core.aggregate import tree_leaves, tree_mean
     from repro_torch.core.dag import ModelStore, PinnedStaging
     g = torch.Generator(device=card).manual_seed(3)
     models = [{"w": torch.randn(1000, 37, generator=g, device=card),
@@ -1313,9 +1312,8 @@ def test_model_store_in_host_memory_round_trip_on_card(card, chunk):
     store = ModelStore("cpu")
     store._staging = PinnedStaging(chunk)
     refs = [store.put(f"m{i}", m) for i, m in enumerate(models)]
+    assert store.readings()["resting_devices"] == ["cpu"]
     for ref, model in zip(refs, models):
-        assert all(t.device.type == "cpu"
-                   for t in tree_leaves(store.resting(ref)))
         back = store.get(ref, card)
         assert all(a.device == b.device and torch.equal(a, b) for a, b in
                    zip(tree_leaves(back), tree_leaves(model)))
@@ -1324,7 +1322,7 @@ def test_model_store_in_host_memory_round_trip_on_card(card, chunk):
         assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
             tree_leaves(store.get(ref, card)), tree_leaves(model)))
     want = tree_mean([store.get(r, card) for r in refs])
-    got = tree_mean_streamed(store, refs, card)
+    got = store.mean(refs, card)
     assert all(a.device == b.device and torch.equal(a, b)
                for a, b in zip(tree_leaves(got), tree_leaves(want)))
     readings = store.readings()
@@ -1334,8 +1332,9 @@ def test_model_store_in_host_memory_round_trip_on_card(card, chunk):
     # was given and hands out copies
     on_card = ModelStore("cuda")
     on_card.put("m", models[0])
-    assert all(a is b for a, b in zip(tree_leaves(on_card.resting("m")),
-                                      tree_leaves(models[0])))
+    assert on_card.readings()["in_bytes"] == 0
+    assert on_card.readings()["resting_devices"] == [
+        str(models[0]["w"].device)]
     got = on_card.get("m", "cuda")
     assert all(a.data_ptr() != b.data_ptr() and torch.equal(a, b)
                for a, b in zip(tree_leaves(got), tree_leaves(models[0])))

@@ -6,8 +6,9 @@ the coordinator over a store in host memory.
   asked for, and a copy changed in place leaves the stored model as it was;
 * ``bytes_transferred`` equals the reference ``ModelStore``'s on the same
   sequence of ``put``, ``get`` and ``evict`` calls;
-* ``tree_mean_streamed`` equals ``tree_mean`` bit for bit for 1 to 4
-  models, float and non-float leaves (the first model's leaf is kept);
+* ``ModelStore.mean`` (Eq. 6 streamed leaf by leaf) equals ``tree_mean``
+  bit for bit for 1 to 4 models, float and non-float leaves (the first
+  model's leaf is kept);
 * ``PinnedStaging``'s chunked copies put every byte in place at chunk
   sizes that split the tensors anywhere (CPU buffers, no-op events);
 * a reduced Jamba MoE coordinator run with ``store_device="cpu"`` gives
@@ -30,10 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.dag import ModelStore as JModelStore  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.core import coordinator as coord_mod  # noqa: E402
 from repro_torch.core.aggregate import (tree_leaves, tree_map,  # noqa: E402
-                                        tree_mean, tree_mean_streamed,
-                                        tree_size_bytes)
+                                        tree_mean, tree_size_bytes)
 from repro_torch.core.coordinator import (DagAflConfig,  # noqa: E402
                                           DagAflCoordinator)
 from repro_torch.core.dag import ModelStore, PinnedStaging  # noqa: E402
@@ -71,10 +70,11 @@ def test_store_without_device_hands_back_the_same_objects():
     store.put("a", model)
     assert store.get("a") is model
     assert store.get("a", "cpu") is model
-    assert store.resting("a") is model
-    assert store.fetch(model["w"], "cpu") is model["w"]
     assert store.rest(model) is model
-    assert store.readings()["out_bytes"] == 0
+    assert _bit_equal(store.mean(["a"], "cpu"), tree_mean([model]))
+    readings = store.readings()
+    assert readings["in_bytes"] == readings["out_bytes"] == 0
+    assert readings["resting_devices"] == ["cpu"]
 
 
 def test_store_on_the_host_returns_equal_bits_on_the_device_asked():
@@ -94,6 +94,7 @@ def test_store_on_the_host_returns_equal_bits_on_the_device_asked():
     assert readings["in_bytes"] == 0           # it rested there already
     assert readings["resting_bytes"] == readings["peak_resting_bytes"] \
         == size
+    assert readings["resting_devices"] == ["cpu"]
     store.evict("a")
     assert "a" not in store and store.readings()["resting_bytes"] == 0
 
@@ -104,8 +105,8 @@ def test_a_fetched_model_changed_in_place_leaves_the_store_unchanged():
     got = store.get("a", "cpu")
     for leaf in tree_leaves(got):
         leaf.add_(1)
-    leaf = store.fetch(store.resting("a")["w"], "cpu")
-    leaf.mul_(3)
+    store.mean(["a"], "cpu")["w"].mul_(3)
+    store.get("a")["w"].sub_(2)
     assert _bit_equal(store.get("a", "cpu"), _torch_model(2))
 
 
@@ -129,7 +130,7 @@ def test_bytes_transferred_equals_the_reference(device):
         else:                          # Eq. 6 reads each ref once
             for r in step[1]:
                 ref.get(r)
-            tree_mean_streamed(got, step[1], "cpu")
+            got.mean(step[1], "cpu")
         assert got.bytes_transferred == ref.bytes_transferred, step
         assert len(got) == len(ref)
     assert ref.bytes_transferred > 0
@@ -141,7 +142,7 @@ def test_streamed_mean_equals_tree_mean(k, device):
     store = ModelStore(device)
     refs = [store.put(f"m{i}", _torch_model(10 + i)) for i in range(k)]
     want = tree_mean([store.get(r, "cpu") for r in refs])
-    got = tree_mean_streamed(store, refs, "cpu")
+    got = store.mean(refs, "cpu")
     assert _bit_equal(got, want)
     # the non-float leaf is the first model's; float leaves are float32
     assert torch.equal(got["step"], _torch_model(10)["step"])
@@ -168,14 +169,13 @@ class _Event:
 @pytest.mark.parametrize("chunk", [1, 7, 64, 4096])
 def test_pinned_staging_chunks_put_every_byte_in_place(chunk):
     staging = PinnedStaging(chunk)
-    staging._buffers = [torch.empty(chunk, dtype=torch.uint8)
-                        for _ in range(2)]
+    buffers = [torch.empty(chunk, dtype=torch.uint8) for _ in range(2)]
     rng = np.random.default_rng(chunk)
     for n in (1, 6, 7, 8, 13, 129, 4097):
         src = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8))
         for copy in (staging._to_host, staging._to_card):
             dst = torch.zeros(n, dtype=torch.uint8)
-            copy(src, dst, [_Event(), _Event()])
+            copy(src, dst, buffers, [_Event(), _Event()])
             assert torch.equal(src, dst), (copy.__name__, n)
 
 
@@ -208,13 +208,7 @@ def test_moe_coordinator_with_a_host_store_equals_the_default(monkeypatch):
     cfg, data, test = _moe_world()
     kw = dict(n_clients=3, max_rounds=2, local_epochs=2, seed=0)
     aggregates, freed = [], []
-    inner_mean = coord_mod.tree_mean_streamed
     inner_init_opt = LMBackend.init_opt
-
-    def mean(*args):
-        out = inner_mean(*args)
-        aggregates.append([weakref.ref(leaf) for leaf in tree_leaves(out)])
-        return out
 
     def init_opt(self, params):
         freed.append(all(r() is None for r in aggregates[-1]))
@@ -227,7 +221,13 @@ def test_moe_coordinator_with_a_host_store_equals_the_default(monkeypatch):
         coord = DagAflCoordinator(backend, data, test, DagAflConfig(**kw),
                                   store_device=device)
         if device == "cpu":
-            monkeypatch.setattr(coord_mod, "tree_mean_streamed", mean)
+            def mean(*args, _inner=coord.store.mean):
+                out = _inner(*args)
+                aggregates.append([weakref.ref(leaf)
+                                   for leaf in tree_leaves(out)])
+                return out
+
+            monkeypatch.setattr(coord.store, "mean", mean)
             monkeypatch.setattr(LMBackend, "init_opt", init_opt)
         runs[device] = (coord, coord.run(genesis))
     (c_none, r_none), (c_cpu, r_cpu) = runs[None], runs["cpu"]
