@@ -7,6 +7,7 @@ of a checkout:
     python3 chip_probes.py remat    # train_local with remat on and off
     python3 chip_probes.py store    # a host-resting model store's copies
     python3 chip_probes.py host     # host memory as a store fills, empties
+    python3 chip_probes.py grads    # a client's peak, step gradients held
 
 ``memory`` builds the kernels and runs ``chip_smoke.moe_train_leg`` (10
 AdamW steps of ``launch.train.train_single``, with every gate of the leg)
@@ -39,6 +40,15 @@ each model back to the card (seconds), empties the store and reads
 MemAvailable at once, after ``gc.collect()``, after glibc's
 ``malloc_trim(0)`` and 2, 10 and 30 s later: whether the memory of one
 leg's store comes back before the next leg.
+
+``grads`` runs one ``LMBackend.train_local`` call (2 SGD steps, no
+kernel) from a host model copied to the card, as the DAG loop passes its
+aggregate, at deepseek-v2's cut (``chip_smoke.mla_config``, 20.77 GB) at
+8, 4 and 1 x 512 and at Jamba's MoE cut at 8 x 512, twice each: as
+``train_local`` runs, each step's gradients freed before the next step,
+and with each step's gradients held until the next step's update, as the
+``grads`` tree of ``train_local`` held them before: the peak, the
+allocator's retries, or the out-of-memory message.
 
 Each measurement prints one JSON line; the card's name and power limit
 come first.
@@ -300,11 +310,62 @@ def host_probe(dev) -> None:
         cs.emit(probe="host", step=f"after {wait} s more", host=cs.meminfo())
 
 
+def grads_probe(dev) -> None:
+    import torch
+    from repro_torch.core.aggregate import tree_map, tree_size_bytes
+    from repro_torch.core.dag import ModelStore, PinnedStaging
+    from repro_torch.fl.backend import LMBackend
+
+    staging = PinnedStaging()
+    streams, _ = cs.lm_streams(1)
+    for name, cfg, batches in (("mla", cs.mla_config(), (8, 4, 1)),
+                               ("jamba_moe", cs.hybrid_moe_config(), (8,))):
+        host = ModelStore("cpu").rest(cs.draw_genesis(cfg, dev))
+        for batch in batches:
+            for held in (False, True):
+                backend = LMBackend(cfg, lr=3e-3, local_steps=2,
+                                    batch_size=batch, seq_len=512)
+                if held:                   # the previous step's gradients
+                    kept, update = [], backend.opt.update  # live on
+
+                    def holding(grads, *a, _kept=kept, _update=update):
+                        _kept[:] = [grads]
+                        return _update(grads, *a)
+                    backend.opt = backend.opt._replace(update=holding)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                stats = torch.cuda.memory_stats()
+                retries = stats.get("num_alloc_retries", 0)
+                try:
+                    trained, _ = backend.train_local(
+                        tree_map(lambda t: staging.copy(t, dev), host),
+                        streams[0], seed=0)
+                    del trained
+                    torch.cuda.synchronize()
+                    failed = None
+                except torch.cuda.OutOfMemoryError as e:
+                    failed = str(e).split(". ")[0][:300]
+                if held:
+                    kept.clear()
+                cs.emit(probe="grads", config=name, batch=batch,
+                        seq_len=512, gradients_held=held,
+                        model_bytes=tree_size_bytes(host),
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        alloc_retries=torch.cuda.memory_stats().get(
+                            "num_alloc_retries", 0) - retries,
+                        failed=failed, card_bytes=torch.cuda
+                        .get_device_properties(0).total_memory)
+        del host
+
+
 def main(argv) -> None:
     import torch
     if len(argv) != 1 or argv[0] not in ("memory", "remat", "store",
-                                         "host"):
-        raise SystemExit("usage: chip_probes.py memory|remat|store|host")
+                                         "host", "grads"):
+        raise SystemExit(
+            "usage: chip_probes.py memory|remat|store|host|grads")
     if not torch.cuda.is_available():
         raise SystemExit("chip_probes: CUDA is not available")
     from repro_torch import runtime
@@ -312,7 +373,7 @@ def main(argv) -> None:
     dev = runtime.resolve_device("cuda")
     print(cs.phase_environment(build), flush=True)
     {"memory": memory_probe, "remat": remat_probe, "store": store_probe,
-     "host": host_probe}[argv[0]](dev)
+     "host": host_probe, "grads": grads_probe}[argv[0]](dev)
 
 
 if __name__ == "__main__":

@@ -84,14 +84,14 @@ Phases, each printing one JSON line:
    on this path and the next two); and the
    kernel forward of the final global model held against its
    plain-attention forward on the card; then one profiled backend round;
-9. the hybrid path: the same loop over three jamba-v0.1-52b clients at
+9. the hybrid path: the same loop over two jamba-v0.1-52b clients at
    full width, depth cut to one Mamba and one attention layer with dense
    feed-forward layers (its MoE layers are phase 15's), with the launch
    counts set to 0 just before and read just after; the kernel forward
    (selective scan and flash attention) held against the plain forward
    (the model's chunked scan and dense attention) on the card; then one
    profiled backend round;
-10. the xLSTM path: the same loop over three xlstm-125m clients at full
+10. the xLSTM path: the same loop over two xlstm-125m clients at full
    width, depth cut to one published period ([mLSTM x3, sLSTM],
    70,563,864 parameters: with remat its sLSTM step loop runs twice a
    training step), the
@@ -115,14 +115,14 @@ Phases, each printing one JSON line:
    at every position of the validation forwards equal to ``evaluate``'s,
    signatures within one flag of a row (1/(S*w)) per bucket;
 12. the train path: ``launch.train.train_single`` on internlm2 at the LM
-   path's width, 10 AdamW steps (clip 1.0, the signature in the metrics)
+   path's width, 5 AdamW steps (clip 1.0, the signature in the metrics)
    over a ``TokenPipeline`` of the sub-vocabulary, batch 8 x 512: a finite
    loss whose last 3 steps' mean is below step 0's, one signature launch a
    step on the vec route and no other kernel, a checkpoint round trip bit
    for bit, and one eval step on the kernels; then one SGD and one AdamW
    step on 4,096 parameters on the card and on the CPU, bit for bit;
 13. the serve path: ``launch.serve.serve`` at full width (weights and
-   prompts from seed 0, batch 8, a 512-token prompt, 64 new tokens) over
+   prompts from seed 0, batch 8, a 512-token prompt, 16 new tokens) over
    internlm2 (4 layers), the Jamba cut and xlstm-125m, with the launch
    counts set to 0 just before and read just after (one prefill: each
    kernel once a layer of its kind, flash on the sm90 route, no plain
@@ -131,7 +131,7 @@ Phases, each printing one JSON line:
    the same weights and prompts in float32 compute, each step's logits
    within the reference's 2e-2 of a teacher-forced full forward, the
    greedy tokens its argmax wherever the top-2 gap exceeds twice the
-   error, every attention cache grown by 64 slots; the bfloat16 readings
+   error, every attention cache grown by 16 slots; the bfloat16 readings
    beside it;
 14. the serving path: ``DagAflCoordinator`` with serving on, over the CNN
    path's world and the LM path's (cadence a quarter of the path's
@@ -155,7 +155,7 @@ Phases, each printing one JSON line:
    the plain forward in float32 (at least 99.9% of the tokens routed to
    the same experts, logits within the reference's 2e-2 on those) and in
    bfloat16 (reported); ``moe_train``, ``launch.train.train_single`` for
-   10 AdamW steps with bfloat16 moments at batch 8 x 512 (``moe_aux``
+   5 AdamW steps with bfloat16 moments at batch 8 x 512 (``moe_aux``
    finite and above 0 at every step, the loss falling, one signature
    launch a step, the peak leaving 5 GB of the card free; the choices
    the capacity dropped each step); ``moe_serve``, the serve leg above
@@ -179,7 +179,7 @@ Phases, each printing one JSON line:
    the card free (the banded and chunked paths and the chunked
    cross-entropy under autograd, counted; no kernel), the mean loss below
    the start's and no allocator retry in the counted steps; ``gemma3_serve``,
-   the serve leg of phase 13 at batch 2, an 8,192-token prompt and 32 new
+   the serve leg of phase 13 at batch 2, an 8,192-token prompt and 8 new
    tokens (decode over the windowed cache); ``mla_backend``,
    deepseek-v2-236b cut to its dense prologue and one MoE layer (160
    experts top-6, 2 shared; 5,193,528,320 parameters) as phase 15's
@@ -199,14 +199,14 @@ Phases, each printing one JSON line:
    cross-attention; 959,329,280 parameters, counted leaf by leaf), each
    leg with the launch counts set to 0 just before and read just after
    and its peak leaving 5 GB of the card free: ``whisper_serve``, the
-   serve leg of phase 13 at batch 8, a 384-token prompt and 64 new
+   serve leg of phase 13 at batch 8, a 384-token prompt and 16 new
    tokens, frame embeddings N(0, 1) * 0.1 from seed 0 (flash 24 times a
    prefill, all sm90 at window -1, none inside the encoder, whose
    non-causal attention takes the dense scores; the cross caches bit for
    bit across the decode steps); ``whisper_query``, one
    ``LMQueryDriver.decode_prompts`` call (zero frame embeddings) whose
    tokens equal ``greedy_decode``'s on the same prompts bit for bit;
-   ``whisper_train``, 10 AdamW steps of ``train_single`` at batch 4 x
+   ``whisper_train``, 5 AdamW steps of ``train_single`` at batch 4 x
    448 tokens with the launcher's zero frame embeddings (one signature
    launch a step on vec, no flash, no allocator retry, the loss falling).
 
@@ -244,45 +244,61 @@ Phases, each printing one JSON line:
    (flash 13 times at window 4,096 and 13 at -1 a forward, all sm90; one
    signature launch a call on vec), the kernel forward against the plain
    forward (banded and chunked) in float32 within 2e-2 and in bfloat16
-   (reported); ``gemma2_train``, 10 AdamW steps of ``train_single`` with
+   (reported); ``gemma2_train``, 5 AdamW steps of ``train_single`` with
    remat at GEMMA2_TRAIN (the loss falling, one signature launch a step,
    no allocator retry), then one loss gradient with ``remat=False`` and
    one with ``remat=True`` from the same weights and batch at
    GEMMA2_REMAT_CHECK: bit for bit, or no further apart than two runs
    without remat, with each one's ms and peak; ``gemma2_serve``, the
-   serve leg at 2 x (8,192 + 32); ``qwen2_backend`` and ``qwen2_serve``,
+   serve leg at 2 x (8,192 + 8); ``qwen2_backend`` and ``qwen2_serve``,
    qwen2-7b whole (28 layers, QKV biases, GQA 28 over 4;
    7,615,616,512 parameters) at 8 x 512 (flash 28 times a forward) and 8
-   x (512 + 64); ``qwen2_train``, 10 AdamW steps at 8 x 512 on its
+   x (512 + 16); ``qwen2_train``, 5 AdamW steps at 8 x 512 on its
    deepest cut of whole layers that leaves 5 GB free and runs without an
    allocator retry (``qwen2_train_config``).
-20. the DAG-AFL loop over the large configs with the model store in
-   host memory (``dag_large_path``): ``phase_lm_loop``'s world (the
-   sub-vocabulary's streams, ``LMBackend``, SGD with momentum, 2 rounds of
-   2 local steps at 512 positions) through ``DagAflCoordinator(...,
-   store_device="cpu")``, random weights from seed 0, parameters counted
-   leaf by leaf, each run with the launch counts set to 0 just before and
-   read just after: ``dag_moe``, Jamba's MoE cut (``hybrid_moe_config``,
-   3,678,941,184 parameters) on DAG_MOE_CLIENTS = 2 clients, whose store
-   (the genesis and 2 models a client) the host's MemAvailable must hold
-   with DAG_HOST_HEADROOM to spare (the leg waits up to DAG_HOST_WAIT_S
-   while the host takes back the memory of a freed store, then fails);
-   ``store_parity``, the LM path's world (internlm2's 4-layer cut, 4
-   clients, batch 8) with the store on the card and in host memory: the
-   same tx ids, Eq. 7 hashes, tips, accuracies, signatures,
-   ``chain_len`` and bytes read, and the final ``global_model()`` bit for
-   bit; ``dag_gemma2``, gemma2-2b whole, as ``dag_moe`` on
-   DAG_GEMMA2_CLIENTS = 3.  The large legs run at the largest of 8, 4 and
-   2 x 512 whose ``train_local`` from a host model leaves 5 GB of the
-   card free without an allocator retry (``dag_batch``).  Gates of every
-   run: ``chain_len == 1 + rounds``, the DAG verified, every stored leaf
-   on the store's device, flash once an attention layer an eval or
-   signature forward (all sm90, counted by window), the scan once a Mamba
-   layer a forward, one signature launch a signature call (all vec), no
-   plain call, the peak leaving 5 GB of the card free, no allocator
-   retry; then each kernel's first launch of the run (flash's at each
-   window) held against its plain version at the loop's own shapes and
-   timed (``hold_per_chip``).  Readings: ``s_per_round``, seconds by
+20. the DAG-AFL loop over the large configs with the model store in host
+   memory (``dag_large_path``): ``phase_lm_loop``'s world (the
+   sub-vocabulary's streams, ``LMBackend``, SGD with momentum, rounds of 2
+   local steps) through ``DagAflCoordinator(..., store_device="cpu")``,
+   random weights from seed 0, parameters counted leaf by leaf, each run
+   with the launch counts set to 0 just before and read just after; each
+   leg's clients, rounds a client, positions and batches tried are named
+   constants: ``dag_gemma3``, gemma3-27b's period (``gemma3_config``,
+   3,886,616,832 parameters) on DAG_GEMMA3_CLIENTS = 2 clients of
+   DAG_GEMMA3_ROUNDS = 2 rounds at DAG_GEMMA3_SEQ = 4,096 positions, where
+   the local layers' window of 1,024 bites (training through the banded
+   and chunked score paths, counted); ``store_parity``, the LM path's
+   world (internlm2's 4-layer cut, DAG_PARITY_CLIENTS = 2 clients of
+   DAG_PARITY_ROUNDS = 2 rounds, batch 8) with the store on the card and
+   in host memory: the same tx ids, Eq. 7 hashes, tips, accuracies,
+   signatures, ``chain_len`` and bytes read, and the final
+   ``global_model()`` bit for bit; ``dag_moe``, Jamba's MoE cut
+   (``hybrid_moe_config``, 3,678,941,184 parameters) on DAG_MOE_CLIENTS =
+   2 clients of DAG_MOE_ROUNDS = 1 round; ``dag_mla``, deepseek-v2's dense
+   prologue and one MLA MoE layer (``mla_config``, 5,193,528,320
+   parameters; 160 experts, top-6, 2 shared) on DAG_MLA_CLIENTS = 2
+   clients of DAG_MLA_ROUNDS = 1 round; ``dag_gemma2``, gemma2-2b whole on
+   DAG_GEMMA2_CLIENTS = 2 clients of DAG_GEMMA2_ROUNDS = 1 round (512
+   positions where none are named). A leg's store peaks at the genesis and
+   every model published, 1 + clients x rounds models, which the host's
+   MemAvailable (beside the genesis it already holds) must hold with
+   DAG_HOST_HEADROOM to spare: the leg first sizes its batch, then waits
+   up to DAG_HOST_WAIT_S while the host takes back the memory of the store
+   before it, then fails. A large leg runs at the largest batch it tries
+   whose ``train_local`` from a host model leaves 5 GB of the card free
+   without an allocator retry (``dag_batch``). Gates of every run:
+   ``rounds x clients`` rounds, ``chain_len == 1 + rounds``, the DAG
+   verified, every stored leaf on the store's device, flash once an
+   attention layer an eval or signature forward (all sm90, counted by
+   window, at the model's query head dim: 192 for MLA), the scan once a
+   Mamba layer a forward, one signature launch a signature call (all vec),
+   no plain call, the training forwards' score paths and cross-entropy
+   chunks in the reference's dispatch order (``expected_training_paths``),
+   the peak leaving 5 GB of the card free, no allocator retry; then each
+   kernel's first launch of the run (flash's at each window) held against
+   its plain version at the loop's own shapes (flash 2e-2, the signature
+   bit for bit) and timed, flash beside its bound and the library's
+   attention (``hold_per_chip``). Readings: ``s_per_round``, seconds by
    backend call, the store's copy bytes and seconds each way and its peak
    resting bytes, the card's peak, the process's peak resident bytes, the
    accuracies, the held kernels' errors and times.
@@ -324,7 +340,9 @@ period twice, and ``moe_train`` holds the recompute's routing equal to the
 forward's.
 
 Each path's run is counted on its own: every kernel's count is set to 0
-just before it and read just after.  Then one line ``{"kernels": [...]}``
+just before it and read just after.  Every phase ends in a line with its
+wall seconds (``<phase>_done``), and the script in ``all_done``.  Then
+one line ``{"kernels": [...]}``
 with each kernel's launches on the main paths, its error against the
 plain version and its times beside its bound; the card's name and power
 limit as ``nvidia-smi`` prints them; and last ``{"ok": true, "device":
@@ -449,7 +467,7 @@ GEMMA3_PARAMS = 3_886_616_832        # gemma3-27b, one published period
 MLA_PARAMS = 5_193_528_320           # deepseek-v2: dense prologue + 1 MoE
 MLA_PROLOGUE_PARAMS = 1_221_411_840  # deepseek-v2's dense prologue alone
 MROPE_PARAMS = 3_369_109_504         # qwen2-vl-72b, one layer
-GEMMA3_BATCH, GEMMA3_SEQ, GEMMA3_NEW = 2, 8192, 32
+GEMMA3_BATCH, GEMMA3_SEQ, GEMMA3_NEW = 2, 8192, 8
 # gemma3's local training, batch 1: the peak (73.9 GB on an 85.0 GB card)
 # leaves MOE_FREE_BYTES_MIN free; running out of memory fails the phase
 GEMMA3_TRAIN_SEQ = 4096
@@ -462,7 +480,9 @@ FLASH_MLA = (8, 128, 128, 512, 192)      # MLA: 128 nope + 64 rope
 FLASH_RAGGED_LONG = (1, 4, 2, 4100, 128)  # past 4,096, ragged
 FLASH_WHISPER = (8, 16, 16, 384, 64)     # whisper's decoder, its prefill
 WHISPER_PARAMS = 959_329_280             # whisper-medium, leaf by leaf
-WHISPER_SERVE = (8, 384, 64)             # batch, prompt, new tokens: 448
+# batch, prompt, new tokens (448 positions are its text context; few new
+# tokens, for the script's clock)
+WHISPER_SERVE = (8, 384, 16)
 WHISPER_TRAIN = (4, 448)                 # batch, tokens: its text context
 WHISPER_QUERY = (8, 384, 16)             # batch, prompt, new tokens
 # the dense configs whole: the reference's trees, leaf by leaf
@@ -470,7 +490,8 @@ WHISPER_QUERY = (8, 384, 16)             # batch, prompt, new tokens
 # 333,312 norm weights and QKV biases)
 GEMMA2_PARAMS = 2_614_222_080            # gemma2-2b, 13 x (local, global)
 QWEN2_PARAMS = 7_615_616_512             # qwen2-7b, 28 layers
-GEMMA2_BATCH, GEMMA2_SEQ, GEMMA2_NEW = 2, 8192, 32
+# new tokens: enough to check decode, few for the script's clock
+GEMMA2_BATCH, GEMMA2_SEQ, GEMMA2_NEW = 2, 8192, 8
 # gemma2's training: the largest batch of 1,024 tokens whose peak leaves
 # MOE_FREE_BYTES_MIN of the card free (AdamW's 47.1 GB of state and the
 # unchunked cross-entropy over 256,000 tokens: 75.0 GB at 6, 81.3 GB at
@@ -501,6 +522,16 @@ FLASH_MROPE = (8, 64, 8, 512, 128)       # qwen2-vl-72b, its mrope leg
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
+
+
+def run_phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then the line ``{"phase": "<name>_done",
+    "seconds": ...}`` with its wall seconds, as the phases with legs
+    print theirs."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    emit(phase=f"{name}_done", seconds=time.perf_counter() - t0)
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -790,7 +821,6 @@ def phase_flash(fa, ops, dev) -> dict:
     FMA kernel on the same bfloat16 inputs and the library's
     scaled_dot_product_attention."""
     import torch
-    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
     max_err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_tc": 0.0}
     compared = []
@@ -923,31 +953,15 @@ def phase_flash(fa, ops, dev) -> dict:
             return fa._dispatch(*a, torch.empty_like(a[0]), "fma", True,
                                 window, cap)
 
-        if window > 0:
-            rows = torch.arange(S, device=dev)[:, None]
-            cols = torch.arange(S, device=dev)[None, :]
-            mask = (rows >= cols) & (rows - cols < window)
-
-            def library(a):
-                return F.scaled_dot_product_attention(
-                    *a, attn_mask=mask, enable_gqa=True)
-        else:
-            def library(a):
-                return F.scaled_dot_product_attention(
-                    *a, is_causal=True, enable_gqa=True)
-
+        library = flash_library(S, window, dev)
         ms = device_ms(lambda a: ops.flash_attention(
             *a, window=window, softcap=cap), sets, reps)
         fma_ms = device_ms(fma, bhsd, slow_reps)
         plain_ms = device_ms(lambda a: fa.flash_attention_plain(
             *a, window=window, softcap=cap), bhsd[:1], slow_reps)
         library_ms = device_ms(library, packed, slow_reps)
-        bytes_moved = sum(t.numel() * t.element_size() for t in sets[0]) \
-            + sets[0][0].numel() * 2
-        w = S if window <= 0 else min(window, S)
-        pairs = w * (w + 1) // 2 + (S - w) * w   # (row, col) pairs kept
-        flops = 2 * 2 * hd * pairs * B * H       # QK^T and PV, 2 per MAC
-        bound_ms, bound_by = bound(bytes_moved, flops, peak=BF16_OPS_PER_S)
+        bound_ms, bound_by, bytes_moved, flops = flash_bound(*bhsd[0],
+                                                             window)
         del sets, bhsd, packed
         return {"timed_shape": list(shape), "timed_dtype": "bfloat16",
                 "window": window, "softcap": cap,
@@ -987,6 +1001,40 @@ def phase_flash(fa, ops, dev) -> dict:
          bytes=main["bytes"], flops=main["flops"],
          f32_core_ms=main["flops"] / F32_OPS_PER_S * 1e3, **record)
     return record
+
+
+def flash_bound(q, k, v, window: int) -> tuple:
+    """The least time of causal flash attention over (B, H, S, hd) ``q``
+    and (B, K, S, hd) ``k``, ``v`` with a sliding ``window`` (-1: none):
+    each input read and the output written once, QK^T and PV over the
+    (row, col) pairs the window keeps at the tensor cores' bfloat16 rate
+    (the FMA rate for float32).  Returns (bound_ms, bound_by, bytes,
+    flops)."""
+    import torch
+    B, H, S, hd = q.shape
+    bytes_moved = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + q.numel() * q.element_size()
+    w = S if window <= 0 else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w   # (row, col) pairs kept
+    flops = 2 * 2 * hd * pairs * B * H       # QK^T and PV, 2 per MAC
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return (*bound(bytes_moved, flops, peak=peak), bytes_moved, flops)
+
+
+def flash_library(S: int, window: int, dev):
+    """The library's causal attention over (B, H, S, hd) q and (B, K, S,
+    hd) k, v: ``scaled_dot_product_attention``, with an explicit mask for
+    a sliding ``window`` (it has none of its own, nor a soft-cap)."""
+    import torch
+    import torch.nn.functional as F
+    if window <= 0:
+        return lambda a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True)
+    rows = torch.arange(S, device=dev)[:, None]
+    cols = torch.arange(S, device=dev)[None, :]
+    mask = (rows >= cols) & (rows - cols < window)
+    return lambda a: F.scaled_dot_product_attention(*a, attn_mask=mask,
+                                                    enable_gqa=True)
 
 
 def scan_inputs(shape, generator, proj_width=None, h0_scale=0.1):
@@ -2674,7 +2722,9 @@ LM_COHORT_TRAIN_TOL = 5e-3           # trained leaves, window vs train_local
 # ... and within this many times the training's own one-ulp floor (the
 # trained leaves' move when the start moves one float32 ulp, ``ulp_floor``)
 LM_COHORT_FLOOR_FACTOR = 2.0
-TRAIN_STEPS = 10                     # the train path's AdamW steps
+# the train legs' AdamW steps: enough for the last 3 steps' mean loss to
+# fall below step 0's, few for the script's clock
+TRAIN_STEPS = 5
 
 
 def lm_streams(clients: int):
@@ -3270,7 +3320,8 @@ def phase_train_path(kern, dev) -> dict:
     return record
 
 
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 64   # the serve path
+# the serve path: few new tokens, for the script's clock
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 512, 16
 SERVE_LOGIT_TOL = 2e-2    # the reference's decode bound
 SERVING_QUERIES = 12      # expected queries over a path's simulated time
 
@@ -3411,6 +3462,39 @@ def expected_flash_windows(cfg, seq_len: int, forwards: int) -> dict:
     return dict(sorted(want.items()))
 
 
+def flash_head_dim(cfg) -> int:
+    """The head dim of the q and k the model hands to flash: MLA's nope
+    and rope dims together, else the config's."""
+    return (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim if cfg.mla is not None
+            else cfg.head_dim)
+
+
+def expected_training_paths(cfg, seq_len: int, batch: int,
+                            steps: int) -> dict:
+    """``ScoreMeter``'s counts for ``steps`` training steps at ``batch`` x
+    ``seq_len``, in the reference's dispatch order
+    (``models.attention.scaled_attention``): an attention layer takes the
+    dense scores up to _DENSE_MAX positions, past it the banded path where
+    it has a window and the chunked path where it has none; each period
+    again in its checkpoint's backward (``Runtime.remat``), and each
+    cross-entropy chunk too where there are several (``_ce_chunk``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import _DENSE_MAX
+    from repro_torch.runtime import Runtime
+    passes = 2 if Runtime().remat else 1
+    want = dict.fromkeys(ScoreMeter.PATHS, 0)
+    for spec in cfg.layer_specs():
+        if spec.kind == "attn":
+            path = ("_dense_attn" if seq_len <= _DENSE_MAX
+                    else "_banded_attn"
+                    if tfm.resolve_window(cfg, spec, seq_len) > 0
+                    else "_chunked_attn")
+            want[path] += passes * steps
+    chunks = seq_len // tfm._ce_chunk(cfg, batch, seq_len)
+    want["_ce_part"] = steps * (2 * chunks if chunks > 1 else 1)
+    return want
+
+
 def attn_cache_lens(cfg, caches) -> list:
     """The sequence length of every attention layer's self-attention
     cache entries (not the cross caches ``xk``, ``xv`` over the
@@ -3438,7 +3522,7 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
               new_tokens: int = SERVE_NEW,
               phase: str = "serve_path") -> dict:
     """``launch.serve.serve`` at full width: weights and prompts from seed
-    0, by default batch 8, a 512-token prompt and 64 new tokens, in
+    0, by default batch 8, a 512-token prompt and 16 new tokens, in
     ``cfg``'s compute type, with the launch counts set to 0 just before
     and read just after (a warm-up call first).  Then the same weights and
     prompts in float32 compute, each step's logits held against a
@@ -4719,7 +4803,8 @@ def phase_whisper_path(kern, dev) -> dict:
     layers, 959,329,280 parameters) through the reference's entry points:
     the serve launcher, the consensus-serving query driver and the
     single-stream trainer (one step on the reference's zero frames, whose
-    gradient overflows, then 10 steps on frames drawn from seed 1)."""
+    gradient overflows, then TRAIN_STEPS steps on frames drawn from seed
+    1)."""
     import torch
     t0 = time.perf_counter()
     cfg = whisper_config()
@@ -5377,9 +5462,9 @@ def phase_dense_configs_path(kern, dev) -> dict:
     times at window 4,096 and 13 at -1 a forward), ``gemma2_train``
     (TRAIN_STEPS AdamW steps of ``train_single`` with remat at
     GEMMA2_TRAIN, then ``remat_check`` at GEMMA2_REMAT_CHECK),
-    ``gemma2_serve`` (2 x (8,192 + 32)), ``qwen2_backend`` (8 x 512, flash
+    ``gemma2_serve`` (2 x (8,192 + 8)), ``qwen2_backend`` (8 x 512, flash
     28 times a forward at a GQA group of 7), ``qwen2_serve`` (8 x (512 +
-    64)) and ``qwen2_train`` (TRAIN_STEPS AdamW steps at 8 x 512 on the
+    16)) and ``qwen2_train`` (TRAIN_STEPS AdamW steps at 8 x 512 on the
     cut ``qwen2_train_config``)."""
     t0 = time.perf_counter()
     gemma2, qwen2 = gemma2_config(), qwen2_config()
@@ -5412,7 +5497,12 @@ def phase_dense_configs_path(kern, dev) -> dict:
 
 
 # the DAG-AFL loop over the large configs with the model store in host
-# memory (dag_large_path): 2 rounds of 2 local SGD steps, 512 positions
+# memory (dag_large_path): each client's rounds run 2 local SGD steps
+# (phase_lm_loop's world) at a leg's batch x positions.  A leg's store
+# peaks at the genesis and every model published, 1 + clients x rounds
+# models: at these worlds the bounded ledger (``ledger_checkpoint_every``)
+# saves none of them, since it confirms only the genesis, whose model it
+# never evicts (PERF.md section 7)
 DAG_LARGE_SEQ = 512
 # the batches tried, largest first: the first whose training step from a
 # model fetched out of host memory leaves MOE_FREE_BYTES_MIN of the card
@@ -5421,39 +5511,59 @@ DAG_LARGE_SEQ = 512
 # 44.2 GB at Jamba's cut, 31.4 GB at gemma2's) beside the activations; the
 # aggregate it cloned is freed first (core.coordinator._dispatch_one)
 DAG_LARGE_BATCHES = (8, 4, 2)
-# clients a leg: its store peaks at the genesis and 2 models a client.
-# Jamba's cut runs 2, not 3: the card machine's host has 108.4 GB
-# (103.5 available), and 7 of its 14.72 GB models take 103 GB
-DAG_MOE_CLIENTS = 2
-DAG_GEMMA2_CLIENTS = 3          # 7 models of 10.46 GB
+# clients and rounds a client, by the card machine's host (108.4 GB,
+# 103.5 available) and the script's clock: Jamba's cut on 2 clients of 1
+# round stores 3 of its 14.72 GB models (3 clients of 2 rounds: 7, 103 GB)
+DAG_MOE_CLIENTS, DAG_MOE_ROUNDS = 2, 1
+# gemma2-2b whole: 2 clients of 1 round (3 models of 10.46 GB)
+DAG_GEMMA2_CLIENTS, DAG_GEMMA2_ROUNDS = 2, 1
+# deepseek-v2's cut (dag_mla), 20.77 GB a model: 2 clients of 1 round
+# store 3 models (62.3 GB); 2 rounds each would store 5 (103.9 GB).  A
+# client holds 62.3 GB before activations, so batches down to 1 are tried
+DAG_MLA_CLIENTS, DAG_MLA_ROUNDS = 2, 1
+DAG_MLA_BATCHES = (8, 4, 2, 1)
+# gemma3-27b's period (dag_gemma3), 15.55 GB a model, at 4,096 positions,
+# where its local layers' window of 1,024 bites and training takes the
+# banded and chunked score paths: 2 clients of 2 rounds store 5 models
+# (77.7 GB); a client holds 46.6 GB before activations (gemma3_train
+# peaks at 68.1 GB at 1 x 4,096)
+DAG_GEMMA3_CLIENTS, DAG_GEMMA3_ROUNDS = 2, 2
+DAG_GEMMA3_SEQ = 4096
+DAG_GEMMA3_BATCHES = (2, 1)
 # the card machine's host returns a freed store's memory some seconds
 # later (73.6 GB: 30 % of it back 2 s after the free, 100 % after 30 s;
 # chip_probes.py host, call 4, PR 29): a leg waits up to this long for
 # the memory its store needs, and fails if it is not there by then
 DAG_HOST_WAIT_S = 90.0
-DAG_PARITY_CLIENTS = 4          # store_parity: the LM path's world
+# store_parity: the LM path's world on 2 clients of 2 rounds (the
+# script's clock)
+DAG_PARITY_CLIENTS, DAG_PARITY_ROUNDS = 2, 2
 # host bytes kept free beside the store (the process's own 6.2 GB are
 # resident before the leg reads MemAvailable; call 3, PR 29)
 DAG_HOST_HEADROOM = 4e9
 
 
-def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
-                  store_device, genesis, expected_params: int) -> tuple:
+def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, rounds: int,
+                  batch: int, seq_len: int, store_device, genesis,
+                  expected_params: int) -> tuple:
     """One sequential DAG-AFL run over ``clients`` ``LMBackend`` clients
     (``phase_lm_loop``'s world: the sub-vocabulary's streams, SGD with
-    momentum, 2 rounds of 2 local steps at ``batch`` x 512) with the
-    published models resting on ``store_device``, from ``genesis`` (on the
-    card, or in host memory for a host store), with every kernel's launch
-    count set to 0 just before the run and read just after.  Gates: the
-    rounds, ``chain_len == 1 + rounds``, the DAG verified, flash once an
-    attention layer an eval or signature forward (all sm90, counted by
-    window), the scan once a Mamba layer a forward, one signature launch a
-    signature call (all vec), no plain call, every stored leaf on the
-    store's device, the peak leaving MOE_FREE_BYTES_MIN of the card free
-    and no allocator retry.  Each kernel's first launch in the run
-    (flash's at each window) is then held against its plain version at
-    the loop's own shapes and timed (``hold_per_chip``).  Returns (record,
-    coordinator, result)."""
+    momentum, ``rounds`` rounds a client of 2 local steps at ``batch`` x
+    ``seq_len``) with the published models resting on ``store_device``,
+    from ``genesis`` (on the card, or in host memory for a host store),
+    with every kernel's launch count set to 0 just before the run and read
+    just after.  Gates: ``rounds`` x ``clients`` rounds, ``chain_len == 1
+    + rounds``, the DAG verified, flash once an attention layer an eval or
+    signature forward (all sm90, counted by window, at the model's query
+    head dim), the scan once a Mamba layer a forward, one signature launch
+    a signature call (all vec), no plain call, the training forwards'
+    plain score paths and cross-entropy chunks in the reference's dispatch
+    order (``expected_training_paths``), every stored leaf on the store's
+    device, the peak leaving MOE_FREE_BYTES_MIN of the card free and no
+    allocator retry.  Each kernel's first launch in the run (flash's at
+    each window) is then held against its plain version at the loop's own
+    shapes and timed (``hold_per_chip``).  Returns (record, coordinator,
+    result)."""
     import numpy as np
     import torch
     from repro_torch.core.aggregate import tree_leaves, tree_size_bytes
@@ -5464,7 +5574,7 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     streams, global_test = lm_streams(clients)
     client_data = [{"train": s, "val": s, "test": s} for s in streams]
     backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
-                        seq_len=DAG_LARGE_SEQ)
+                        seq_len=seq_len)
     check(backend.device.type == "cuda", f"{leg}: backend is not on the "
           f"card")
     n_params = sum(p.numel() for p in tree_leaves(genesis))
@@ -5498,7 +5608,8 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     backend.evaluate = counted("evaluate")
     backend.signature = counted("signature")
     coord = DagAflCoordinator(backend, client_data, global_test,
-                              DagAflConfig(n_clients=clients, max_rounds=2,
+                              DagAflConfig(n_clients=clients,
+                                           max_rounds=rounds,
                                            local_epochs=2),
                               store_device=store_device)
     box = [genesis]           # the run's store holds the genesis alone
@@ -5506,7 +5617,8 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    with PlainMeter(kern) as plain, KernelInputs() as inputs:
+    with PlainMeter(kern) as plain, KernelInputs() as inputs, \
+            ScoreMeter() as paths:
         reset_launches(kern)                       # counts start here
         t0 = time.perf_counter()
         result = coord.run(init_model=box.pop())
@@ -5517,28 +5629,30 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     peak = torch.cuda.max_memory_allocated()
     seconds["rest"] = wall - sum(seconds.values())
     store = coord.store.readings()
-    rounds = result.rounds
     ok, why = verify_full_dag(coord.ledger)
     forwards = calls["evaluate"] + calls["signature"]
     expected = expected_prefill_launches(cfg, prefills=0,
                                          signatures=calls["signature"],
                                          forwards=forwards)
-    windows = expected_flash_windows(cfg, DAG_LARGE_SEQ, forwards)
+    windows = expected_flash_windows(cfg, seq_len, forwards)
+    head_dim = flash_head_dim(cfg)
+    score_paths = expected_training_paths(
+        cfg, seq_len, batch, calls["train_local"] * backend.local_steps)
     resting = {d.split(":")[0] for d in store["resting_devices"]}
     want_resting = {"cpu" if store_device == "cpu" else "cuda"}
     accs = [result.final_accuracy, result.best_accuracy,
             result.extra["tip_mean_accuracy"],
             result.extra["client_mean_accuracy"]]
     accs += [a for _, a in result.history]
-    check(rounds == 2 * clients,
-          f"{leg}: expected {2 * clients} rounds, got {rounds}")
-    check(result.extra["chain_len"] == 1 + rounds,
-          f"{leg}: chain_len {result.extra['chain_len']} != 1 + {rounds}")
+    check(result.rounds == rounds * clients, f"{leg}: expected "
+          f"{rounds * clients} rounds, got {result.rounds}")
+    check(result.extra["chain_len"] == 1 + result.rounds, f"{leg}: "
+          f"chain_len {result.extra['chain_len']} != 1 + {result.rounds}")
     check(result.extra["verify_failures"] == 0, f"{leg}: path "
           f"verification")
     check(ok, f"{leg}: verify_full_dag: {why}")
     check(counted_launches["launches"] == expected
-          and calls["signature"] == rounds,
+          and calls["signature"] == result.rounds,
           f"{leg}: launches {counted_launches['launches']}, expected "
           f"{expected} for {forwards} eval and signature forwards and "
           f"{calls['signature']} signature calls")
@@ -5549,6 +5663,12 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     check(counted_launches["flash_windows"] == windows, f"{leg}: flash "
           f"launches by window {counted_launches['flash_windows']}, "
           f"expected {windows}")
+    check(set(paths.flash) == {(head_dim, w) for w in windows}, f"{leg}: "
+          f"flash asked for (head_dim, window) {sorted(set(paths.flash))}, "
+          f"expected head dim {head_dim} at {sorted(windows)}")
+    check(paths.calls == score_paths, f"{leg}: the training forwards' "
+          f"score paths and CE chunks {paths.calls}, expected "
+          f"{score_paths}")
     check(counted_launches["signature_routes"] == {
         "vec": calls["signature"], "strided": 0},
         f"{leg}: signature launches by route "
@@ -5572,10 +5692,12 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
         phase="dag_large_path", leg=leg, model=cfg.name,
         layers=[spec.kind for spec in cfg.layer_specs()],
         d_model=cfg.d_model, n_params=n_params, model_bytes=model_bytes,
-        clients=clients, rounds=rounds, batch=batch, seq_len=DAG_LARGE_SEQ,
-        local_steps=2, data_vocab=LM_DATA_VOCAB, store_device=store_device,
+        clients=clients, rounds_per_client=rounds, rounds=result.rounds,
+        batch=batch, seq_len=seq_len, local_steps=2,
+        data_vocab=LM_DATA_VOCAB, store_device=store_device,
         chain_len=result.extra["chain_len"], wall_s=wall,
-        s_per_round=wall / rounds, calls=calls, seconds=seconds,
+        s_per_round=wall / result.rounds, calls=calls, seconds=seconds,
+        score_path_calls={k[1:]: v for k, v in paths.calls.items()},
         store=store, store_bytes_transferred=result.extra[
             "store_bytes_transferred"],
         peak_bytes=peak, card_bytes=card, alloc_retries=retries,
@@ -5590,8 +5712,9 @@ def dag_store_leg(kern, dev, *, leg: str, cfg, clients: int, batch: int,
     return record, coord, result
 
 
-def dag_batch(leg: str, dev, cfg, host_genesis) -> dict:
-    """The largest of DAG_LARGE_BATCHES x 512 whose ``train_local`` call
+def dag_batch(leg: str, dev, cfg, host_genesis, batches: tuple,
+              seq_len: int) -> dict:
+    """The largest of ``batches`` x ``seq_len`` whose ``train_local`` call
     (the loop's 2 SGD steps from a card copy of the host model, passed as
     the coordinator passes its aggregate) leaves MOE_FREE_BYTES_MIN of the
     card free without an allocator retry; each size's peak."""
@@ -5606,14 +5729,16 @@ def dag_batch(leg: str, dev, cfg, host_genesis) -> dict:
     streams, _ = lm_streams(1)
     tried = {}
     card = torch.cuda.get_device_properties(0).total_memory
-    for batch in DAG_LARGE_BATCHES:
+    for batch in batches:
         backend = LMBackend(cfg, lr=3e-3, local_steps=2, batch_size=batch,
-                            seq_len=DAG_LARGE_SEQ)
+                            seq_len=seq_len)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        at_start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
         try:
             trained, _ = backend.train_local(
                 tree_map(lambda t: staging.copy(t, dev), host_genesis),
@@ -5621,29 +5746,34 @@ def dag_batch(leg: str, dev, cfg, host_genesis) -> dict:
             del trained
             torch.cuda.synchronize()
             failed = None
-        except torch.cuda.OutOfMemoryError:
-            failed = "out of memory"
+        except torch.cuda.OutOfMemoryError as e:
+            failed = str(e).split(". ")[0][:300]      # what it asked for
         peak = torch.cuda.max_memory_allocated()
         retries = (torch.cuda.memory_stats().get("num_alloc_retries", 0)
                    - retries)
         tried[batch] = {"peak_bytes": peak, "alloc_retries": retries,
-                        "failed": failed}
+                        "failed": failed, "allocated_at_start": at_start,
+                        "seconds": time.perf_counter() - t0}
         if failed is None and retries == 0 and \
                 card - peak >= MOE_FREE_BYTES_MIN:
             return {"batch": batch, "tried": tried}
     raise SystemExit(f"chip_smoke: FAILED: {leg}: no batch of "
-                     f"{DAG_LARGE_BATCHES} x {DAG_LARGE_SEQ} leaves "
+                     f"{batches} x {seq_len} leaves "
                      f"{MOE_FREE_BYTES_MIN} bytes of the card free: {tried}")
 
 
-def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int,
-                  clients: int) -> dict:
-    """``dag_store_leg`` over a large config on ``clients`` clients with
-    the store in host memory: the genesis drawn on the card from seed 0
-    and copied to host memory, and the batch ``dag_batch`` picks.  The
-    store peaks at the genesis and 2 models a client: the leg waits up to
-    DAG_HOST_WAIT_S for the host's MemAvailable to hold it beside
-    DAG_HOST_HEADROOM, and fails if it does not."""
+def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int, *,
+                  clients: int, rounds: int, seq_len: int = DAG_LARGE_SEQ,
+                  batches: tuple = DAG_LARGE_BATCHES) -> dict:
+    """``dag_store_leg`` over a large config on ``clients`` clients of
+    ``rounds`` rounds with the store in host memory: the genesis drawn on
+    the card from seed 0 and copied to host memory, and the batch
+    ``dag_batch`` picks from ``batches`` x ``seq_len``.  The store peaks
+    at 1 + clients x rounds models: after the batch is sized (while the
+    host takes back the memory of an earlier leg's store), the leg waits
+    up to DAG_HOST_WAIT_S for the host to hold them beside
+    DAG_HOST_HEADROOM (its MemAvailable and the genesis it already holds),
+    and fails if it does not."""
     import gc
 
     import torch
@@ -5657,26 +5787,28 @@ def dag_large_leg(kern, dev, leg: str, cfg, expected_params: int,
     model_bytes = tree_size_bytes(genesis)
     host_genesis = ModelStore("cpu").rest(genesis)
     del genesis
-    need = (1 + 2 * clients) * model_bytes + DAG_HOST_HEADROOM
+    sized = dag_batch(leg, dev, cfg, host_genesis, batches, seq_len)
+    need = (1 + clients * rounds) * model_bytes + DAG_HOST_HEADROOM
     t_wait = time.perf_counter()
-    while (meminfo()["MemAvailable"] < need
+    while (meminfo()["MemAvailable"] + model_bytes < need
            and time.perf_counter() - t_wait < DAG_HOST_WAIT_S):
         time.sleep(1.0)
     host, host_wait_s = meminfo(), time.perf_counter() - t_wait
-    check(host["MemAvailable"] >= need, f"{leg}: after {host_wait_s:.0f} "
-          f"s the host's {host} cannot hold a store of {1 + 2 * clients} "
-          f"models of {model_bytes} bytes beside {DAG_HOST_HEADROOM:.0f}")
-    sized = dag_batch(leg, dev, cfg, host_genesis)
+    check(host["MemAvailable"] + model_bytes >= need, f"{leg}: after "
+          f"{host_wait_s:.0f} s the host's {host}, beside the genesis, "
+          f"cannot hold a store of {1 + clients * rounds} models of "
+          f"{model_bytes} bytes and {DAG_HOST_HEADROOM:.0f} more")
     record, coord, result = dag_store_leg(
-        kern, dev, leg=leg, cfg=cfg, clients=clients, batch=sized["batch"],
-        store_device="cpu", genesis=host_genesis,
-        expected_params=expected_params)
+        kern, dev, leg=leg, cfg=cfg, clients=clients, rounds=rounds,
+        batch=sized["batch"], seq_len=seq_len, store_device="cpu",
+        genesis=host_genesis, expected_params=expected_params)
     del coord, result, host_genesis
     record.update(host_at_start=host, host_wait_s=host_wait_s,
-                  batches_tried=sized["tried"],
+                  host_need_bytes=need, batches_tried=sized["tried"],
                   leg_s=time.perf_counter() - t_leg)
     emit(phase="dag_large_path", leg=f"{leg}_sizes", clients=clients,
-         host_at_start=host, host_wait_s=host_wait_s,
+         rounds_per_client=rounds, seq_len=seq_len, host_at_start=host,
+         host_wait_s=host_wait_s, host_need_bytes=need,
          model_bytes=model_bytes, batch=sized["batch"],
          batches_tried=sized["tried"], leg_s=record["leg_s"])
     return record
@@ -5687,15 +5819,15 @@ def draw_genesis(cfg, dev):
     ``LMBackend.init`` draws it."""
     import torch
     from repro_torch.fl.backend import LMBackend
-    backend = LMBackend(cfg, local_steps=2, batch_size=1,
-                        seq_len=DAG_LARGE_SEQ)
+    backend = LMBackend(cfg, local_steps=2, batch_size=1)
     genesis = backend.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     return genesis
 
 
 def store_parity_leg(kern, dev) -> dict:
-    """The LM path's world (internlm2's 4-layer cut, 4 clients, batch 8)
+    """The LM path's world (internlm2's 4-layer cut, DAG_PARITY_CLIENTS
+    clients, batch 8)
     run twice: the store on the card, then in host memory.  The tx ids,
     Eq. 7 hashes, tips, each transaction's accuracy and signature, the
     run's accuracies and ``chain_len`` must be equal, and the final
@@ -5713,7 +5845,8 @@ def store_parity_leg(kern, dev) -> dict:
         name = f"store_parity_{'card' if device is None else 'host'}"
         record, coord, result = dag_store_leg(
             kern, dev, leg=name, cfg=cfg, clients=DAG_PARITY_CLIENTS,
-            batch=8, store_device=device, genesis=draw_genesis(cfg, dev),
+            rounds=DAG_PARITY_ROUNDS, batch=8, seq_len=DAG_LARGE_SEQ,
+            store_device=device, genesis=draw_genesis(cfg, dev),
             expected_params=LM_PARAMS)
         txs = sorted(coord.ledger.transactions(), key=lambda t: t.seq)
         tips = set(coord.ledger.tips())
@@ -5751,20 +5884,33 @@ def store_parity_leg(kern, dev) -> dict:
 
 
 def phase_dag_large_path(kern, dev) -> dict:
-    """The sequential DAG-AFL loop over Jamba's MoE cut (``dag_moe``,
-    ``hybrid_moe_config``) and gemma2-2b whole (``dag_gemma2``) with the
-    model store in host memory (``DagAflCoordinator(store_device="cpu")``),
-    then ``store_parity``: the LM path's world with the store on the card
-    and in host memory, equal to the bit (between the two large legs)."""
+    """The sequential DAG-AFL loop with the model store in host memory
+    (``DagAflCoordinator(store_device="cpu")``) over gemma3-27b's period
+    at 4,096 positions (``dag_gemma3``), Jamba's MoE cut (``dag_moe``),
+    deepseek-v2's MLA and MoE cut (``dag_mla``) and gemma2-2b whole
+    (``dag_gemma2``), and ``store_parity``: the LM path's world with the
+    store on the card and in host memory, equal to the bit.  The largest
+    store goes first, on a fresh host, and each later leg sizes its batch
+    while the host takes back the memory of the store before it."""
     t0 = time.perf_counter()
-    legs = {"dag_moe": dag_large_leg(kern, dev, "dag_moe",
-                                     hybrid_moe_config(), MOE_PARAMS,
-                                     DAG_MOE_CLIENTS)}
-    # store_parity's small stores run while the host takes dag_moe's back
+    legs = {"dag_gemma3": dag_large_leg(
+        kern, dev, "dag_gemma3", gemma3_config(), GEMMA3_PARAMS,
+        clients=DAG_GEMMA3_CLIENTS, rounds=DAG_GEMMA3_ROUNDS,
+        seq_len=DAG_GEMMA3_SEQ, batches=DAG_GEMMA3_BATCHES)}
+    # store_parity's small stores run while the host takes dag_gemma3's back
     legs.update(store_parity_leg(kern, dev))
+    legs["dag_moe"] = dag_large_leg(kern, dev, "dag_moe",
+                                    hybrid_moe_config(), MOE_PARAMS,
+                                    clients=DAG_MOE_CLIENTS,
+                                    rounds=DAG_MOE_ROUNDS)
+    legs["dag_mla"] = dag_large_leg(
+        kern, dev, "dag_mla", mla_config(), MLA_PARAMS,
+        clients=DAG_MLA_CLIENTS, rounds=DAG_MLA_ROUNDS,
+        batches=DAG_MLA_BATCHES)
     legs["dag_gemma2"] = dag_large_leg(kern, dev, "dag_gemma2",
                                        gemma2_config(), GEMMA2_PARAMS,
-                                       DAG_GEMMA2_CLIENTS)
+                                       clients=DAG_GEMMA2_CLIENTS,
+                                       rounds=DAG_GEMMA2_ROUNDS)
     emit(phase="dag_large_path_done", seconds=time.perf_counter() - t0)
     return legs
 
@@ -5839,9 +5985,10 @@ def phase_dryrun_path() -> dict:
 SHARDED_MESH = (4, 2)
 SHARDED_MOE_MESH = (2, 2)               # where (4, 2) would not fit
 SHARDED_BATCH = (8, 512)                # batch, tokens: train and prefill
-# decode steps after the prefill: 4, not 16, to keep the script within
-# its time limit beside dag_large_path (a step is host-paced, 1.66 s)
-SHARDED_DECODE = 4
+# decode steps after the prefill: few, to keep the script within its
+# time limit beside dag_large_path (a step is host-paced, 1.66 s at 4
+# layers)
+SHARDED_DECODE = 2
 SHARDED_LONG = (1, 32768, 20000)        # batch, cache slots, position
 SHARDED_MICROBATCHES = 4
 SHARDED_LM_PARAMS = 630_736_896         # internlm2-1.8b, 4 layers
@@ -5957,6 +6104,16 @@ def hold_per_chip(kern, captured: dict, leg: str) -> dict:
         out[key] = {"shape": shape,
                     "dtype": str(args[0].dtype).split(".")[-1],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if key.startswith("flash"):
+            # its bound and the library's time on the same inputs (the
+            # library computes no soft-cap)
+            window = kw.get("window", -1)
+            bound_ms, bound_by, _, _ = flash_bound(*args[:3], window)
+            out[key].update(
+                window=window, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(flash_library(
+                    args[0].shape[2], window, args[0].device), [args[:3]], 5),
+                library_without_cap=kw.get("softcap", 0.0) > 0.0)
     return out
 
 
@@ -6615,39 +6772,42 @@ def main() -> None:
     from repro_torch.kernels import signature as sig
     from repro_torch.kernels import slstm as sl
 
+    t_start = time.perf_counter()
     dev = runtime.resolve_device("cuda")
     smi = phase_environment(build)
     phase_build(build)
-    sig_record = phase_kernels(sig, ops, dev)
-    sig_record["widths"] += phase_signature_lm(sig, ops, dev)
-    flash_record = phase_flash(fa, ops, dev)
-    scan_record = phase_scan(ss, ops, dev)
-    mlstm_record = phase_mlstm(ml, ops, dev)
-    slstm_record = phase_slstm(sl, ops, dev)
+    sig_record = run_phase("kernels_vs_plain", phase_kernels, sig, ops, dev)
+    sig_record["widths"] += run_phase("signature_lm_vs_plain",
+                                      phase_signature_lm, sig, ops, dev)
+    flash_record = run_phase("flash_vs_plain", phase_flash, fa, ops, dev)
+    scan_record = run_phase("scan_vs_plain", phase_scan, ss, ops, dev)
+    mlstm_record = run_phase("mlstm_vs_plain", phase_mlstm, ml, ops, dev)
+    slstm_record = run_phase("slstm_vs_plain", phase_slstm, sl, ops, dev)
     kern = {"sig": sig, "fa": fa, "ss": ss, "ml": ml, "sl": sl}
-    cnn = phase_main_path(kern, dev)
-    cohort = phase_cohort_path(kern, dev, cnn["s_per_round"])
-    baselines = phase_baselines_path(kern, dev)
-    scenarios = phase_scenarios_path(kern, dev)
-    lm = phase_lm_loop(kern, dev, phase="lm_path", cfg=lm_config(),
-                       clients=4, local_steps=8,
-                       expected_params=630_736_896)
-    hybrid = phase_lm_loop(kern, dev, phase="hybrid_path",
-                           cfg=hybrid_config(), clients=3, local_steps=2,
-                           expected_params=HYBRID_PARAMS)
+    cnn = run_phase("main_path", phase_main_path, kern, dev)
+    cohort = run_phase("cohort_path", phase_cohort_path, kern, dev,
+                       cnn["s_per_round"])
+    baselines = run_phase("baselines_path", phase_baselines_path, kern, dev)
+    scenarios = run_phase("scenarios_path", phase_scenarios_path, kern, dev)
+    lm = run_phase("lm_path", phase_lm_loop, kern, dev, phase="lm_path",
+                   cfg=lm_config(), clients=4, local_steps=8,
+                   expected_params=630_736_896)
+    hybrid = run_phase("hybrid_path", phase_lm_loop, kern, dev,
+                       phase="hybrid_path", cfg=hybrid_config(), clients=2,
+                       local_steps=2, expected_params=HYBRID_PARAMS)
     # the xLSTM stack's bfloat16 layers carry the one-ulp rounding
     # flips that the kernels' float32 h and the plain version's cause in
     # each layer's bfloat16 output on to the logits, past LM_LOGIT_RTOL;
     # with float32 products the two forwards differ only in float32
     # rounding: the check is made there, and the bfloat16 comparison is
     # reported beside it (PERF.md)
-    xl = phase_lm_loop(kern, dev, phase="xlstm_path",
-                       cfg=xlstm_loop_config(), clients=3, local_steps=2,
-                       expected_params=XLSTM_LOOP_PARAMS,
-                       reference_compute="float32")
-    cohorts = phase_lm_cohort_path(kern, dev, {"lm": lm, "hybrid": hybrid,
-                                               "xlstm": xl})
-    train = phase_train_path(kern, dev)
+    xl = run_phase("xlstm_path", phase_lm_loop, kern, dev,
+                   phase="xlstm_path", cfg=xlstm_loop_config(), clients=2,
+                   local_steps=2, expected_params=XLSTM_LOOP_PARAMS,
+                   reference_compute="float32")
+    cohorts = run_phase("lm_cohort_path", phase_lm_cohort_path, kern, dev,
+                        {"lm": lm, "hybrid": hybrid, "xlstm": xl})
+    train = run_phase("train_path", phase_train_path, kern, dev)
     serve = phase_serve_path(kern, dev)
     serving = phase_serving_path(kern, dev, cnn["sim_time"],
                                  lm["sim_time"])
@@ -6657,7 +6817,7 @@ def main() -> None:
     mesh = phase_mesh_path(kern, dev)
     dense = phase_dense_configs_path(kern, dev)
     dag_large = phase_dag_large_path(kern, dev)
-    phase_dryrun_path()
+    run_phase("dryrun_path", phase_dryrun_path)
     sharded = phase_sharded_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
              **serving, **moe, **variants, **whisper, **mesh, **dense,
@@ -6700,9 +6860,11 @@ def main() -> None:
         if p["launches"]["flash"]}
     # the variants' shapes: gemma3's launches by the window they ran at
     # (each leg gates them against its layers), MLA's every launch
-    for row, legs, window in (("gemma3_local", "gemma3_", 1024),
-                              ("gemma3_global", "gemma3_", -1),
-                              ("mla", "mla_", -1),
+    for row, legs, window in (("gemma3_local", ("gemma3_", "dag_gemma3"),
+                               1024),
+                              ("gemma3_global", ("gemma3_", "dag_gemma3"),
+                               -1),
+                              ("mla", ("mla_", "dag_mla"), -1),
                               ("mrope", "mrope", -1),
                               ("whisper", "whisper_", -1),
                               ("gemma2_local", ("gemma2_", "dag_gemma2"),
@@ -6715,7 +6877,8 @@ def main() -> None:
             if name.startswith(legs))
     # the DAG loops over the large configs sign at their models' widths
     also = {"hybrid": ("moe", "dag_moe"), "gemma2": ("dag_gemma2",),
-            "lm": ("store_parity",)}
+            "lm": ("store_parity",), "gemma3": ("dag_gemma3",),
+            "mla": ("dag_mla",)}
     for width in sig_record["widths"]:
         # every CNN path signs at the CNN width, the MoE legs at Jamba's
         prefixes = (width["path"],) + also.get(width["path"], ())
@@ -6723,6 +6886,7 @@ def main() -> None:
             n for name, n in sig_record["launches_by_path"].items()
             if any(name == pre or name.startswith(pre + "_")
                    for pre in prefixes))
+    emit(phase="all_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,7 @@ class CNNBackend:
                     updates, opt_state = self.opt.update(grads, opt_state,
                                                          params)
                     apply_updates(params, updates)
+                del grads, updates       # not held through the next step
                 for p in tree_leaves(params):
                     p.grad = None
                 losses.append(step_loss.detach())
@@ -170,6 +171,11 @@ class LMBackend:
                 grads = tree_map(lambda p: p.grad, params)
                 updates, opt_state = self.opt.update(grads, opt_state, params)
                 apply_updates(params, updates)
+            # the step's gradients go with their ``.grad``: held through the
+            # next step's backward they would be a fourth float32 copy of
+            # the model beside the parameters, the next step's gradients and
+            # SGD's momentum
+            del grads, updates
             for p in tree_leaves(params):
                 p.grad = None
             losses.append(loss.detach())

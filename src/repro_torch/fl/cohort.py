@@ -764,6 +764,7 @@ class CohortBackend:
                 updates, opt_state = self.opt.update(grads, opt_state, params)
                 apply_updates(params, updates)
                 _tree_select(done, state, old)
+            del grads, updates, old      # not held through the next step
             for p in tree_leaves(params):
                 p.grad = None
             losses.append(add_in_order(parts, dev))

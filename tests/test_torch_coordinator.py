@@ -116,10 +116,16 @@ def test_stub_backend_runs_identically(checkpoint_every):
                 "store_bytes_transferred"):
         assert r_got.extra[key] == r_ref.extra[key], key
     assert verify_full_dag(got.ledger) == j_verify(ref.ledger) == (True, "ok")
+    # the models each store still holds, and the bounded ledger's evictions
+    # (a model pruned while still its client's latest waits in
+    # ``_deferred_evict``)
+    assert len(got.store) == len(ref.store)
+    assert got._deferred_evict == ref._deferred_evict
     if checkpoint_every:
         assert got.ledger.checkpoints and \
             [c.root for c in got.ledger.checkpoints] == \
             [c.root for c in ref.ledger.checkpoints]
+        assert got.ledger.n_pruned == ref.ledger.n_pruned > 0
 
 
 def _cnn_world(n_clients):
