@@ -8,6 +8,7 @@ of a checkout:
     python3 chip_probes.py store    # a host-resting model store's copies
     python3 chip_probes.py host     # host memory as a store fills, empties
     python3 chip_probes.py grads    # a client's peak, step gradients held
+    python3 chip_probes.py sharded_m  # the sharded LM's AdamW m, by leaf
 
 ``memory`` builds the kernels and runs ``chip_smoke.moe_train_leg`` (10
 AdamW steps of ``launch.train.train_single``, with every gate of the leg)
@@ -49,6 +50,16 @@ aggregate, at deepseek-v2's cut (``chip_smoke.mla_config``, 20.77 GB) at
 and with each step's gradients held until the next step's update, as the
 ``grads`` tree of ``train_local`` held them before: the peak, the
 allocator's retries, or the out-of-memory message.
+
+``sharded_m`` builds the kernels and runs the sharded LM's training step
+(``chip_smoke.sharded_lm_legs``' ``sharded_lm_train``: internlm2-1.8b at
+full width, float32, one AdamW step at 8 x 512 on the (4, 2) mesh of
+threads over the card) at 2 and 4 layers, without its gates: for each
+leaf, AdamW's m off the unsharded step's at microbatches 1 (the leg's
+reference), of the leaf's largest, for the sharded step at microbatches
+1 and 4 and for the unsharded step at microbatches 2 and 4 (the same
+sums in other float32 orders); the five leaves worst for the sharded
+step, and each order's worst.
 
 Each measurement prints one JSON line; the card's name and power limit
 come first.
@@ -360,20 +371,83 @@ def grads_probe(dev) -> None:
         del host
 
 
+def sharded_m_probe(dev) -> None:
+    import torch
+    from repro_torch.configs.base import InputShape, Stage
+    from repro_torch.core.aggregate import tree_map
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_on_chips
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.rules import MeshPlan
+
+    cs.phase_build(build)
+    B, S = cs.SHARDED_BATCH
+    mesh = cs.sharded_mesh(cs.SHARDED_MESH)
+
+    def plan(microbatches):
+        p = MeshPlan()
+        object.__setattr__(p, "_microbatches", microbatches)
+        return p
+
+    for layers in (2, 4):
+        lm = cs.lm_config()
+        cfg = cs.sharded_config(dataclasses.replace(
+            lm, n_layers=layers, stages=(Stage(lm.stages[0].pattern,
+                                               layers),)))
+        weights = tfm.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        batch = cs.lm_batch(dev, cfg, B, S, 1)
+        m1 = cs.unsharded_train(cfg, weights, batch, mesh)[4]
+        orders = {}
+        for mb in (2, 4):                  # the same sums, other orders
+            step, _, _ = dryrun.build_step(
+                cfg, InputShape("unsharded", S, B, "train"), mesh,
+                plan(mb), params=tree_map(lambda a: a.clone(), weights),
+                batch=batch)
+            orders[f"unsharded_mb{mb}"] = cs._tree_paths(step()[1]["m"])
+        for mb in (1, 4):
+            def chip(dmesh, mb=mb):
+                rank0 = dmesh.get_rank() == 0
+                step, _, _ = dryrun.build_step(
+                    cfg, InputShape("sharded", S, B, "train"), mesh,
+                    plan(mb), dmesh, params=weights, batch=batch)
+                m = {path: cs.gathered(t.detach(), rank0)   # every chip
+                     for path, t in cs._tree_paths(step()[1]["m"]).items()}
+                return m if rank0 else None
+            orders[f"sharded_mb{mb}"] = run_on_chips(
+                chip, mesh, cs.SHARDED_TIMEOUT)[0]
+        rows = []
+        for path, want in m1.items():
+            scale = max(want.abs().max().item(), 1e-30)
+            rows.append({"leaf": "/".join(map(str, path)), "scale": scale,
+                         **{name: (m[path] - want).abs().max().item()
+                            / scale for name, m in orders.items()}})
+        rows.sort(key=lambda r: -r["sharded_mb1"])
+        cs.emit(probe="sharded_m", layers=layers, mesh=list(cs.SHARDED_MESH),
+                batch=B, seq_len=S, m_tol=cs.SHARDED_M_TOL, against=
+                "the unsharded step at microbatches 1", worst=rows[:5],
+                worst_by_order={name: max(rows, key=lambda r: r[name])
+                                for name in orders})
+        del weights, batch, m1, orders
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> None:
     import torch
-    if len(argv) != 1 or argv[0] not in ("memory", "remat", "store",
-                                         "host", "grads"):
-        raise SystemExit(
-            "usage: chip_probes.py memory|remat|store|host|grads")
+    probes = {"memory": memory_probe, "remat": remat_probe,
+              "store": store_probe, "host": host_probe, "grads": grads_probe,
+              "sharded_m": sharded_m_probe}
+    if len(argv) != 1 or argv[0] not in probes:
+        raise SystemExit("usage: chip_probes.py " + "|".join(probes))
     if not torch.cuda.is_available():
         raise SystemExit("chip_probes: CUDA is not available")
     from repro_torch import runtime
     from repro_torch.kernels import build
     dev = runtime.resolve_device("cuda")
     print(cs.phase_environment(build), flush=True)
-    {"memory": memory_probe, "remat": remat_probe, "store": store_probe,
-     "host": host_probe, "grads": grads_probe}[argv[0]](dev)
+    probes[argv[0]](dev)
 
 
 if __name__ == "__main__":

@@ -163,6 +163,23 @@ Phases, each printing one JSON line:
    teacher-forced forward route to other experts, or whose choices one
    run's capacity dropped, are reported and left out of the float32
    comparison);
+15b. the llama4 path (``llama4_path``): llama4-maverick-400b-a17b at full
+   width cut to one published period, ``(attn, dense)`` and ``(attn,
+   moe)`` (40 query heads over 8 KV heads; 128 experts of 8,192, top-1,
+   one shared; 18,553,267,200 parameters, counted leaf by leaf), from a
+   compute replica drawn on the card from seed 0
+   (``weights.draw_compute_replica``: every leaf that every use casts to
+   bfloat16 rests in it, 37.11 GB, and the 74.21 GB float32 tree is never
+   held; the draw's peak leaving 5 GB of the card free): ``llama4_backend``,
+   phase 15's backend leg on the replica (flash twice a forward on sm90,
+   the signature once a signature call on vec at width 5,120, no plain
+   call; the float32 forwards cast each leaf at use), with its first flash
+   launch, ``(8, 40, 8, 512, 128)`` bfloat16 causal, held against its
+   plain version within 2e-2 and timed beside its bound and
+   ``scaled_dot_product_attention``, and its first signature launch held
+   bit for bit; ``llama4_serve``, phase 13's serve leg on the replica and
+   the prompts drawn after it (its float32 run casts each leaf at use;
+   the decode step's read bound counts the replica's bytes);
 16. the attention variants (``attention_variants_path``), each leg with
    the launch counts set to 0 just before and read just after and its
    peak leaving 5 GB of the card free:
@@ -265,7 +282,7 @@ Phases, each printing one JSON line:
    leg's clients, rounds a client, positions and batches tried are named
    constants: ``dag_gemma3``, gemma3-27b's period (``gemma3_config``,
    3,886,616,832 parameters) on DAG_GEMMA3_CLIENTS = 2 clients of
-   DAG_GEMMA3_ROUNDS = 2 rounds at DAG_GEMMA3_SEQ = 4,096 positions, where
+   DAG_GEMMA3_ROUNDS = 1 round at DAG_GEMMA3_SEQ = 4,096 positions, where
    the local layers' window of 1,024 bites (training through the banded
    and chunked score paths, counted); ``store_parity``, the LM path's
    world (internlm2's 4-layer cut, DAG_PARITY_CLIENTS = 2 clients of
@@ -462,6 +479,10 @@ MOE_PARAMS = 3_678_941_184
 MOE_ROUTED_ALIKE_MIN = 0.999         # tokens routed alike by two forwards
 MOE_FREE_BYTES_MIN = 5e9             # every MoE and variant leg's peak
 #                                      leaves this much of the card free
+# llama4-maverick-400b-a17b, one published period (attn, dense), (attn,
+# moe): 128 experts of 8,192, top-1, one shared; counted leaf by leaf
+LLAMA4_PARAMS = 18_553_267_200
+FLASH_LLAMA4 = (8, 40, 8, 512, 128)      # a GQA group of 5
 # the attention variants: the reference's trees, leaf by leaf (jax.eval_shape)
 GEMMA3_PARAMS = 3_886_616_832        # gemma3-27b, one published period
 MLA_PARAMS = 5_193_528_320           # deepseek-v2: dense prologue + 1 MoE
@@ -3520,12 +3541,16 @@ def cross_caches(caches) -> list:
 def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
               batch: int = SERVE_BATCH, prompt_len: int = SERVE_PROMPT,
               new_tokens: int = SERVE_NEW,
-              phase: str = "serve_path") -> dict:
+              phase: str = "serve_path", params=None,
+              prompts=None) -> dict:
     """``launch.serve.serve`` at full width: weights and prompts from seed
     0, by default batch 8, a 512-token prompt and 16 new tokens, in
     ``cfg``'s compute type, with the launch counts set to 0 just before
-    and read just after (a warm-up call first).  Then the same weights and
-    prompts in float32 compute, each step's logits held against a
+    and read just after (a warm-up call first).  Given ``params`` and
+    ``prompts`` (a compute replica and the prompts drawn after it from
+    the same generator, as ``serve`` draws them), every run is handed
+    them, and the float32 runs cast each leaf at use.  Then the same
+    weights and prompts in float32 compute, each step's logits held against a
     teacher-forced full forward (the models' own plain forms) within the
     reference's 2e-2 on the steps that every MoE layer routed alike and
     kept whole in both runs, and the greedy tokens against its argmax
@@ -3550,9 +3575,11 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     torch.cuda.empty_cache()
     t_leg = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = tfm.init_params(gen, cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=gen, device=dev)
+    given = params is not None
+    if not given:
+        params = tfm.init_params(gen, cfg)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                generator=gen, device=dev)
     enc = None if cfg.encoder is None else torch.randn(
         (batch, cfg.encoder.n_ctx, cfg.d_model), generator=gen,
         device=dev) * 0.1
@@ -3568,7 +3595,9 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
     with PlainMeter(kern) as plain:
         reset_launches(kern)                       # counts start here
         r = launch.serve(cfg, batch, prompt_len, new_tokens,
-                         seed=0, device=dev, keep_logits=True)
+                         seed=0, device=dev, keep_logits=True,
+                         **(dict(params=params, prompts=prompts) if given
+                            else {}))
         torch.cuda.synchronize()
         counted = read_launches(kern)              # and are read here
     peak = torch.cuda.max_memory_allocated()
@@ -3660,13 +3689,13 @@ def serve_leg(kern, dev, leg: str, cfg, expected_params: int,
           f"the full forward's argmax where its top-2 gap exceeds "
           f"{2 * max_err}")
     # a decode step reads every decoder weight once (the input embedding
-    # only for the batch's rows): float32 masters over the card's memory
-    # rate; and the cross caches, where there are some
-    encoder_params = sum(p.numel() for p in tree_leaves(
-        params.get("encoder", {})))
-    weight_bytes = 4 * (n_params - encoder_params
-                        - (0 if cfg.tie_embeddings
-                           else cfg.vocab_size * cfg.d_model))
+    # only for the batch's rows), in the type it rests in (float32
+    # masters, or a compute replica's), over the card's memory rate; and
+    # the cross caches, where there are some
+    def nbytes(tree):
+        return sum(p.numel() * p.element_size() for p in tree_leaves(tree))
+    weight_bytes = nbytes(params) - nbytes(params.get("encoder", {})) - (
+        0 if cfg.tie_embeddings else nbytes(params["embed"]["embedding"]))
     decode_ms = 1e3 * timings["decode_s"] / (new_tokens - 1)
     record = dict(
         phase=phase, leg=leg, model=cfg.name,
@@ -4076,14 +4105,18 @@ def backend_calls(kern, leg: str, cfg, backend, params, streams) -> tuple:
 
 def moe_backend_leg(kern, dev, cfg, leg: str = "moe_backend",
                     phase: str = "moe_path",
-                    expected_params: int = MOE_PARAMS) -> dict:
+                    expected_params: int = MOE_PARAMS, params=None) -> dict:
     """``LMBackend.evaluate`` and ``signature`` (the tip-selection forwards,
     ``mode="prefill"``) on one full-width MoE model at batch 8 x 512, with
     the launch counts set to 0 just before and read just after (one flash
-    and one scan launch a forward, all flash on sm90; one signature launch
-    a signature call, on the vec route; no plain call); then the kernel
-    forward against the plain forward in float32 (checked) and bfloat16
-    (reported)."""
+    launch an attention layer and one scan launch a Mamba layer a forward,
+    all flash on sm90; one signature launch a signature call, on the vec
+    route; no plain call); then the kernel forward against the plain
+    forward in float32 (checked) and bfloat16 (reported).  The model is
+    ``params`` where given (a compute replica, whose float32 forwards cast
+    each leaf at use and never convert the tree; the leg then also holds
+    each kernel's first launch against its plain version at the leg's
+    shapes, ``hold_per_chip``), else ``LMBackend.init`` from seed 0."""
     import gc
 
     import torch
@@ -4100,17 +4133,24 @@ def moe_backend_leg(kern, dev, cfg, leg: str = "moe_backend",
     check(backend.device.type == "cuda", f"{leg}: backend is not on the "
           f"card")
     t0 = time.perf_counter()
-    params = backend.init(torch.Generator(device=dev).manual_seed(0))
+    given = params is not None
+    if not given:
+        params = backend.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
     check(n_params == tree_param_count(cfg) == expected_params,
           f"{leg}: {n_params} parameters, expected {expected_params}")
-    counted, seconds, accs, peak, plain_calls = backend_calls(
-        kern, leg, cfg, backend, params, streams)
+    with KernelInputs() as inputs:
+        counted, seconds, accs, peak, plain_calls = backend_calls(
+            kern, leg, cfg, backend, params, streams)
+    held = hold_per_chip(kern, inputs.first, leg) if given else None
+    torch.cuda.reset_peak_memory_stats()
     checks = {c: moe_forward_check(tfm, cfg, backend, params, global_test,
                                    c, checked=c == "float32", leg=leg)
               for c in ("float32", "bfloat16")}
+    check_peak = torch.cuda.max_memory_allocated()
+    check_free(f"{leg} forward check", check_peak)
     record = dict(
         phase=phase, leg=leg, model=cfg.name,
         layers=[[spec.kind, spec.ffn] for spec in cfg.layer_specs()],
@@ -4119,7 +4159,8 @@ def moe_backend_leg(kern, dev, cfg, leg: str = "moe_backend",
         data_vocab=LM_DATA_VOCAB, init_s=init_s,
         evaluate_ms=seconds["evaluate"], signature_ms=seconds["signature"],
         accuracies=accs, peak_bytes=peak, plain_calls=plain_calls,
-        forward_check=checks, leg_s=time.perf_counter() - t_leg, **counted)
+        forward_check=checks, forward_check_peak_bytes=check_peak,
+        held=held, leg_s=time.perf_counter() - t_leg, **counted)
     emit(**record)
     del params, backend
     return record
@@ -4254,6 +4295,60 @@ def phase_moe_path(kern, dev) -> dict:
             "moe_train": moe_train_leg(kern, dev, cfg),
             "moe_serve": serve_leg(kern, dev, "moe_serve", cfg, MOE_PARAMS)}
     emit(phase="moe_path_done", seconds=time.perf_counter() - t0)
+    return legs
+
+
+def phase_llama4_path(kern, dev) -> dict:
+    """llama4-maverick's period at full width (``llama4_config``) from a
+    compute replica drawn on the card (``weights.draw_compute_replica``,
+    seed 0: every leaf that every use casts to bfloat16 rests in it, the
+    float32 tree never held): its draw's peak and bytes, then the
+    tip-selection forwards (``moe_backend_leg``, its first flash launch at
+    FLASH_LLAMA4) and the serve launcher (``serve_leg``) on it."""
+    import gc
+
+    import torch
+    from repro_torch.core.aggregate import tree_leaves
+    from repro_torch.weights import draw_compute_replica
+    t0 = time.perf_counter()
+    cfg = llama4_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    replica = draw_compute_replica(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check_free("llama4_draw", peak)
+    leaves = tree_leaves(replica)
+    by_type = {}
+    for p in leaves:
+        key = str(p.dtype).split(".")[-1]
+        by_type[key] = by_type.get(key, 0) + p.numel() * p.element_size()
+    largest = max(p.numel() for p in leaves)
+    check(largest > 2 ** 31 and largest == 128 * 5120 * 8192,
+          f"llama4_draw: the largest leaf has {largest} elements")
+    emit(phase="llama4_path", leg="llama4_draw", model=cfg.name,
+         n_params=sum(p.numel() for p in leaves), bytes_by_type=by_type,
+         float32_tree_bytes=4 * sum(p.numel() for p in leaves),
+         largest_leaf_elements=largest, draw_s=draw_s, peak_bytes=peak)
+    legs = {"llama4_backend": moe_backend_leg(
+                kern, dev, cfg, leg="llama4_backend", phase="llama4_path",
+                expected_params=LLAMA4_PARAMS, params=replica)}
+    held = legs["llama4_backend"]["held"]
+    check(held["flash"]["shape"] == list(FLASH_LLAMA4)
+          and held["flash"]["dtype"] == "bfloat16"
+          and held["signature"]["shape"] == [1, 8 * 512, cfg.d_model]
+          and held["signature"]["dtype"] == "bfloat16",
+          f"llama4_backend: first launches at {held}")
+    legs["llama4_serve"] = serve_leg(kern, dev, "llama4_serve", cfg,
+                                     LLAMA4_PARAMS, phase="llama4_path",
+                                     params=replica, prompts=prompts)
+    del replica, leaves
+    emit(phase="llama4_path_done", seconds=time.perf_counter() - t0)
     return legs
 
 
@@ -5524,10 +5619,11 @@ DAG_MLA_CLIENTS, DAG_MLA_ROUNDS = 2, 1
 DAG_MLA_BATCHES = (8, 4, 2, 1)
 # gemma3-27b's period (dag_gemma3), 15.55 GB a model, at 4,096 positions,
 # where its local layers' window of 1,024 bites and training takes the
-# banded and chunked score paths: 2 clients of 2 rounds store 5 models
-# (77.7 GB); a client holds 46.6 GB before activations (gemma3_train
-# peaks at 68.1 GB at 1 x 4,096)
-DAG_GEMMA3_CLIENTS, DAG_GEMMA3_ROUNDS = 2, 2
+# banded and chunked score paths: 2 clients of 1 round store 3 models
+# (46.6 GB; 2 rounds each, 5 models, took 26 s more of the script's
+# clock); a client holds 46.6 GB before activations (gemma3_train peaks
+# at 68.1 GB at 1 x 4,096)
+DAG_GEMMA3_CLIENTS, DAG_GEMMA3_ROUNDS = 2, 1
 DAG_GEMMA3_SEQ = 4096
 DAG_GEMMA3_BATCHES = (2, 1)
 # the card machine's host returns a freed store's memory some seconds
@@ -5991,7 +6087,10 @@ SHARDED_BATCH = (8, 512)                # batch, tokens: train and prefill
 SHARDED_DECODE = 2
 SHARDED_LONG = (1, 32768, 20000)        # batch, cache slots, position
 SHARDED_MICROBATCHES = 4
-SHARDED_LM_PARAMS = 630_736_896         # internlm2-1.8b, 4 layers
+# internlm2-1.8b, 4 layers: at 2 the m gate reads 1.02e-5 at layer 0's
+# ffn/wg, where the unsharded step's own m at microbatches 2 reads 1.00e-5
+# off its microbatch-1 m (float32 order; chip_probes.py sharded_m)
+SHARDED_LM_PARAMS = 630_736_896
 SHARDED_LR = 3e-4                       # train.step.default_optimizer's
 SHARDED_TRAIN_RTOL = 1e-5               # loss and grad norm, relative
 SHARDED_M_TOL = 1e-5                    # AdamW's m, of its leaf's scale
@@ -6743,6 +6842,18 @@ def hybrid_moe_config():
                                    LayerSpec(kind="mamba", ffn="moe")), 1),))
 
 
+def llama4_config():
+    """llama4-maverick-400b-a17b at full width, depth cut to one published
+    period: ``(attn, dense)`` and ``(attn, moe)`` (40 query heads over 8 KV
+    heads; 128 experts of 8,192, top-1, one shared expert)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+    cfg = get_config("llama4-maverick-400b-a17b")
+    return dataclasses.replace(cfg, n_layers=2,
+                               stages=(Stage(cfg.stages[0].pattern, 1),))
+
+
 def xlstm_config():
     """xlstm-125m at full width and depth: [mLSTM x3, sLSTM] x3."""
     from repro_torch.configs import get_config
@@ -6812,6 +6923,7 @@ def main() -> None:
     serving = phase_serving_path(kern, dev, cnn["sim_time"],
                                  lm["sim_time"])
     moe = phase_moe_path(kern, dev)
+    llama4 = phase_llama4_path(kern, dev)
     variants = phase_attention_variants_path(kern, dev)
     whisper = phase_whisper_path(kern, dev)
     mesh = phase_mesh_path(kern, dev)
@@ -6820,8 +6932,8 @@ def main() -> None:
     run_phase("dryrun_path", phase_dryrun_path)
     sharded = phase_sharded_path(kern, dev)
     paths = {"lm": lm, "hybrid": hybrid, "xlstm": xl, **cohorts, **serve,
-             **serving, **moe, **variants, **whisper, **mesh, **dense,
-             **dag_large, **sharded}
+             **serving, **moe, **llama4, **variants, **whisper, **mesh,
+             **dense, **dag_large, **sharded}
     records = {"signature": sig_record, "flash": flash_record,
                "scan": scan_record, "mlstm": mlstm_record,
                "slstm": slstm_record}
@@ -6848,6 +6960,12 @@ def main() -> None:
                               for name, p in dag_large.items()
                               for held in p["held"]
                               if held.split("@")[0] == key}
+        # llama4's period, its first launch at the leg's own shape
+        if key in llama4["llama4_backend"]["held"]:
+            record["llama4"] = {
+                **llama4["llama4_backend"]["held"][key],
+                "launches": sum(p["launches"][key]
+                                for p in llama4.values())}
     sig_record["launches_by_route"] = {
         "cnn": cnn["signature_routes"],
         "cnn_cohort": cohort["signature_routes"],
@@ -6875,10 +6993,11 @@ def main() -> None:
         flash_record[row]["launches"] = sum(
             p["flash_windows"].get(window, 0) for name, p in paths.items()
             if name.startswith(legs))
-    # the DAG loops over the large configs sign at their models' widths
+    # the DAG loops over the large configs sign at their models' widths,
+    # llama4 at deepseek-v2's 5,120
     also = {"hybrid": ("moe", "dag_moe"), "gemma2": ("dag_gemma2",),
             "lm": ("store_parity",), "gemma3": ("dag_gemma3",),
-            "mla": ("dag_mla",)}
+            "mla": ("dag_mla", "llama4")}
     for width in sig_record["widths"]:
         # every CNN path signs at the CNN width, the MoE legs at Jamba's
         prefixes = (width["path"],) + also.get(width["path"], ())

@@ -52,8 +52,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (apply_norm, apply_rope, dense_init,
-                                       init_norm, softcap, torch_dtype)
+from repro_torch.models.layers import (apply_norm, apply_rope, at_use,
+                                       dense_init, init_norm, softcap,
+                                       torch_dtype)
 from repro_torch.sharding import dtensor
 from repro_torch.sharding.dtensor import merge_heads, split_heads
 
@@ -99,9 +100,10 @@ def init_attn(generator, cfg: ArchConfig, spec: LayerSpec, dtype) -> dict:
     }
     if cfg.qkv_bias:
         device = generator.device
-        p["bq"] = torch.zeros((cfg.q_dim,), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((cfg.kv_dim,), dtype=dtype, device=device)
+        bias = at_use(dtype)
+        p["bq"] = torch.zeros((cfg.q_dim,), dtype=bias, device=device)
+        p["bk"] = torch.zeros((cfg.kv_dim,), dtype=bias, device=device)
+        p["bv"] = torch.zeros((cfg.kv_dim,), dtype=bias, device=device)
     if spec.cross_attn:
         p["xwq"] = dense_init(generator, d, cfg.q_dim, dtype)
         p["xwk"] = dense_init(generator, d, cfg.kv_dim, dtype)

@@ -16,6 +16,7 @@ float32 reciprocal of the count (:func:`repro_torch.core.aggregate.f32_mean`).
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Optional, Tuple
 
@@ -40,19 +41,39 @@ def torch_dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+# the compute type while ``weights.draw_compute_replica`` draws, else None
+AT_USE_DTYPE = contextvars.ContextVar("at_use_dtype", default=None)
+
+
+def at_use(dtype):
+    """The type a weight that every use casts to the compute type is drawn
+    in: ``dtype``, the parameter type, or the compute type while
+    ``weights.draw_compute_replica`` draws.  Every other leaf (norm scales,
+    Mamba's ``dt_proj``, ``dt_bias``, ``A_log``, ``D``, the xLSTM gates'
+    float32 weights and biases) is read in float32 and drawn in its own
+    type."""
+    rest = AT_USE_DTYPE.get()
+    return dtype if rest is None else rest
+
+
 def _normal(generator: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=generator.device,
                        dtype=torch.float32)
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale: Optional[float] = None,
+               cast_at_use: bool = True) -> torch.Tensor:
+    """A (d_in, d_out) weight ~ N(0, 1) * scale (1/sqrt(d_in) by default),
+    scaled in place so one float32 draw is held; ``cast_at_use=False`` for
+    a weight some use reads in float32."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return (_normal(generator, (d_in, d_out)) * scale).to(dtype)
+    w = _normal(generator, (d_in, d_out)).mul_(scale)
+    return w.to(at_use(dtype) if cast_at_use else dtype)
 
 
 def embed_init(generator, vocab: int, d: int, dtype) -> torch.Tensor:
-    return (_normal(generator, (vocab, d)) * 0.02).to(dtype)
+    return _normal(generator, (vocab, d)).mul_(0.02).to(at_use(dtype))
 
 
 # ---------------------------------------------------------------------------

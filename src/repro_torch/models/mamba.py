@@ -40,8 +40,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (_normal, dense_init, step_loop,
-                                       torch_dtype)
+from repro_torch.models.layers import (_normal, at_use, dense_init,
+                                       step_loop, torch_dtype)
 from repro_torch.sharding import dtensor
 
 
@@ -60,14 +60,14 @@ def init_mamba(generator, cfg: ArchConfig, dtype) -> dict:
                      device=device)[None].repeat(d_in, 1)
     in_proj = dense_init(generator, cfg.d_model, 2 * d_in, dtype)
     conv_w = (_normal(generator, (mc.d_conv, d_in))
-              / math.sqrt(mc.d_conv)).to(dtype)
+              / math.sqrt(mc.d_conv)).to(at_use(dtype))
     x_proj = dense_init(generator, d_in, dt_rank + 2 * mc.d_state, dtype)
-    dt_proj = dense_init(generator, dt_rank, d_in, dtype)
+    dt_proj = dense_init(generator, dt_rank, d_in, dtype, cast_at_use=False)
     out_proj = dense_init(generator, d_in, cfg.d_model, dtype)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "conv_b": torch.zeros((d_in,), dtype=at_use(dtype), device=device),
         "x_proj": x_proj,
         "dt_proj": dt_proj,
         "dt_bias": torch.log(torch.expm1(torch.full(

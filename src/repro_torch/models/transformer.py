@@ -143,8 +143,10 @@ def _stacked_draws(draw, n: int) -> dict:
     """``n`` trees drawn by ``draw()`` one after another, stacked on a
     leading axis: each is written into its slot as it is drawn, so only
     the stack and one draw are held (a whole stage of qwen2-7b is 26 GB
-    in float32)."""
+    in float32); one draw is its own stack (views, no copy)."""
     first = draw()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), first)
     stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
     tree_map(lambda s, a: s[0].copy_(a), stacked, first)
     del first

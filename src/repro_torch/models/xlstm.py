@@ -62,8 +62,9 @@ from repro_torch.core.aggregate import axis_devices, split_blocks
 from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm import mlstm_chunk
 from repro_torch.kernels.slstm import slstm_step
-from repro_torch.models.layers import (_normal, apply_norm, dense_init,
-                                       init_norm, step_loop, torch_dtype)
+from repro_torch.models.layers import (_normal, apply_norm, at_use,
+                                       dense_init, init_norm, step_loop,
+                                       torch_dtype)
 from repro_torch.runtime import on_device
 from repro_torch.sharding import dtensor
 from repro_torch.sharding.dtensor import halves, merge_heads, split_heads
@@ -94,7 +95,7 @@ def init_mlstm(generator, cfg: ArchConfig, dtype) -> dict:
     device = generator.device
     up_proj = dense_init(generator, cfg.d_model, 2 * d_in, dtype)
     conv_w = (_normal(generator, (xc.s_conv, d_in))
-              / math.sqrt(xc.s_conv)).to(dtype)
+              / math.sqrt(xc.s_conv)).to(at_use(dtype))
     wq = dense_init(generator, d_in, d_qk, dtype)
     wk = dense_init(generator, d_in, d_qk, dtype)
     wv = dense_init(generator, d_in, d_in, dtype)
@@ -103,7 +104,7 @@ def init_mlstm(generator, cfg: ArchConfig, dtype) -> dict:
     return {
         "up_proj": up_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "conv_b": torch.zeros((d_in,), dtype=at_use(dtype), device=device),
         "wq": wq,
         "wk": wk,
         "wv": wv,
@@ -295,14 +296,15 @@ def init_slstm(generator, cfg: ArchConfig, dtype) -> dict:
     device = generator.device
     d_up = int(4 * d / 3) // 2 * 2
     conv_w = (_normal(generator, (xc.s_conv, d))
-              / math.sqrt(xc.s_conv)).to(dtype)
-    w_gates = dense_init(generator, d, 4 * d, dtype)
-    r_gates = dense_init(generator, d, 4 * d, dtype, scale=0.01)
+              / math.sqrt(xc.s_conv)).to(at_use(dtype))
+    w_gates = dense_init(generator, d, 4 * d, dtype, cast_at_use=False)
+    r_gates = dense_init(generator, d, 4 * d, dtype, scale=0.01,
+                         cast_at_use=False)
     up_proj = dense_init(generator, d, 2 * d_up, dtype)
     down_proj = dense_init(generator, d_up, d, dtype)
     return {
         "conv_w": conv_w,
-        "conv_b": torch.zeros((d,), dtype=dtype, device=device),
+        "conv_b": torch.zeros((d,), dtype=at_use(dtype), device=device),
         "w_gates": w_gates,
         "r_gates": r_gates,
         "b_gates": torch.cat([torch.zeros((d,), device=device),
