@@ -210,7 +210,11 @@ Phases, each printing one JSON line:
    text), the float32 kernel forward against the plain one within 2e-2,
    the same batch at text-only positions moving the logits past the grid
    (and not before it), then 5 AdamW steps at two microbatches with the
-   grid positions (one signature launch a microbatch);
+   grid positions (one signature launch a microbatch); ``mrope_serve``,
+   the serve leg of phase 13 on the same cut at batch 8, a 512-token
+   prompt and 16 new tokens (the prefill and every decode step at text
+   positions, the three M-RoPE rows alike, as the reference's decode
+   turns them), its float32 weights read by every decode step;
 17. the whisper path (``whisper_path``): whisper-medium at full width and
    depth (24 encoder layers over 1,500 frames, 24 decoder layers with
    cross-attention; 959,329,280 parameters, counted leaf by leaf), each
@@ -295,7 +299,11 @@ Phases, each printing one JSON line:
    prologue and one MLA MoE layer (``mla_config``, 5,193,528,320
    parameters; 160 experts, top-6, 2 shared) on DAG_MLA_CLIENTS = 2
    clients of DAG_MLA_ROUNDS = 1 round; ``dag_gemma2``, gemma2-2b whole on
-   DAG_GEMMA2_CLIENTS = 2 clients of DAG_GEMMA2_ROUNDS = 1 round (512
+   DAG_GEMMA2_CLIENTS = 2 clients of DAG_GEMMA2_ROUNDS = 1 round;
+   ``dag_qwen2vl``, qwen2-vl-72b cut to one layer (``mrope_config``,
+   3,369,109,504 parameters; M-RoPE at text positions in every forward the
+   loop makes, the 152,064-token unembedding in training) on
+   DAG_QWEN2VL_CLIENTS = 2 clients of DAG_QWEN2VL_ROUNDS = 1 round (512
    positions where none are named). A leg's store peaks at the genesis and
    every model published, 1 + clients x rounds models, which the host's
    MemAvailable (beside the genesis it already holds) must hold with
@@ -2388,15 +2396,28 @@ def lm_reference_check(tfm, cfg, backend, params, stream,
 
 def profiled(fn):
     """``fn()`` twice under torch.profiler (device activity only), the
-    first call letting the profiler start up: (the second call's trace,
-    its wall seconds).  ``fn`` ends by synchronising the card."""
+    first call letting the profiler start up: (the second call's device
+    events as (name, start ns, end ns), its wall seconds).  The events are
+    read from the profiler's raw results: its parsed events
+    (``prof.events()``) cost an H100 machine's host about 0.1 ms an event
+    to build, 19 s for the xLSTM round's 99,281 kernels.  ``fn`` ends by synchronising
+    the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    traced = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = []
+
+    def on_device(e):
+        # the profiler marks each step on the device too; that span
+        # covers the whole step and is no work of the card
+        return (e.device_type() == cuda and not e.is_user_annotation()
+                and not getattr(e, "is_hidden_event", lambda: False)()
+                and not e.name().startswith("ProfilerStep"))
 
     def keep(prof):
-        traced["events"] = list(prof.events())
-        traced["averages"] = list(prof.key_averages())
+        traced.extend((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                      for e in prof.profiler.kineto_results.events()
+                      if on_device(e))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],   # device work only
@@ -2415,28 +2436,19 @@ def device_busy(traced):
     """(busy microseconds: the union of the device's kernel and copy
     intervals, the intervals, the device kernels by time as (name, ms,
     count)) of a ``profiled`` trace."""
-    import torch
-    cuda = torch.autograd.DeviceType.CUDA
-
-    def on_device(name, annotation=False):
-        # the profiler marks each step on the device too; that span
-        # covers the whole step and is no work of the card
-        return not (annotation or name.startswith("ProfilerStep"))
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in traced.get("events", ())
-                   if e.device_type == cuda and on_device(
-                       e.name, getattr(e, "is_user_annotation", False)))
-    busy_us, end = 0.0, float("-inf")
+    spans = sorted((start, end) for _, start, end in traced)
+    busy_ns, end = 0, float("-inf")
     for start, stop in spans:                 # union of intervals
         if stop > end:
-            busy_us += stop - max(start, end)
+            busy_ns += stop - max(start, end)
             end = stop
-    top = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
-                  for a in traced.get("averages", ())
-                  if a.device_type == cuda and on_device(a.key)),
+    by_name = {}
+    for name, start, stop in traced:
+        ns, n = by_name.get(name, (0, 0))
+        by_name[name] = (ns + stop - start, n + 1)
+    top = sorted(((name, ns / 1e6, n) for name, (ns, n) in by_name.items()),
                  key=lambda kv: -kv[1])
-    return busy_us, spans, top
+    return busy_ns / 1e3, spans, top
 
 
 def profile_lm_round(backend, params, stream) -> dict:
@@ -2564,7 +2576,6 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     from repro_torch.core.aggregate import tree_leaves
     from repro_torch.core.coordinator import DagAflConfig, DagAflCoordinator
     from repro_torch.core.verify import verify_full_dag
-    from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.fl.backend import LMBackend
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import Runtime
@@ -2577,12 +2588,8 @@ def phase_lm_loop(kern, dev, *, phase, cfg, clients, local_steps,
     # launch/train.py's streams, drawn from a sub-vocabulary: its
     # vocab x vocab transition matrix would take 68.5 GB at internlm2's
     # 92,544 tokens and 34.4 GB at jamba's 65,536
-    streams = [make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
-                               order=1.5 + 0.5 * c, seed=c)
-               for c in range(clients)]
+    streams, global_test = lm_streams(clients)
     client_data = [{"train": s, "val": s, "test": s} for s in streams]
-    global_test = make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
-                                  seed=999)
     data_s = time.perf_counter() - t0
     backend = LMBackend(cfg, lr=3e-3, local_steps=local_steps, batch_size=8,
                         seq_len=512)
@@ -2748,15 +2755,26 @@ LM_COHORT_FLOOR_FACTOR = 2.0
 TRAIN_STEPS = 5
 
 
+# the LM streams made so far, by (vocabulary, order, seed)
+_LM_TOKENS: dict = {}
+
+
 def lm_streams(clients: int):
     """launch/train.py's streams over the LM paths' sub-vocabulary: one a
-    client, and the global test stream."""
+    client, and the global test stream.  Each stream is made once and
+    every call gets its own copy: ``make_lm_dataset``'s Python loop takes
+    about 0.5 s a stream, and the legs ask for some 80 streams."""
     from repro_torch.data.synthetic import make_lm_dataset
-    streams = [make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
-                               order=1.5 + 0.5 * c, seed=c)
-               for c in range(clients)]
-    return streams, make_lm_dataset(vocab=LM_DATA_VOCAB, n_tokens=50_000,
-                                    seed=999)
+
+    def stream(order: float, seed: int):
+        key = (LM_DATA_VOCAB, order, seed)
+        if key not in _LM_TOKENS:
+            _LM_TOKENS[key] = make_lm_dataset(vocab=LM_DATA_VOCAB,
+                                              n_tokens=50_000, order=order,
+                                              seed=seed)
+        return _LM_TOKENS[key].copy()
+    return ([stream(1.5 + 0.5 * c, c) for c in range(clients)],
+            stream(2.0, 999))
 
 
 def window_train_err(backend, agg, datasets, seeds, epochs, trained):
@@ -4748,7 +4766,7 @@ def phase_attention_variants_path(kern, dev) -> dict:
     """The attention variants at full width: gemma3-27b's sliding windows
     past 2,048 tokens (backend, local training, serving), deepseek-v2's
     MLA over MoE (backend and serving, and the dense prologue's training)
-    and qwen2-vl-72b's M-RoPE (forwards and training)."""
+    and qwen2-vl-72b's M-RoPE (forwards, training and serving)."""
     t0 = time.perf_counter()
     legs = {}
     for record in gemma3_backend_leg(kern, dev):
@@ -4773,6 +4791,9 @@ def phase_attention_variants_path(kern, dev) -> dict:
                                       phase="attention_variants_path")
     for record in mrope_leg(kern, dev):
         legs[record["leg"]] = record
+    legs["mrope_serve"] = serve_leg(kern, dev, "mrope_serve", mrope_config(),
+                                    MROPE_PARAMS,
+                                    phase="attention_variants_path")
     emit(phase="attention_variants_path_done",
          seconds=time.perf_counter() - t0)
     return legs
@@ -5612,6 +5633,13 @@ DAG_LARGE_BATCHES = (8, 4, 2)
 DAG_MOE_CLIENTS, DAG_MOE_ROUNDS = 2, 1
 # gemma2-2b whole: 2 clients of 1 round (3 models of 10.46 GB)
 DAG_GEMMA2_CLIENTS, DAG_GEMMA2_ROUNDS = 2, 1
+# qwen2-vl-72b's layer (dag_qwen2vl), 13.48 GB a model: 2 clients of 1
+# round store 3 models (40.4 GB); 2 rounds each would store 5 (67.4 GB),
+# which the host holds but the script's clock does not.  A client holds
+# three float32 copies, 40.4 GB, beside the activations, the largest of
+# which are the 152,064-token unembedding's float32 logits over 8 x 512
+# tokens (2.49 GB) and their gradient
+DAG_QWEN2VL_CLIENTS, DAG_QWEN2VL_ROUNDS = 2, 1
 # deepseek-v2's cut (dag_mla), 20.77 GB a model: 2 clients of 1 round
 # store 3 models (62.3 GB); 2 rounds each would store 5 (103.9 GB).  A
 # client holds 62.3 GB before activations, so batches down to 1 are tried
@@ -5983,11 +6011,13 @@ def phase_dag_large_path(kern, dev) -> dict:
     """The sequential DAG-AFL loop with the model store in host memory
     (``DagAflCoordinator(store_device="cpu")``) over gemma3-27b's period
     at 4,096 positions (``dag_gemma3``), Jamba's MoE cut (``dag_moe``),
-    deepseek-v2's MLA and MoE cut (``dag_mla``) and gemma2-2b whole
-    (``dag_gemma2``), and ``store_parity``: the LM path's world with the
-    store on the card and in host memory, equal to the bit.  The largest
-    store goes first, on a fresh host, and each later leg sizes its batch
-    while the host takes back the memory of the store before it."""
+    deepseek-v2's MLA and MoE cut (``dag_mla``), gemma2-2b whole
+    (``dag_gemma2``) and qwen2-vl-72b's layer (``dag_qwen2vl``), and
+    ``store_parity``: the LM path's world with the store on the card and
+    in host memory, equal to the bit.  The largest stores go first, on a
+    fresh host, and each later leg sizes its batch while the host takes
+    back the memory of the store before it; ``dag_qwen2vl``'s store (40.4
+    GB) follows gemma2's (31.4 GB), which the host holds beside it."""
     t0 = time.perf_counter()
     legs = {"dag_gemma3": dag_large_leg(
         kern, dev, "dag_gemma3", gemma3_config(), GEMMA3_PARAMS,
@@ -6007,6 +6037,10 @@ def phase_dag_large_path(kern, dev) -> dict:
                                        gemma2_config(), GEMMA2_PARAMS,
                                        clients=DAG_GEMMA2_CLIENTS,
                                        rounds=DAG_GEMMA2_ROUNDS)
+    legs["dag_qwen2vl"] = dag_large_leg(kern, dev, "dag_qwen2vl",
+                                        mrope_config(), MROPE_PARAMS,
+                                        clients=DAG_QWEN2VL_CLIENTS,
+                                        rounds=DAG_QWEN2VL_ROUNDS)
     emit(phase="dag_large_path_done", seconds=time.perf_counter() - t0)
     return legs
 
@@ -6205,14 +6239,16 @@ def hold_per_chip(kern, captured: dict, leg: str) -> dict:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         if key.startswith("flash"):
             # its bound and the library's time on the same inputs (the
-            # library computes no soft-cap)
+            # library computes no soft-cap; in float32 its products run
+            # without TF32, as runtime.resolve_device sets them)
             window = kw.get("window", -1)
             bound_ms, bound_by, _, _ = flash_bound(*args[:3], window)
             out[key].update(
                 window=window, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=device_ms(flash_library(
                     args[0].shape[2], window, args[0].device), [args[:3]], 5),
-                library_without_cap=kw.get("softcap", 0.0) > 0.0)
+                library_without_cap=kw.get("softcap", 0.0) > 0.0,
+                library_tf32=torch.backends.cuda.matmul.allow_tf32)
     return out
 
 
@@ -6983,7 +7019,7 @@ def main() -> None:
                               ("gemma3_global", ("gemma3_", "dag_gemma3"),
                                -1),
                               ("mla", ("mla_", "dag_mla"), -1),
-                              ("mrope", "mrope", -1),
+                              ("mrope", ("mrope", "dag_qwen2vl"), -1),
                               ("whisper", "whisper_", -1),
                               ("gemma2_local", ("gemma2_", "dag_gemma2"),
                                4096),
@@ -6994,10 +7030,10 @@ def main() -> None:
             p["flash_windows"].get(window, 0) for name, p in paths.items()
             if name.startswith(legs))
     # the DAG loops over the large configs sign at their models' widths,
-    # llama4 at deepseek-v2's 5,120
+    # llama4 at deepseek-v2's 5,120, dag_qwen2vl at qwen2-vl's 8,192
     also = {"hybrid": ("moe", "dag_moe"), "gemma2": ("dag_gemma2",),
             "lm": ("store_parity",), "gemma3": ("dag_gemma3",),
-            "mla": ("dag_mla", "llama4")}
+            "mla": ("dag_mla", "llama4"), "mrope": ("dag_qwen2vl",)}
     for width in sig_record["widths"]:
         # every CNN path signs at the CNN width, the MoE legs at Jamba's
         prefixes = (width["path"],) + also.get(width["path"], ())

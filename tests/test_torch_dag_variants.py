@@ -1,16 +1,21 @@
-"""The DAG-AFL loop over deepseek-v2's MLA and MoE cut and gemma3-27b's
-period, the port against the JAX reference, as ``chip_smoke.py``'s
-``dag_mla`` and ``dag_gemma3`` legs run them on the card at full width.
+"""The DAG-AFL loop over deepseek-v2's MLA and MoE cut, gemma3-27b's
+period and qwen2-vl-72b's layer, the port against the JAX reference, as
+``chip_smoke.py``'s ``dag_mla``, ``dag_gemma3`` and ``dag_qwen2vl`` legs
+run them on the card at full width.
 
 The worlds are ``test_torch_lm_backend.py``'s LM world (batch 8, 64
 positions, a 128-token vocabulary, 2 local SGD steps a round; batch 4 for
 gemma3's six layers, which keeps the file near a minute on one worker)
-over two cuts reduced to d_model 64 in both packages:
+over three cuts reduced to d_model 64 in both packages:
 
 * deepseek-v2 as the card leg cuts it: its dense prologue layer, then one
   MLA layer over a MoE feed-forward (4 experts, top-2, a shared expert);
 * gemma3-27b's published period, five local layers and a global one, the
-  local window 8, which the 64 positions pass.
+  local window 8, which the 64 positions pass;
+* qwen2-vl-72b cut to one layer, as the card leg cuts it: M-RoPE sections
+  and QKV biases at ``test_torch_mrope.py``'s head_dim of 128.  The loop
+  feeds text positions, (3, B, S) rows alike, in every forward it makes
+  (evaluation, signature, training), as the reference's backend does.
 
 The JAX weights are carried over by ``params_from_numpy``; both sides run in
 float32, the reference's eval and signature forwards on its interpret-mode
@@ -48,6 +53,7 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 from test_torch_baselines import few_torch_threads  # noqa: E402,F401
 from test_torch_coordinator import StubBackend, _stub_world  # noqa: E402
 from test_torch_lm_backend import KW, _jax_params, _streams, _tip_decisions  # noqa: E402
+from test_torch_mrope import _configs as _mrope_configs  # noqa: E402
 
 
 def _mla_configs():
@@ -76,9 +82,21 @@ def _gemma3_configs():
     return jc, tc
 
 
+def _qwen2_vl_configs():
+    """qwen2-vl-72b reduced (head_dim 128, vocabulary 128), cut as
+    ``chip_smoke.mrope_config`` cuts it: one layer."""
+    jc, tc = _mrope_configs(vocab=128)
+    jc = dataclasses.replace(jc, n_layers=1, stages=(
+        JStage(jc.stages[0].pattern, 1),))
+    tc = dataclasses.replace(tc, n_layers=1, stages=(
+        Stage(tc.stages[0].pattern, 1),))
+    return jc, tc
+
+
 # each cut's configs (reference, port) and backend arguments
 CONFIGS = {"mla": (_mla_configs, KW),
-           "gemma3": (_gemma3_configs, dict(KW, batch_size=4))}
+           "gemma3": (_gemma3_configs, dict(KW, batch_size=4)),
+           "qwen2_vl": (_qwen2_vl_configs, KW)}
 
 
 def test_cuts_are_the_card_legs_block_kinds():
@@ -90,6 +108,12 @@ def test_cuts_are_the_card_legs_block_kinds():
     jc, tc = _gemma3_configs()
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert [s.window for s in tc.layer_specs()] == [8] * 5 + [-1]
+    jc, tc = _qwen2_vl_configs()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert [(s.kind, s.ffn, s.window) for s in tc.layer_specs()] == [
+        ("attn", "dense", -1)]
+    assert tc.mrope_sections == (16, 24, 24) and tc.qkv_bias
+    assert sum(tc.mrope_sections) == tc.head_dim // 2
 
 
 def _world(n_clients):
@@ -138,8 +162,8 @@ def _agree(got, r_got, ref, r_ref, rounds):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_coordinator_runs_agree(name):
     """Three clients, two rounds each: the port's loop (the eval and
-    signature forwards on MLA's head dim of 48, or the local layers'
-    window) against the reference's."""
+    signature forwards on MLA's head dim of 48, the local layers' window,
+    or M-RoPE's three position rows) against the reference's."""
     got, r_got = _default_run(name)
     ref, r_ref = _ref_run(name, 3, 2)
     _agree(got, r_got, ref, r_ref, rounds=6)

@@ -4,8 +4,10 @@ of the serve launcher.
 
 JAX weights are carried over with ``params_from_numpy``; the reduced
 configs run in float32 on both sides: internlm2, qwen2 (QKV biases),
-gemma2 (a local window the decode passes, and soft-caps), the Jamba cut of
-one Mamba and one attention layer, an ``(mlstm, slstm)`` xLSTM period, and
+gemma2 (a local window the decode passes, and soft-caps), qwen2-vl-72b
+(M-RoPE sections and QKV biases; head_dim 128, so that its 64 half-dim
+frequencies hold all three sections, as in ``test_torch_mrope.py``), the
+Jamba cut of one Mamba and one attention layer, an ``(mlstm, slstm)`` xLSTM period, and
 the MoE configs' reduced first two layers (Jamba's ``(mamba, dense)``,
 ``(mamba, moe)``; llama4's ``(attn, dense)``, ``(attn, moe)`` with a shared
 expert): a prefill routes with the generous capacity, a decode step one
@@ -50,8 +52,8 @@ from repro_torch.runtime import Runtime, serve_runtime  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
-ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b", "hybrid", "xlstm",
-         "jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
+ARCHS = ["internlm2-1.8b", "qwen2-7b", "gemma2-2b", "qwen2-vl-72b", "hybrid",
+         "xlstm", "jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
 ATOL = 2e-5
 B, PROMPT, STEPS = 2, 12, 4
 
@@ -77,6 +79,11 @@ def _configs(arch):
                 cut(reduced(get_config("xlstm-125m"), d_model=64),
                     LayerSpec, Stage))
     jc, tc = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    if arch == "qwen2-vl-72b":
+        jc = dataclasses.replace(j_reduced(j_get_config(arch), d_model=64),
+                                 head_dim=128)
+        tc = dataclasses.replace(reduced(get_config(arch), d_model=64),
+                                 head_dim=128)
     if arch == "gemma2-2b":
         # a local window of 5 that the prompt and every decode step pass
         jc = dataclasses.replace(jc, stages=(JStage(
@@ -90,7 +97,7 @@ def _weights(jc, seed=0):
     params = jax.tree_util.tree_map(
         np.array, j_tfm.init_params(jax.random.PRNGKey(seed), jc))
     rng = np.random.default_rng(seed)
-    for stage in params["stages"]:        # non-zero QKV biases (qwen2)
+    for stage in params["stages"]:        # non-zero QKV biases (the qwen2s)
         for layer in stage.values():
             for name in ("bq", "bk", "bv"):
                 if name in layer["core"]:

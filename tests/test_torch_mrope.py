@@ -1,6 +1,7 @@
 """The port's M-RoPE (Qwen2-VL) against the JAX reference: ``apply_rope``
-with sections, a reduced qwen2-vl-72b under image-grid positions, and the
-train step at two microbatches with (3, B, S) positions.
+with sections, a reduced qwen2-vl-72b under image-grid positions, a
+prefill at grid positions with decode steps after it, and the train step
+at two microbatches with (3, B, S) positions.
 
 Positions are laid out as Qwen2-VL lays out an image (arXiv:2409.12191
 §2.1): text tokens, then a patch grid whose (temporal, height, width) ids
@@ -15,7 +16,8 @@ Tolerances and their reasons:
   ``sin`` of angles up to ~100 rad are other implementations, an ulp or
   two apart); text-only positions give plain RoPE bit for bit;
 * logits 2e-5, loss 1e-5, loss gradients 1e-6, as for the other reduced
-  decoders;
+  decoders; a prefill's and each decode step's logits and caches 2e-5, as
+  in ``test_torch_decode.py``;
 * the train step: loss and grad norm 1e-5, the signature within one flag
   a bucket, parameters 3e-5 after 3 AdamW steps, as for the MoE configs
   in ``test_torch_train.py``: where a gradient entry is of the order of
@@ -33,12 +35,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import reduced as j_reduced  # noqa: E402
+from repro.launch import serve as j_serve  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
 from repro.models import transformer as j_tfm  # noqa: E402
 from repro.runtime import Runtime as JRuntime  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.aggregate import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.runtime import Runtime  # noqa: E402
@@ -211,6 +215,48 @@ def test_loss_gradient_under_grid_positions_matches_reference():
     for p, g in zip(leaves, j_leaves):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=0,
                                    atol=1e-6)
+
+
+def test_decode_after_a_grid_prefill_matches_reference():
+    """A prompt prefilled at image-grid positions, then 4 greedy decode
+    steps, each at the text position ``pos`` (the decode step turns the
+    new query and key by ``pos`` in all three sections, as the
+    reference's does): the prefill's last logits and caches, and each
+    step's logits and caches."""
+    jc, tc = _configs()
+    np_params = _weights(jc)
+    batch = _batch(jc)
+    S, steps = batch["tokens"].shape[1], 4
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    tp = params_from_numpy(np_params, "cpu")
+    prompt = {k: batch[k] for k in ("tokens", "positions")}
+    j_logits, j_cache, _ = j_tfm.prefill(
+        jp, {k: jnp.asarray(v) for k, v in prompt.items()}, jc)
+    with torch.no_grad():
+        logits, cache, _ = tfm.prefill(
+            tp, {k: torch.from_numpy(v) for k, v in prompt.items()}, tc)
+
+    def agree(got, want, got_cache, want_cache):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=2e-5)
+        a, b = tree_leaves(got_cache), jax.tree_util.tree_leaves(want_cache)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0,
+                                       atol=2e-5)
+
+    agree(logits, j_logits, cache, j_cache)
+    j_cache = j_serve.extend_caches(j_cache, jc, steps)
+    cache = t_serve.extend_caches(cache, tc, steps)
+    tok = np.asarray(jnp.argmax(j_logits, -1)).astype(np.int32)[:, None]
+    for s in range(steps):
+        j_logits, j_cache = j_tfm.decode_step(jp, jnp.asarray(tok), j_cache,
+                                              jnp.int32(S + s), jc)
+        with torch.no_grad():
+            logits, cache = tfm.decode_step(tp, torch.from_numpy(tok), cache,
+                                            S + s, tc)
+        agree(logits, j_logits, cache, j_cache)
+        tok = np.asarray(jnp.argmax(j_logits, -1)).astype(np.int32)[:, None]
 
 
 def test_split_cuts_positions_on_axis_1():
